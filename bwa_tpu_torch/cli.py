@@ -1,0 +1,241 @@
+"""Command-line interface, flag-compatible with the reference bwa.
+
+    python -m bwa_tpu_torch.cli index [-p prefix] <in.fasta>
+    python -m bwa_tpu_torch.cli mem [options] [--device cuda|cpu] <idx> <in.fq>
+
+mem runs single-end reads; the device defaults to the CUDA card.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from bwa_tpu_torch import __version__
+
+
+def _hdr_lines(bnt, hdr_line: str | None, pg: str) -> str:
+    """bwa_print_sam_hdr (bwa.c:407-441)."""
+    out = []
+    n_hd = n_sq = 0
+    if hdr_line:
+        for ln in hdr_line.split("\n"):
+            if ln.startswith("@HD\t"):
+                n_hd += 1
+            if ln.startswith("@SQ\t"):
+                n_sq += 1
+    if n_hd == 0:
+        out.append("@HD\tVN:1.5\tSO:unsorted\tGO:query")
+    if n_sq == 0:
+        for c in bnt.contigs:
+            line = f"@SQ\tSN:{c.name}\tLN:{c.length}"
+            if c.is_alt:
+                line += "\tAH:*"
+            out.append(line)
+    if hdr_line:
+        out.append(hdr_line)
+    out.append(pg)
+    return "\n".join(out) + "\n"
+
+
+def _escape(s: str) -> str:
+    return (s.replace("\\t", "\t").replace("\\n", "\n")
+            .replace("\\r", "\r").replace("\\\\", "\\"))
+
+
+def _pop_device(argv: list[str]) -> tuple[list[str], str]:
+    """Strip --device DEV / --device=DEV from argv."""
+    out, device = [], "cuda"
+    it = iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it)
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            out.append(a)
+    return out, device
+
+
+def main_mem(argv: list[str], out_fp=None) -> int:
+    import getopt as getopt_mod
+    import math
+
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
+    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.options import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ,
+                                       MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
+                                       MEM_F_NOPAIRING, MEM_F_REF_HDR,
+                                       MEM_F_SOFTCLIP, MEM_F_XB, MemOptions)
+
+    argv, device = _pop_device(argv)
+    opt = MemOptions()
+    mode = None
+    fixed_chunk_size = -1
+    rg_line = rg_id = hdr_line = None
+    ignore_alt = copy_comment = False
+    out_fp = out_fp if out_fp is not None else sys.stdout
+    opened_out = False
+    try:
+        opts, args = getopt_mod.getopt(
+            argv, "51qpaMCSPVYjuk:c:v:s:r:t:R:A:B:O:E:U:w:L:d:T:Q:D:m:I:N:o:f:W:x:G:h:y:K:X:H:F:z:")
+    except getopt_mod.GetoptError as e:
+        print(f"[E::main_mem] {e}", file=sys.stderr)
+        return 1
+    for c, a in opts:
+        c = c[1:]
+        if c in ("p", "I", "5"):
+            raise NotImplementedError(f"mem -{c} is not ported yet")
+        if c == "k": opt.set("min_seed_len", int(a))
+        elif c == "1": pass
+        elif c == "x": mode = a
+        elif c == "w": opt.set("w", int(a))
+        elif c == "A": opt.set("a", int(a))
+        elif c == "B": opt.set("b", int(a))
+        elif c == "T": opt.set("T", int(a))
+        elif c == "U": opt.set("pen_unpaired", int(a))
+        elif c == "t": opt.n_threads = max(int(a), 1)
+        elif c == "P": opt.flag |= MEM_F_NOPAIRING
+        elif c == "a": opt.flag |= MEM_F_ALL
+        elif c == "M": opt.flag |= MEM_F_NO_MULTI
+        elif c == "S": opt.flag |= MEM_F_NO_RESCUE
+        elif c == "Y": opt.flag |= MEM_F_SOFTCLIP
+        elif c == "V": opt.flag |= MEM_F_REF_HDR
+        elif c == "q": opt.flag |= MEM_F_KEEP_SUPP_MAPQ
+        elif c == "u": opt.flag |= MEM_F_XB
+        elif c == "c": opt.set("max_occ", int(a))
+        elif c == "d": opt.set("zdrop", int(a))
+        elif c == "v": pass
+        elif c == "j": ignore_alt = True
+        elif c == "r": opt.set("split_factor", float(a))
+        elif c == "D": opt.set("drop_ratio", float(a))
+        elif c == "m": opt.set("max_matesw", int(a))
+        elif c == "s": opt.set("split_width", int(a))
+        elif c == "G": opt.set("max_chain_gap", int(a))
+        elif c == "N": opt.set("max_chain_extend", int(a))
+        elif c in ("o", "f"): out_fp = open(a, "w"); opened_out = True
+        elif c == "W": opt.set("min_chain_weight", int(a))
+        elif c == "y": opt.set("max_mem_intv", int(a))
+        elif c == "C": copy_comment = True
+        elif c == "K": fixed_chunk_size = int(a)
+        elif c == "X": opt.mask_level = float(a)
+        elif c == "F": pass
+        elif c == "h":
+            opt.set("max_XA_hits", None)
+            parts = a.replace(",", " ").split()
+            opt.max_XA_hits = opt.max_XA_hits_alt = int(parts[0])
+            if len(parts) > 1:
+                opt.max_XA_hits_alt = int(parts[1])
+        elif c == "z": opt.XA_drop_ratio = float(a)
+        elif c == "Q":
+            opt.set("mapQ_coef_len", int(a))
+            # int field in the reference (bwamem.h:79): log() truncates
+            opt.mapQ_coef_fac = (int(math.log(opt.mapQ_coef_len))
+                                 if opt.mapQ_coef_len > 0 else 0)
+        elif c == "O":
+            parts = a.replace(",", " ").split()
+            opt.set("o_del", int(parts[0]))
+            opt.set("o_ins", int(parts[-1]))
+        elif c == "E":
+            parts = a.replace(",", " ").split()
+            opt.set("e_del", int(parts[0]))
+            opt.set("e_ins", int(parts[-1]))
+        elif c == "L":
+            parts = a.replace(",", " ").split()
+            opt.set("pen_clip5", int(parts[0]))
+            opt.set("pen_clip3", int(parts[-1]))
+        elif c == "R":
+            rg_line = _escape(a)
+            if not rg_line.startswith("@RG") or "\tID:" not in rg_line:
+                print("[E::main_mem] malformed @RG line", file=sys.stderr)
+                return 1
+            rg_id = rg_line.split("\tID:")[1].split("\t")[0].split("\n")[0]
+        elif c == "H":
+            ln = _escape(a) if a.startswith("@") else open(a).read().rstrip("\n")
+            hdr_line = (hdr_line + "\n" + ln) if hdr_line else ln
+    if rg_line:
+        hdr_line = (hdr_line + "\n" + rg_line) if hdr_line else rg_line
+    if len(args) == 3:
+        raise NotImplementedError("paired-end mem is not ported yet")
+    if len(args) != 2:
+        print("Usage: python -m bwa_tpu_torch.cli mem [options] "
+              "[--device cuda|cpu] <idxbase> <in.fq>", file=sys.stderr)
+        return 1
+    opt.apply_mode(mode)
+
+    fm = FMIndex.load(args[0])
+    if ignore_alt:
+        for c0 in fm.bnt.contigs:
+            c0.is_alt = False
+    engine = make_engine(fm, device)
+    ks = SeqReader(args[1])
+    pg = ("@PG\tID:bwa\tPN:bwa-tpu-torch\tVN:" + __version__
+          + "\tCL:bwa-tpu-torch mem " + " ".join(argv))
+    out_fp.write(_hdr_lines(fm.bnt, hdr_line, pg))
+    chunk = (fixed_chunk_size if fixed_chunk_size > 0
+             else opt.chunk_size * opt.n_threads)
+    n_processed = 0
+    while True:
+        reads = read_batch(ks, None, chunk, copy_comment)
+        if not reads:
+            break
+        process_seqs(opt, engine, fm, reads, n_processed, rg_id)
+        n_processed += len(reads)
+        for r in reads:
+            out_fp.write(r.sam)
+    if opened_out:
+        out_fp.close()
+    return 0
+
+
+def main_index(argv: list[str]) -> int:
+    import getopt as getopt_mod
+
+    from bwa_tpu_torch.index.build import index_build
+
+    prefix = None
+    is_64 = False
+    algo = "auto"
+    block_size = None
+    opts, args = getopt_mod.getopt(argv, "6a:p:b:")
+    for c, a in opts:
+        if c == "-p":
+            prefix = a
+        elif c == "-6":
+            is_64 = True
+        elif c == "-a":
+            algo = a
+        elif c == "-b":
+            block_size = int(a)
+    if not args:
+        print("Usage: python -m bwa_tpu_torch.cli index [-a is|bwtsw|rb2] "
+              "[-b blockLen] [-p prefix] <in.fasta>", file=sys.stderr)
+        return 1
+    if prefix is None:
+        prefix = args[0] + (".64" if is_64 else "")
+    index_build(args[0], prefix, algo=algo, block_size=block_size)
+    return 0
+
+
+def main(argv=None, out_fp=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(f"Program: bwa-tpu-torch (BWA-compatible read aligner on "
+              f"PyTorch/CUDA)\nVersion: {__version__}\n"
+              f"Usage:   python -m bwa_tpu_torch.cli <command> [options]\n\n"
+              f"Command: index     index sequences in the FASTA format\n"
+              f"         mem       BWA-MEM algorithm (single-end)\n",
+              file=sys.stderr)
+        return 1
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "mem":
+        return main_mem(rest, out_fp=out_fp)
+    if cmd == "index":
+        return main_index(rest)
+    print(f"[main] unrecognized command '{cmd}'", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

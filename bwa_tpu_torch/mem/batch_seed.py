@@ -1,0 +1,257 @@
+"""Batch seeding: mem_collect_intv (bwamem.c:140-188) over a whole
+read batch, with the seeding machine on the engine's device.
+
+The host packs reads into machine lanes (pack_k=2 N-separated short reads
+per lane, or one long read sharded over several lanes with provenance),
+climbs a device cap ladder when a bucket overflows, demuxes the lanes back
+to per-read flat seed arrays, and batches the occurrence SA lookups.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _pad_reads(codes_list, L: int) -> tuple[np.ndarray, np.ndarray]:
+    B = len(codes_list)
+    q = np.full((B, L), 4, dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i, c in enumerate(codes_list):
+        q[i, : len(c)] = c
+        lens[i] = len(c)
+    return q, lens
+
+
+# Lanes per machine call.  The sizes are the JAX package's, where every
+# shape was a separately compiled program (12288 lanes measured ~7% faster
+# than 8192 on its TPU headline); K1 takes any shape, and keeping the
+# sizes makes both packages build the same lanes, which the tests compare.
+BATCH_BUCKET = 12288
+MAX_SHARDS = 8  # lanes one long read is sharded over, at most
+
+
+def _lane_bucket(L: int, nb: int | None = None) -> int:
+    """Lanes per machine call: long reads carry many more steps per lane
+    and wider q streams, so shrink the lane count with read length; a
+    sub-bucket batch also shrinks to the next power of two."""
+    if L <= 256:
+        b = BATCH_BUCKET
+    elif L <= 512:
+        b = BATCH_BUCKET // 2
+    elif L <= 1024:
+        b = BATCH_BUCKET // 4
+    else:
+        b = BATCH_BUCKET // 8
+    if nb is not None and nb < b:
+        b = max(256, 1 << (nb - 1).bit_length())
+    return b
+
+
+def _len_bucket(L: int) -> int:
+    return max(64, -(-L // 64) * 64)
+
+
+def _pack_bucket(opt, chunk, cap_s: int):
+    """Pack a bucket's reads pack_k per machine lane, separated by an
+    ambiguous base: the state machine treats N as a hard boundary in
+    every pass, so a packed lane behaves exactly like pack_k independent
+    reads while per-lane step totals average out.
+
+    Long reads invert the packing: one read SHARDED over n_shard lanes,
+    each covering a slice of the start-cursor range (exact -- see
+    ops/fm_machine.py::seed_machine_seg's lane-sharding note), so one
+    long read's serial SMEM walk is split over several threads.
+    Returns (q, lens, L, B2, pack_k, cs, shard, n_shard);
+    shard is None when unsharded."""
+    nb = len(chunk)
+    L = _len_bucket(max(len(c) for c in chunk))
+    pack_k = 2
+    n_shard = 1
+    if L > 256:
+        pack_k = 1  # long reads carry enough work per lane already
+        n_shard = max(1, min(MAX_SHARDS, _lane_bucket(L) // max(nb, 1)))
+    bucket = _lane_bucket(L, nb * n_shard)
+    if nb < bucket // (2 * n_shard):
+        pack_k = 1
+    if n_shard > 1:
+        B2 = bucket
+        q = np.full((B2, L), 4, np.uint8)
+        lens = np.zeros(B2, np.int32)
+        job_lo = np.zeros(B2, np.int32)
+        hi1 = np.zeros(B2, np.int32)
+        hi3 = np.zeros(B2, np.int32)
+        for r, c in enumerate(chunk):
+            ln = len(c)
+            step = -(-ln // n_shard)
+            for s in range(n_shard):
+                lane = r * n_shard + s
+                q[lane, :ln] = c
+                lens[lane] = ln
+                job_lo[lane] = min(s * step, ln)
+                hi1[lane] = min((s + 1) * step, ln) if s < n_shard - 1 \
+                    else ln
+                hi3[lane] = ln if s == 0 else 0
+        return q, lens, L, B2, pack_k, cap_s, (job_lo, hi1, hi3), n_shard
+    B2 = bucket // pack_k
+    Lp = pack_k * (L + 1)
+    q = np.full((B2, Lp), 4, np.uint8)
+    lens = np.zeros(B2, np.int32)
+    for r in range(pack_k):
+        for i in range(B2):
+            ridx = r * B2 + i
+            if ridx < nb:
+                c = chunk[ridx]
+                q[i, r * (L + 1):r * (L + 1) + len(c)] = c
+                lens[i] = r * (L + 1) + len(c)
+    return q, lens, L, B2, pack_k, cap_s * pack_k, None, 1
+
+
+def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
+    """Demux packed lanes back to per-read flat arrays (bucket-local
+    offsets).  Rows are sorted by start within a lane, so a stable sort
+    by read id keeps order.  SA lookups go through fm.sa_lookup (dense
+    sidecar on small genomes, native batch walker at scale).
+
+    Sharded long-read lanes (n_shard > 1) instead re-sort per read by
+    (start, end, tag) and drop the cross-lane duplicates: rows equal in
+    (read, start, end, provenance tag) are the same SMEM found from two
+    shards' ranges; duplicates the reference itself produces differ in
+    tag and are kept (ties of (start, end) denote the same interval, so
+    any tie order is output-equivalent — ks_introsort on .info is
+    unstable too)."""
+    max_occ = opt.max_occ
+    if n_shard > 1:
+        s0, s1, s2, ss, se, sn, tg = seeds_out
+        sn_l = sn.astype(np.int64)
+        lmask = np.arange(s0.shape[1])[None, :] < sn_l[:, None]
+        lane_id = np.broadcast_to(np.arange(B2)[:, None], lmask.shape)[lmask]
+        rid_all = lane_id // n_shard
+        start_a = ss[lmask].astype(np.int64)
+        end_a = se[lmask].astype(np.int64)
+        tag_a = tg[lmask].astype(np.int64)
+        order = np.lexsort((tag_a, end_a, start_a, rid_all))
+        order = order[rid_all[order] < nb]
+        key = np.stack([rid_all[order], start_a[order], end_a[order],
+                        tag_a[order]], axis=1)
+        dup = np.zeros(len(order), bool)
+        if len(order) > 1:
+            dup[1:] = (key[1:] == key[:-1]).all(axis=1)
+        order = order[~dup]
+        rid_sorted = rid_all[order]
+        k0 = s0[lmask][order].astype(np.int64)
+        x2 = s2[lmask][order].astype(np.int64)
+        start = start_a[order].astype(np.int32)
+        end = end_a[order].astype(np.int32)
+        sn_v = np.bincount(rid_sorted, minlength=nb)[:nb]
+    else:
+        s0, s1, s2, ss, se, sn = seeds_out
+        sn_l = sn.astype(np.int64)
+        # the seed arrays may come back narrower than cs (D2H width diet
+        # slices to a bucketed max(sn)); mask by the actual width
+        lmask = np.arange(s0.shape[1])[None, :] < sn_l[:, None]
+        lane_id = np.broadcast_to(np.arange(B2)[:, None], lmask.shape)[lmask]
+        start_p = ss[lmask].astype(np.int64)
+        rslot = start_p // (L + 1)
+        read_id = rslot * B2 + lane_id
+        order = np.argsort(read_id, kind="stable")
+        keep = read_id[order] < nb  # drop pad-lane rows
+        order = order[keep]
+        rid_sorted = read_id[order]
+        k0 = s0[lmask][order].astype(np.int64)
+        x2 = s2[lmask][order].astype(np.int64)
+        off_p = (rslot * (L + 1))[order].astype(np.int64)
+        start = (start_p[order] - off_p).astype(np.int32)
+        end = (se[lmask].astype(np.int64)[order] - off_p).astype(np.int32)
+        sn_v = np.bincount(rid_sorted, minlength=nb)[:nb]
+    counts = np.where(x2 > max_occ, max_occ, x2)
+    step = np.where(x2 > max_occ, x2 // max_occ, 1)
+    tot = int(counts.sum())
+    csum = np.cumsum(counts)
+    grp = np.repeat(np.arange(len(counts)), counts)
+    within = np.arange(tot, dtype=np.int64) - np.repeat(csum - counts, counts)
+    ranks = k0[grp] + step[grp] * within
+    rbegs = fm.sa_lookup(ranks)
+    iv_off = np.zeros(nb + 1, np.int32)       # per READ
+    iv_off[1:] = np.cumsum(sn_v)
+    rb_off = np.zeros(len(counts) + 1, np.int32)  # per SEED
+    rb_off[1:] = csum
+    return (iv_off, x2, start, end, rbegs, rb_off)
+
+
+def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24):
+    """Generator yielding (lo, nb, flat | None) per bucket, with the NEXT
+    bucket's device seeding dispatched before this bucket's host demux —
+    the kt_pipeline analog (kthread.c:119-147): the device seeds bucket k+1
+    while the host demuxes/finalizes bucket k.  flat arrays use
+    bucket-local offsets; None = exactness fallback (seed-cap overflow
+    even at the roomy retry cap) — redo that bucket via the tuple path."""
+    B = len(codes_list)
+    if B == 0:
+        return
+    bucket0 = _lane_bucket(_len_bucket(max(len(c) for c in codes_list)))
+    los = list(range(0, B, bucket0))
+    packed = {}
+
+    def _dispatch(idx):
+        chunk = codes_list[los[idx]:los[idx] + bucket0]
+        q, lens, L, B2, pack_k, cs, shard, ns = _pack_bucket(opt, chunk,
+                                                             cap_s)
+        h = engine.collect_seeds_dispatch(q, lens, opt, cs, shard=shard)
+        packed[idx] = (q, lens, L, B2, pack_k, cs, shard, ns, h, len(chunk))
+
+    _dispatch(0)
+    for idx, lo in enumerate(los):
+        if idx + 1 < len(los):
+            _dispatch(idx + 1)  # next bucket's seeding in flight
+        q, lens, L, B2, pack_k, cs, shard, ns, h, nb = packed.pop(idx)
+        out = engine.collect_seeds_wait(h)
+        if (out[5] > cs).any():
+            # seed-rich / deep-stack bucket (repeat regions): climb a
+            # cap ladder on DEVICE before any host fallback — on a
+            # GRCh38-scale repeat genome the host-spec redo was 90% of
+            # the whole alignment wall time
+            ladder = [(96 * pack_k, 32), (256 * pack_k, 64)]
+            # a long-read lane can hold more seeds than the top rung (a
+            # 10 kb pacbio read sharded over two lanes finds ~800), and the
+            # host fallback re-seeds the whole bucket one read at a time:
+            # one more rung, as wide as the lane, comes first
+            lane_cap = -(-q.shape[1] // 64) * 64
+            if lane_cap > ladder[-1][0]:
+                ladder.append((lane_cap, 64))
+            for cs2, sc2 in ladder:
+                cs = cs2
+                out = engine.collect_seeds(q, lens, opt, cs2,
+                                           stack_cap=sc2, shard=shard)
+                if not (out[5] > cs2).any():
+                    break
+            else:
+                yield lo, nb, None  # exactness fallback (tuple path)
+                continue
+        yield lo, nb, _demux_bucket(opt, fm, out, nb, L, B2, cs, ns)
+
+
+def occurrence_positions(opt, engine, mems_list):
+    """For every read's intervals, the sampled occurrence SA rows and their
+    reference positions (the bwt_sa calls of mem_chain, bwamem.c:304-309),
+    batched flat across the batch.  Returns per-read {k: rbeg} dicts."""
+    flat_ks = []
+    owners = []
+    for b, mems in enumerate(mems_list):
+        for iv in mems:
+            step = iv[2] // opt.max_occ if iv[2] > opt.max_occ else 1
+            k = 0
+            count = 0
+            while k < iv[2] and count < opt.max_occ:
+                flat_ks.append(iv[0] + k)
+                owners.append(b)
+                k += step
+                count += 1
+    if not flat_ks:
+        return [dict() for _ in mems_list]
+    ks = np.asarray(flat_ks, dtype=np.int64)
+    pos = engine.sa_many(ks)
+    caches = [dict() for _ in mems_list]
+    for b, k, p in zip(owners, flat_ks, pos):
+        caches[b][int(k)] = int(p)
+    return caches
+

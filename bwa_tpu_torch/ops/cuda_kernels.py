@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by nvcc for sm_90a into its own shared library
+with a plain C interface, at first use, into the repository's
+build/kernels directory (git-ignored), keyed by a hash of the source; all
+sources compile in parallel.  The libraries are loaded with ctypes;
+pointers and the stream are passed as Python ints.  Every entry point
+launches on PyTorch's current stream, allocates nothing, and raises if the
+launch is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("seed_machine.cu", "ksw_band.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _so_path(src: str) -> Path:
+    h = hashlib.sha256((_CSRC / src).read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD / f"{Path(src).stem}_{h}.so"
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every missing kernel library (one nvcc per source, all
+    started together) and load them all."""
+    with _lock:
+        if len(_libs) == len(SOURCES):
+            return _libs
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for src in SOURCES:
+            so = _so_path(src)
+            if so.exists():
+                continue
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            procs[src] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, so)
+        for src, (p, tmp, so) in procs.items():
+            out, _ = p.communicate()
+            build_log[src] = out
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+            os.replace(tmp, so)
+        for src in SOURCES:
+            _libs[src] = ctypes.CDLL(str(_so_path(src)))
+        _bind(_libs)
+        return _libs
+
+
+def _bind(libs) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f = libs["seed_machine.cu"].bwa_seed_machine
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32,
+                  vp, vp, vp, vp, vp, i32, i32, i64, i64, i32, i32, i32,
+                  i32, vp, vp, vp, vp, vp, vp, vp, vp]
+    f = libs["ksw_band.cu"].bwa_ksw_band
+    f.restype = ctypes.c_int
+    f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                  i32, i32, i32, i32, i32, i32, i32, vp, vp]
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
+                 hi3, min_seed_len, split_len, split_width, max_intv3, cap,
+                 cap_s, use_p3, tagged, seeds, seed_n, ovf, done_step, steps,
+                 stk, qmask) -> None:
+    """Launch K1 (csrc/seed_machine.cu) on the current stream."""
+    lib = build_all()["seed_machine.cu"]
+    B, L = q.shape
+    rc = lib.bwa_seed_machine(
+        int(seeds.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
+        _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(qlen),
+        _ptr(nv), _ptr(job_lo), _ptr(hi1), _ptr(hi3), int(min_seed_len),
+        int(split_len), int(split_width), int(max_intv3), int(cap),
+        int(cap_s), int(use_p3), int(tagged), _ptr(seeds), _ptr(seed_n),
+        _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(stk), _ptr(qmask),
+        _stream(q))
+    _check(rc, "seed_machine")
+
+
+def ksw_band(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen, w,
+             h0, mat, o_del, e_del, o_ins, e_ins, zdrop, P, out) -> None:
+    """Launch K2 (csrc/ksw_band.cu) on the current stream."""
+    lib = build_all()["ksw_band.cu"]
+    n = qbase.shape[0]
+    rc = lib.bwa_ksw_band(
+        _ptr(pac), int(l_pac), _ptr(qflat), qflat.shape[0], _ptr(qbase),
+        _ptr(qdir), _ptr(qlen), _ptr(tbase), _ptr(tdir), _ptr(tlen), _ptr(w),
+        _ptr(h0), ctypes.cast((ctypes.c_int32 * 25)(*mat), ctypes.c_void_p),
+        int(o_del), int(e_del), int(o_ins), int(e_ins), int(zdrop), int(P),
+        n, _ptr(out), _stream(qbase))
+    _check(rc, "ksw_band")
