@@ -36,8 +36,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 GENOME_LEN = 4_641_652
 SEED = 20261016
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (on-chip-measurement guide)
-INT_OPS_PER_S = 67e12       # the guide's non-tensor 32-bit rate
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
+INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak rate
 
 
 def fail(msg: str) -> None:
