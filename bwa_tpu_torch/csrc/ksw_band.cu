@@ -7,16 +7,19 @@
 // extensions (ksw.c:416-515 semantics) in band-relative coordinates
 // p = j - (i - W), W = P/2 - 1.
 //
-// Design: one block of P threads per problem, thread p owning band slot
-// p.  The block sweeps the target rows i = 0..tlen-1 and stops at the
-// first row where the problem is done (row max 0 or z-drop) -- nothing
-// after that row can change an output.  Per row:
+// Design: one block per problem, thread t owning the S consecutive band
+// slots p = t*S .. t*S+S-1 (S = 1 up to P = 1024, 2 up to 2048, 4 up to
+// 4096, so a block never exceeds 1024 threads).  The block sweeps the
+// target rows i = 0..tlen-1 and stops at the first row where the problem
+// is done (row max 0 or z-drop) -- nothing after that row can change an
+// output.  Per row:
 //   * the band slides one column right: slot p takes slot p+1's H/E and
 //     query code, and slot P-1 takes q[i-W+P-1] with the first-row eh
 //     init value (stale cells keep their init, as in the reference);
 //   * the diagonal H(i-1, j-1) is the slot's own H, E(i-1, j) the slot's
 //     own E, and F is an in-row prefix max of max(M - oe_ins, 0) +
-//     j*e_ins (a block scan: warp shuffles, then the warp totals);
+//     j*e_ins (a scan over the thread's own slots, then a block scan of
+//     the thread totals: warp shuffles, then the warp totals);
 //   * block reductions give the row max with its largest column (ties go
 //     to the larger column), and the first/last non-zero cells that set
 //     the adaptive band for the next row.
@@ -36,7 +39,8 @@
 namespace {
 
 constexpr int NEG = -(1 << 30);
-constexpr int MAXW = 32;  // warps per block (P <= 1024)
+constexpr int MAXW = 32;      // warps per block (1024 threads)
+constexpr int MAX_P = 4096;   // widest band: 4 slots per thread
 
 struct BandArgs {
   const uint8_t *pac;     // 2-bit packed forward reference
@@ -79,6 +83,8 @@ __device__ __forceinline__ int eh_init(int j, int h0, int e1, int e_ins,
   return prev > e_ins ? fill : 0;
 }
 
+__device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
+
 // block-wide reductions: every thread gets the result
 __device__ int64_t block_max64(int64_t v, int64_t *red) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -103,21 +109,25 @@ __device__ int block_max32(int v, int64_t *red) {
   return (int)block_max64((int64_t)v, red);
 }
 
-// inclusive prefix max over the block (thread order); result per thread
-__device__ int block_scan_max(int v, int *wtot) {
+// exclusive prefix max over the block (thread order): the max of the
+// values of all lower threads, NEG for thread 0
+__device__ int block_scan_max_excl(int v, int *wtot) {
   int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   for (int o = 1; o < 32; o <<= 1) {
     int u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v = u > v ? u : v;
+    if (lane >= o) v = imax(u, v);
   }
+  int ex = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) ex = NEG;
   if (lane == 31) wtot[wid] = v;
   __syncthreads();
   int pre = NEG;
-  for (int k = 0; k < wid; ++k) pre = wtot[k] > pre ? wtot[k] : pre;
+  for (int k = 0; k < wid; ++k) pre = imax(wtot[k], pre);
   __syncthreads();
-  return pre > v ? pre : v;
+  return imax(pre, ex);
 }
 
+template <int S>
 __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
   extern __shared__ int smem[];
   const int P = a.P, W = a.W;
@@ -129,7 +139,7 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
   __shared__ int wtot[MAXW];
 
   const int prob = blockIdx.x;
-  const int p = threadIdx.x;
+  const int p0 = threadIdx.x * S;  // this thread's slots: p0 .. p0+S-1
   const int64_t qb = a.qbase[prob], tb = a.tbase[prob];
   const int qd = a.qdir[prob], td = a.tdir[prob];
   const int qlen = a.qlen[prob], tlen = a.tlen[prob];
@@ -139,9 +149,13 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
   const int e1 = h0 - oe_ins > 0 ? h0 - oe_ins : 0;
 
   // row-0 band state
-  sH[p] = eh_init(p - W, h0, e1, e_ins, qlen);
-  sE[p] = 0;
-  sQ[p] = q_at(a, qb, qd, qlen, p - W);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int p = p0 + k;
+    sH[p] = eh_init(p - W, h0, e1, e_ins, qlen);
+    sE[p] = 0;
+    sQ[p] = q_at(a, qb, qd, qlen, p - W);
+  }
   int beg = 0, end = qlen, mx = h0, mx_i = -1, mx_j = -1, mx_ie = -1;
   int gsc = -1, mx_off = 0, rows = 0;
   __syncthreads();
@@ -149,46 +163,73 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
   for (int i = 0; i < tlen; ++i) {
     rows = i + 1;
     if (i > 0) {  // slide the band one column right
-      int j_ent = i - W + P - 1;
-      int hn = p == P - 1 ? eh_init(j_ent, h0, e1, e_ins, qlen) : sH[p + 1];
-      int en = p == P - 1 ? 0 : sE[p + 1];
-      int qn = p == P - 1 ? q_at(a, qb, qd, qlen, j_ent) : sQ[p + 1];
+      const int j_ent = i - W + P - 1;
+      int hn[S], en[S], qn[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const int p = p0 + k;
+        const bool last = p == P - 1;
+        hn[k] = last ? eh_init(j_ent, h0, e1, e_ins, qlen) : sH[p + 1];
+        en[k] = last ? 0 : sE[p + 1];
+        qn[k] = last ? q_at(a, qb, qd, qlen, j_ent) : sQ[p + 1];
+      }
       __syncthreads();
-      sH[p] = hn;
-      sE[p] = en;
-      sQ[p] = qn;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        sH[p0 + k] = hn[k];
+        sE[p0 + k] = en[k];
+        sQ[p0 + k] = qn[k];
+      }
       __syncthreads();
     }
     const int tci = pac_at(a, tb + (int64_t)td * i);
-    const int colj = p + (i - W);
     const int beg_r = beg > i - w ? beg : i - w;
     int end_r = end < i + w + 1 ? end : i + w + 1;
     end_r = end_r < qlen ? end_r : qlen;
     int h1 = h0 - (a.o_del + e_del * (i + 1));
     h1 = h1 > 0 ? h1 : 0;
     const int h1_init = beg_r == 0 ? h1 : 0;
-    const bool inband = colj >= beg_r && colj < end_r;
-    const int H = sH[p], E = sE[p];
-    const int S = a.mat[tci * 5 + sQ[p]];
-    int M = H != 0 ? H + S : 0;
-    M = inband ? M : NEG;
-    const int e_cur = inband ? E : NEG;
-    int g = M - oe_ins > 0 ? M - oe_ins : 0;
-    g = inband ? g : NEG;
-    const int run = block_scan_max(g + colj * e_ins, wtot);
-    sRun[p] = run;
+
+    int colj[S], Hold[S], Eold[S], M[S], e_cur[S], run[S];
+    bool inband[S];
+    int loc = NEG;  // prefix max over this thread's slots
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int p = p0 + k;
+      colj[k] = p + (i - W);
+      inband[k] = colj[k] >= beg_r && colj[k] < end_r;
+      Hold[k] = sH[p];
+      Eold[k] = sE[p];
+      const int sc = a.mat[tci * 5 + sQ[p]];
+      const int m = Hold[k] != 0 ? Hold[k] + sc : 0;
+      M[k] = inband[k] ? m : NEG;
+      e_cur[k] = inband[k] ? Eold[k] : NEG;
+      const int g = inband[k] ? imax(M[k] - oe_ins, 0) : NEG;
+      loc = imax(loc, g + colj[k] * e_ins);
+      run[k] = loc;
+    }
+    const int pre = block_scan_max_excl(loc, wtot);
+#pragma unroll
+    for (int k = 0; k < S; ++k) sRun[p0 + k] = imax(pre, run[k]);
     __syncthreads();
-    int F = p >= 1 ? sRun[p - 1] - (colj - 1) * e_ins : NEG;
-    if (colj == beg_r) F = 0;
-    if (!inband) F = NEG;
-    int Hrow = M > e_cur ? M : e_cur;
-    Hrow = Hrow > F ? Hrow : F;
-    if (!inband) Hrow = NEG;
+    int Hrow[S];
+    int64_t key = INT64_MIN;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int p = p0 + k;
+      int F = p >= 1 ? sRun[p - 1] - (colj[k] - 1) * e_ins : NEG;
+      if (colj[k] == beg_r) F = 0;
+      if (!inband[k]) F = NEG;
+      int hr = imax(imax(M[k], e_cur[k]), F);
+      Hrow[k] = inband[k] ? hr : NEG;
+      const int64_t kk = inband[k]
+          ? (((int64_t)Hrow[k] << 32) | (uint32_t)colj[k]) : INT64_MIN;
+      key = kk > key ? kk : key;
+    }
     __syncthreads();
-    sRun[p] = Hrow;
+#pragma unroll
+    for (int k = 0; k < S; ++k) sRun[p0 + k] = Hrow[k];
     // row max and its largest column
-    int64_t key = inband ? (((int64_t)Hrow << 32) | (uint32_t)colj)
-                         : INT64_MIN;
     key = block_max64(key, red);  // also orders the sRun writes
     int mraw = key == INT64_MIN ? NEG : (int)(key >> 32);
     const int mrow = mraw > 0 ? mraw : 0;
@@ -199,17 +240,26 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
       mx_ie = i;
       gsc = h_last > gsc ? h_last : gsc;
     }
-    int t_del = M - oe_del > 0 ? M - oe_del : 0;
-    int Enew = e_cur - e_del > t_del ? e_cur - e_del : t_del;
-    int Hsh = colj >= 1 ? sRun[(p + P - 1) % P] : h1_init;
-    int H2 = inband ? Hsh : H;
-    int E2 = inband ? Enew : E;
-    if (colj == end_r) {
-      H2 = h_last;
-      E2 = 0;
+    bool nz[S];
+    int first = 0x3fffffff;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int p = p0 + k;
+      const int t_del = imax(M[k] - oe_del, 0);
+      const int Enew = imax(e_cur[k] - e_del, t_del);
+      const int Hsh = colj[k] >= 1 ? sRun[(p + P - 1) % P] : h1_init;
+      int H2 = inband[k] ? Hsh : Hold[k];
+      int E2 = inband[k] ? Enew : Eold[k];
+      if (colj[k] == end_r) {
+        H2 = h_last;
+        E2 = 0;
+      }
+      sH[p] = H2;
+      sE[p] = E2;
+      nz[k] = !(H2 == 0 && E2 == 0);
+      if (nz[k] && colj[k] >= beg_r && colj[k] < end_r && colj[k] < first)
+        first = colj[k];
     }
-    sH[p] = H2;
-    sE[p] = E2;
 
     const bool brk0 = mrow == 0;
     const bool imp = !brk0 && mrow > mx;
@@ -227,18 +277,20 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
     }
     if (imp) mx = mrow;
 
-    const bool nz = !(H2 == 0 && E2 == 0);
-    const int first_nz = block_min32(
-        nz && colj >= beg_r && colj < end_r ? colj : 0x3fffffff, red);
+    const int first_nz = block_min32(first, red);
     const int beg_n = first_nz < end_r ? first_nz : end_r;
-    const int last_nz = block_max32(
-        nz && colj >= beg_n && colj <= end_r ? colj : beg_n - 1, red);
+    int last = beg_n - 1;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (nz[k] && colj[k] >= beg_n && colj[k] <= end_r)
+        last = imax(last, colj[k]);
+    const int last_nz = block_max32(last, red);
     const int end_n = last_nz + 2 < qlen ? last_nz + 2 : qlen;
     if (brk0 || brkz) break;
     beg = beg_n;
     end = end_n;
   }
-  if (p == 0) {
+  if (threadIdx.x == 0) {
     int32_t *o = a.out + (int64_t)prob * 7;
     o[0] = mx;
     o[1] = mx_j + 1;
@@ -248,6 +300,19 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
     o[5] = mx_off;
     o[6] = rows;  // target rows swept (work diagnostic)
   }
+}
+
+template <int S>
+int launch(const BandArgs &a, cudaStream_t stream) {
+  const size_t shm = (size_t)4 * a.P * sizeof(int);
+  // opt in to the dynamic shared memory: from P = 3072 it and the static
+  // reduction arrays pass the default 48 KB per block
+  cudaError_t e = cudaFuncSetAttribute(
+      ksw_band_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shm);
+  if (e != cudaSuccess) return (int)e;
+  ksw_band_kernel<S><<<a.n, a.P / S, shm, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -262,12 +327,15 @@ extern "C" int bwa_ksw_band(const uint8_t *pac, int64_t l_pac,
                             int o_ins, int e_ins, int zdrop, int P, int n,
                             int32_t *out, void *stream) {
   if (n == 0) return 0;
-  if (P < 32 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
+  const int S = P <= 1024 ? 1 : (P <= 2048 ? 2 : 4);
+  if (P < 32 || P > MAX_P || P % (32 * S) != 0)
+    return (int)cudaErrorInvalidValue;
   BandArgs a{pac, l_pac, qflat, nq, qbase, tbase, qdir, qlen, tdir, tlen,
              w, h0, out, n, P, P / 2 - 1, {0}, o_del, e_del, o_ins, e_ins,
              zdrop};
   for (int k = 0; k < 25; ++k) a.mat[k] = mat[k];
-  size_t shm = (size_t)4 * P * sizeof(int);
-  ksw_band_kernel<<<n, P, shm, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S == 1) return launch<1>(a, st);
+  if (S == 2) return launch<2>(a, st);
+  return launch<4>(a, st);
 }

@@ -37,18 +37,22 @@ def to_codes_batch(reads) -> list[np.ndarray]:
 def use_device_ext(opt, engine, codes,
                    device_ext: bool | None = None) -> bool:
     """Route chain2aln extensions through the band kernel?  Explicit
-    True/False wins; None (auto) means an engine on a CUDA device, a
+    True/False wins; None (auto) means an engine on a CUDA device and a
     batch whose longest read is 512 bp or more (one extension batch then
     serves many long extensions; short-read extension is a few percent
-    of the time and stays on the host), and a band whose doubled retry
-    fits the kernel (K2 holds one band slot per thread, P <= 1024)."""
+    of the time and stays on the host).  On a CUDA engine the doubled
+    retry band must fit K2 (-w up to 1023): a wider one raises."""
+    on_cuda = getattr(getattr(engine, "device", None), "type", None) == "cuda"
     if device_ext is not None:
-        return bool(device_ext) and bool(codes)
-    if not codes or getattr(engine, "device", None) is None:
-        return False
-    return (engine.device.type == "cuda"
-            and max(len(c) for c in codes) >= 512
-            and _band_for(opt.w << 1) <= K2_MAX_BAND)
+        use = bool(device_ext) and bool(codes)
+    else:
+        use = on_cuda and bool(codes) and max(len(c) for c in codes) >= 512
+    if use and on_cuda and _band_for(opt.w << 1) > K2_MAX_BAND:
+        raise ValueError(
+            f"-w {opt.w}: the band-doubling retry needs P = "
+            f"{_band_for(opt.w << 1)} band slots, K2 takes up to "
+            f"{K2_MAX_BAND}")
+    return use
 
 
 def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,

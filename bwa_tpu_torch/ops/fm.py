@@ -170,16 +170,6 @@ def _next_valid_device(q, qlen):
     return torch.minimum(nv, qlen.to(torch.int32)[:, None])
 
 
-def _gather_pack(q_all, pa, pb):
-    """The pack_k=2 lane layout gathered from a resident read matrix:
-    lane i = q_all[pa[i]] | 4 | q_all[pb[i]] | 4 (pb = -1: all N)."""
-    B2 = pa.shape[0]
-    sep = torch.full((B2, 1), 4, dtype=q_all.dtype, device=q_all.device)
-    qb = q_all[pb.clamp(min=0)]
-    qb = torch.where((pb >= 0)[:, None], qb, torch.full_like(qb, 4))
-    return torch.cat([q_all[pa], sep, qb, sep], dim=1)
-
-
 class BatchedFMEngine:
     """Batched device engine with the method set mem/batch_seed.py calls,
     on one device (`mesh` is None: one GPU)."""
@@ -196,7 +186,6 @@ class BatchedFMEngine:
         self.dev = DeviceFMIndex(fm, light=light, device=self.device)
         self.idx = self.dev.tree()
         self._host = None
-        self._qdev_cache = None
         self.last_steps = (0,)
         self.last_done = (np.zeros(0, np.int32),)
 
@@ -268,39 +257,6 @@ class BatchedFMEngine:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return ev
-
-    def collect_seeds_dispatch_gather(self, pa, pb, qlen, opt, cap_s: int,
-                                      stack_cap: int | None = None):
-        """collect_seeds_dispatch for a bucket whose pack_k=2 lanes are
-        gathered on the device from the resident batch matrix (see
-        upload_batch): pa/pb are original-read row indices per lane
-        (pb = -1 masks slot 1 to all-N), qlen the packed lane lengths."""
-        qd_all, L, B = self._qdev_cache
-        split_len, stack_cap, use_p3 = self._consts(opt, 2 * (L + 1),
-                                                    stack_cap)
-        dev = self.device
-        qd = _gather_pack(qd_all, torch.from_numpy(pa.astype(np.int64)).to(
-            dev), torch.from_numpy(pb.astype(np.int64)).to(dev))
-        qld = torch.from_numpy(qlen.astype(np.int32)).to(dev)
-        seeds, meta = self._run_machine(qd, qld, opt, cap_s, stack_cap,
-                                        use_p3, split_len, None,
-                                        key64=bool(2 * (L + 1) >= 32768))
-        return (seeds, meta, cap_s, self._event())
-
-    def upload_batch(self, codes_list) -> None:
-        """Keep a batch's padded read matrix resident on the device for
-        collect_seeds_dispatch_gather."""
-        from bwa_tpu_torch.mem.batch_seed import _len_bucket, _pad_reads
-
-        L = _len_bucket(max(len(c) for c in codes_list))
-        q, _ = _pad_reads(codes_list, L)
-        self._qdev_cache = (torch.from_numpy(q).to(self.device), L,
-                            len(codes_list))
-
-    def qdev_batch(self) -> int:
-        """Batch size of the resident read matrix, or -1 when absent."""
-        c = self._qdev_cache
-        return c[2] if c is not None else -1
 
     def collect_seeds_wait(self, handle):
         """Blocking half: wait for the dispatch's event, pull the packed

@@ -120,14 +120,20 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         nx = phase == P_NEXT
         xv = vread(nv, d["job"].clamp(0, L))
         have_nv = nx & ~st1m & (xv < W(st2m, hi3, hi1))
-        qual = d["qmask"] & (sidx[None, :] < d["old_n"][:, None])
-        cand = qual & (sidx[None, :] >= d["job"][:, None])
-        jj_first = W(cand, sidx[None, :], torch.full_like(sidx, cap_s)
-                     [None, :]).min(dim=1).values
-        found = jj_first < cap_s
-        jj = W(found, jj_first, d["old_n"])
+        # pass 2: the first qualifying seed at or after the cursor, searched
+        # only on the lanes that acquire a pass-2 job this step (no other
+        # lane reads jj or the row below)
+        jj = d["old_n"].clone()
+        m2 = (nx & st1m).nonzero().squeeze(1)
+        if m2.numel():
+            old_n = d["old_n"][m2][:, None]
+            cand = d["qmask"][m2] & (sidx[None, :] < old_n) \
+                & (sidx[None, :] >= d["job"][m2][:, None])
+            jj_first = W(cand, sidx[None, :], torch.full_like(sidx, cap_s)
+                         [None, :]).min(dim=1).values
+            jj[m2] = W(jj_first < cap_s, jj_first, old_n[:, 0])
         k = jj.clamp(max=cap_s - 1)
-        have_s1 = nx & st1m & found & (jj < d["old_n"])
+        have_s1 = nx & st1m & (jj < d["old_n"])
         row = _row_read(d["seeds"], k)
         x_s1 = (row[:, 3] + row[:, 4]) >> 1
         if tagged:
@@ -262,8 +268,9 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         qual_new = ((seed_row[:, 4] - seed_row[:, 3]) >= split_len) \
             & (seed_row[:, 2] <= split_width)
         slot_q = d["seed_n"].clamp(max=cap_s - 1)
-        sel_q = write_any[:, None] & (sidx[None, :] == slot_q[:, None])
-        d["qmask"] = W(sel_q, qual_new[:, None], d["qmask"])
+        bidx = torch.arange(B, device=dev)
+        d["qmask"][bidx, slot_q] = W(write_any, qual_new,
+                                     d["qmask"][bidx, slot_q])
         d["seeds"], d["seed_n"], _ = _push_row(d["seeds"], d["seed_n"],
                                                write_any, seed_row, cap_s)
         d["call_last_start"] = W(can_emit, d["i"] + 1, d["call_last_start"])

@@ -24,8 +24,8 @@ NEG = -(1 << 30)
 # launches of the K2 kernel (the CUDA wrapper below adds one per launch)
 launches = 0
 
-# widest band K2 takes: one thread per band slot, 1024 threads a block
-K2_MAX_BAND = 1024
+# widest band K2 takes: up to 4 band slots per thread, 1024 threads a block
+K2_MAX_BAND = 4096
 
 
 def _band_for(w_max: int) -> int:

@@ -11,14 +11,19 @@ Run from the repository root on a machine with one CUDA card.  In order:
   3. holds each kernel to its plain PyTorch version on the card: K1 (the
      seeding machine) on pack_k=2 lanes and tagged long-read shards, with
      default and tiny caps; K2 (the band DP) at P=256 and P=512, with
-     z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run;
+     z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run, and at
+     P=1280 and P=3072 (several band slots per thread);
   4. drives `mem` through the CLI on 4,096 x 150 bp SE reads (default
      options) and on 512 x 2 kb + 32 x 10 kb reads with -x pacbio, counting
-     kernel launches, and checks the SAM of the first 64 reads of each
-     against the port's CPU run of the same reads;
-  5. times each kernel and its plain version on the inputs the main path
-     gave it, and prints the kernel table, the card's name and power
-     limit, and finally {"ok": true, "device": {...}}.
+     kernel launches and recording every kernel call, and checks the SAM of
+     the first 64 reads of each (four of them 10 kb reads in the pacbio
+     phase) against the port's CPU run of the same reads, which runs in a
+     subprocess from step 2 on;
+  5. holds every recorded kernel call to the plain version: the first call
+     of each kernel on all its rows (and times both), every later call on a
+     subset of its lanes or jobs (rows are independent, so the subset keeps
+     the call's width, caps and band); prints the kernel table, the card's
+     name and power limit, and finally {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -36,8 +41,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 GENOME_LEN = 4_641_652
 SEED = 20261016
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
-INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak rate
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate (data sheet)
+# H100 SXM INT32 issue rate: 64 INT32 lanes per SM (Hopper whitepaper) x 132
+# SMs x 1.98 GHz, the boost clock behind the data sheet's 67 TFLOP/s FP32
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -241,7 +248,7 @@ def k2_parity(fm, reads2k, origins):
     n = len(meta)
     qe = meta[:, 2] + meta[:, 3]
     qlen = meta[:, 1] - qe
-    for w in (100, 200):  # P = 256 and P = 512
+    for w in (100, 200, 600, 1500):  # P = 256, 512, 1280 and 3072
         opt = MemOptions()
         opt.apply_mode("pacbio")
         ws = band_clamp(qlen, np.full(n, w), 1, 1, 1, 1, 1, opt.pen_clip3)
@@ -271,22 +278,23 @@ def k2_parity(fm, reads2k, origins):
 # --------------------------------------------------------------------------
 
 class Recorder:
-    """Stands in for a kernel wrapper that the main path calls: keeps the
-    first call's arguments, so the kernel and its plain version can be
-    timed on those inputs, and brackets every call with CUDA events."""
+    """Stands in for a kernel wrapper that the main path calls: keeps every
+    call's arguments (tensors cloned) under the phase that made it, so the
+    kernel can be held to its plain version at each shape the path gave
+    it, and brackets every call with CUDA events."""
 
     def __init__(self, mod, name):
         self.mod, self.name, self.real = mod, name, getattr(mod, name)
-        self.args = None
+        self.phase = None
+        self.calls = []  # (phase, args, kw)
         self.events = []
         setattr(mod, name, self)
 
     def __call__(self, *args, **kw):
         import torch
 
-        if self.args is None:
-            self.args = ([a.clone() if torch.is_tensor(a) else a
-                          for a in args], dict(kw))
+        self.calls.append((self.phase, [a.clone() if torch.is_tensor(a)
+                                        else a for a in args], dict(kw)))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -306,20 +314,38 @@ class Recorder:
         setattr(self.mod, self.name, self.real)
 
 
-def run_mem(prefix, fq, extra, device="cuda"):
+def start_cpu_run(d, prefix, phase, reads, extra):
+    """The port's CPU run of the phase's first 64 reads, in a subprocess
+    that sees no card; returns (process, log file, SAM path, names, and a
+    dict that a waiter thread fills with the run's seconds)."""
+    fq64 = d / f"{phase}_first64.fq"
+    sam = d / f"{phase}_first64_cpu.sam"
+    write_fastq(fq64, reads[:64])
+    err = open(d / f"{phase}_first64_cpu.log", "w")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bwa_tpu_torch.cli", "mem", *extra,
+         "--device", "cpu", "-o", str(sam), str(prefix), str(fq64)],
+        cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT)
+    took = {}
+    threading.Thread(target=lambda: took.setdefault(
+        "s", (proc.wait(), time.perf_counter() - t0)[1]), daemon=True).start()
+    return proc, err, sam, {n for n, _ in reads[:64]}, took
+
+
+def run_mem(prefix, fq, extra):
     from bwa_tpu_torch.cli import main as cli_main
+    import torch
 
     out = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli_main(["mem", *extra, "--device", device, str(prefix), str(fq)],
+    rc = cli_main(["mem", *extra, "--device", "cuda", str(prefix), str(fq)],
                   out_fp=out)
-    if device == "cuda":
-        import torch
-
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if rc != 0:
-        fail(f"mem {' '.join(extra)} on {device} exited {rc}")
+        fail(f"mem {' '.join(extra)} exited {rc}")
     return out.getvalue(), dt
 
 
@@ -346,31 +372,38 @@ def main_path(d, prefix, phase, reads, extra, recs):
     write_fastq(fq, reads)
     for r in recs.values():
         r.events = []
+        r.phase = phase
     fm_machine.launches = 0
     ksw_band.launches = 0
     sam, dt = run_mem(prefix, fq, extra)
     launches = {"K1": fm_machine.launches, "K2": ksw_band.launches}
     kernel_ms = {k: r.take_ms() for k, r in recs.items()}
     check_sam(sam, len(reads))
-    first = reads[:64]
-    fq64 = d / f"{phase}_first64.fq"
-    write_fastq(fq64, first)
-    cpu_sam, cpu_dt = run_mem(prefix, fq64, extra, device="cpu")
-    names = {n for n, _ in first}
-    same = records_of(sam, names) == records_of(cpu_sam, names)
-    if not same:
-        fail(f"{phase}: SAM of the first 64 reads differs from the CPU run")
     info = dict(phase=phase, reads=len(reads),
                 bases=int(sum(len(r) for _, r in reads)), seconds=dt,
                 reads_per_s=len(reads) / dt, launches=launches,
-                kernel_event_ms=kernel_ms, first64_equal_cpu=same,
-                cpu_first64_seconds=cpu_dt)
+                kernel_event_ms=kernel_ms)
+    return info, sam
+
+
+def check_first64(info, sam, cpu):
+    """The phase's first 64 SAM records against the CPU run's."""
+    proc, err, sam_path, names, took = cpu
+    if proc.wait() != 0:
+        fail(f"{info['phase']}: the CPU run exited {proc.returncode} "
+             f"(see {err.name})")
+    while "s" not in took:
+        time.sleep(0.01)
+    same = records_of(sam, names) == records_of(sam_path.read_text(), names)
+    if not same:
+        fail(f"{info['phase']}: SAM of the first 64 reads differs from the "
+             f"CPU run")
+    info.update(first64_equal_cpu=same, cpu_first64_seconds=took["s"])
     print(json.dumps(info), flush=True)
-    return info
 
 
 # --------------------------------------------------------------------------
-# timing at the main path's shapes
+# each recorded call against the plain version
 # --------------------------------------------------------------------------
 
 def cuda_time(fn, reps):
@@ -388,24 +421,142 @@ def cuda_time(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def timed_once(fn):
+    """One call bracketed by CUDA events: (result, ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def k1_outputs(out):
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    return [t.cpu() for t in (fmm.sort_seeds(out[0], out[1], False), out[1],
+                              out[3])]
+
+
+def k1_lanes(q, qlen, longest: bool):
+    """Lanes of a recorded K1 call to hold to the plain version: every lane
+    of one read less than half as long as the longest, one empty lane, and
+    with `longest` every lane of the longest read (lanes of one read share
+    their codes and length)."""
+    import torch
+
+    ql = qlen.to(torch.int64)
+
+    def lanes_of(lane):
+        return set(((q == q[lane]).all(1) & (ql == ql[lane])).nonzero()
+                   .flatten().tolist())
+
+    top = int(ql.argmax())
+    sel = lanes_of(top) if longest else set()
+    short = ((ql > 0) & (ql * 2 < ql[top])).nonzero().flatten()
+    if short.numel():
+        sel |= lanes_of(int(short[0]))
+    empty = (ql == 0).nonzero().flatten()
+    if empty.numel():
+        sel.add(int(empty[0]))
+    if not sel:
+        sel = lanes_of(top)
+    return sorted(sel)
+
+
+def k1_subset(args, kw, longest):
+    """K1 on a subset of a recorded call's lanes, on the card, against the
+    plain version of the same lanes on the host."""
+    import numpy as np
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    idx, q, qlen, nv = args[:4]
+    rows = k1_lanes(q, qlen, longest)
+    r = torch.as_tensor(rows, device=q.device)
+    a = [idx, q[r], qlen[r], nv[r], *args[4:]]
+    k = dict(kw)
+    if k.get("shard") is not None:
+        k["shard"] = tuple(np.asarray(x)[rows] for x in k["shard"])
+    got = k1_outputs(fmm.seed_machine(*a, **k))
+    host = [{kk: (v.cpu() if torch.is_tensor(v) else v)
+             for kk, v in idx.items()}] + [t.cpu() for t in a[1:4]] + a[4:]
+    t0 = time.perf_counter()
+    want = k1_outputs(fmm.seed_machine_plain(*host, **k))
+    return got, want, dict(lanes=len(rows), cap=kw["cap"],
+                           cap_s=kw["cap_s"], width=int(q.shape[1]),
+                           plain_host_s=time.perf_counter() - t0)
+
+
+def k2_subset(args, kw):
+    """K2 on a subset of a recorded call's jobs (32 live ones spread over
+    the call, longest first, and one empty one) against the plain version
+    on the host."""
+    import torch
+
+    from bwa_tpu_torch.ops import ksw_band
+
+    tlen = args[8]
+    live = (tlen > 0).nonzero().flatten()
+    rows = set(live[::max(1, live.numel() // 32)][:32].tolist())
+    dead = (tlen == 0).nonzero().flatten()
+    if dead.numel():
+        rows.add(int(dead[0]))
+    rows = sorted(rows)
+    r = torch.as_tensor(rows, device=tlen.device)
+    a = list(args[:3]) + [x[r] for x in args[3:11]] + list(args[11:])
+    got = ksw_band.ksw_band_side(*a, **kw).cpu()
+    host = [x.cpu() if torch.is_tensor(x) else x for x in a]
+    t0 = time.perf_counter()
+    want = ksw_band.ksw_band_side_plain(*host, **kw)
+    return got, want, dict(jobs=len(rows), P=kw.get("P", args[-1]),
+                           max_tlen=int(tlen[r].max()),
+                           plain_host_s=time.perf_counter() - t0)
+
+
+def check_calls(rec, kernel):
+    """Every recorded call after the first, on a subset of its rows; the
+    first call is held on all its rows by time_k1/time_k2."""
+    import torch
+
+    res = []
+    phases = [ph for ph, _, _ in rec.calls]
+    for i, (ph, args, kw) in enumerate(rec.calls):
+        if i == 0:
+            continue
+        if kernel == "K1":
+            last = i == len(phases) - 1 or phases[i + 1] != ph
+            got, want, info = k1_subset(args, kw, longest=last)
+        else:
+            got, want, info = k2_subset(args, kw)
+            got, want = [got], [want]
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        info = dict(phase=ph, call=i, equal=ok, **info)
+        log(f"{kernel} call {info}")
+        if not ok:
+            fail(f"{kernel} disagrees with its plain version on {info}")
+        res.append(info)
+    return res
+
+
 def time_k1(rec):
     import torch
 
     from bwa_tpu_torch.ops import fm_machine as fmm
 
-    args, kw = rec.args
+    _, args, kw = rec.calls[0]
     idx, q = args[0], args[1]
     out = fmm.seed_machine(*args, **kw)
-    plain = fmm.seed_machine_plain(*args, **kw)
-    torch.cuda.synchronize()
-    pairs = list(zip(
-        (fmm.sort_seeds(out[0], out[1], False), out[1], out[3]),
-        (fmm.sort_seeds(plain[0], plain[1], False), plain[1], plain[3])))
+    plain, plain_ms = timed_once(lambda: fmm.seed_machine_plain(*args, **kw))
+    pairs = list(zip(k1_outputs(out), k1_outputs(plain)))
     equal = all(torch.equal(x, y) for x, y in pairs)
     err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
               for x, y in pairs)
     ms = cuda_time(lambda: fmm.seed_machine(*args, **kw), 5)
-    plain_ms = cuda_time(lambda: fmm.seed_machine_plain(*args, **kw), 1)
     occ = idx["occtab"]
     nw = occ.shape[1] - 4
     steps = int(out[4].to(torch.int64).sum())
@@ -425,15 +576,13 @@ def time_k2(rec):
 
     from bwa_tpu_torch.ops import ksw_band
 
-    args, kw = rec.args
+    _, args, kw = rec.calls[0]
     out = ksw_band.ksw_band_side(*args, **kw)
-    plain = ksw_band.ksw_band_side_plain(*args, **kw)
-    torch.cuda.synchronize()
+    plain, plain_ms = timed_once(
+        lambda: ksw_band.ksw_band_side_plain(*args, **kw))
     equal = bool(torch.equal(out, plain))
     err = int((out.to(torch.int64) - plain.to(torch.int64)).abs().max())
     ms = cuda_time(lambda: ksw_band.ksw_band_side(*args, **kw), 5)
-    plain_ms = cuda_time(lambda: ksw_band.ksw_band_side_plain(*args, **kw),
-                         1)
     pac, qflat, w = args[0], args[2], args[9]
     n = args[3].shape[0]
     rows = out[:, 6].to(torch.int64)
@@ -503,7 +652,7 @@ def main(argv) -> int:
             "\n".join(f"== {k}\n{v}" for k, v in
                       cuda_kernels.build_log.items()))
 
-    # 2. genome, index, reads
+    # 2. genome, index, reads; the CPU runs of each phase's first 64 reads
     d = REPO / "build" / "smoke"
     d.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -516,41 +665,64 @@ def main(argv) -> int:
     reads150, _ = simulate(codes, 4096, 150, SEED + 3, 0.005, 0.0002, "s")
     pb2k, org2k = simulate(codes, 512, 2000, SEED + 4, 0.05, 0.03, "p")
     pb10k, _ = simulate(codes, 32, 10000, SEED + 5, 0.05, 0.03, "q")
+    # four 10 kb reads lead, so the CPU run of the first 64 takes the same
+    # 10,048-base lanes and cap ladder as the card
+    pacbio = pb10k[:4] + pb2k + pb10k[4:]
+    phases = (("mem_se_150bp", reads150, []),
+              ("mem_pacbio", pacbio, ["-x", "pacbio"]))
+    cpu = {}
+    try:
+        for ph, reads, extra in phases:
+            cpu[ph] = start_cpu_run(d, str(fa), ph, reads, extra)
 
-    # 3. parity on the card
-    t0 = time.perf_counter()
-    k1_par = k1_parity(fm, reads150, pb2k)
-    k2_par = k2_parity(fm, pb2k, org2k)
-    log(f"parity done in {time.perf_counter() - t0:.1f} s")
+        # 3. parity on the card
+        t0 = time.perf_counter()
+        k1_par = k1_parity(fm, reads150, pb2k)
+        k2_par = k2_parity(fm, pb2k, org2k)
+        log(f"parity done in {time.perf_counter() - t0:.1f} s")
 
-    # 4. main path, with the first launch's inputs of each kernel recorded
-    from bwa_tpu_torch.ops import ext_gather, fm_machine
+        # 4. main path, with every kernel call recorded
+        from bwa_tpu_torch.ops import ext_gather, fm_machine
 
-    recs = {"K1": Recorder(fm_machine, "seed_machine"),
-            "K2": Recorder(ext_gather, "ksw_band_side")}
-    phase_se = main_path(d, str(fa), "mem_se_150bp", reads150, [], recs)
-    phase_pb = main_path(d, str(fa), "mem_pacbio", pb2k + pb10k,
-                         ["-x", "pacbio"], recs)
-    for r in recs.values():
-        r.restore()
-    rec1, rec2 = recs["K1"], recs["K2"]
-    for name, ph in (("K1", phase_se), ("K1", phase_pb), ("K2", phase_pb)):
-        if ph["launches"][name] < 1:
-            fail(f"{ph['phase']}: kernel {name} was not launched")
-    if phase_se["launches"]["K2"] != 0:
-        fail("150 bp phase launched K2 (extension should stay on the host)")
-    if rec1.args is None or rec2.args is None:
-        fail("the main path did not reach a kernel wrapper")
+        recs = {"K1": Recorder(fm_machine, "seed_machine"),
+                "K2": Recorder(ext_gather, "ksw_band_side")}
+        ran = [main_path(d, str(fa), ph, reads, extra, recs)
+               for ph, reads, extra in phases]
+        for r in recs.values():
+            r.restore()
+        (phase_se, sam_se), (phase_pb, sam_pb) = ran
+        for name, ph in (("K1", phase_se), ("K1", phase_pb),
+                         ("K2", phase_pb)):
+            if ph["launches"][name] < 1:
+                fail(f"{ph['phase']}: kernel {name} was not launched")
+        if phase_se["launches"]["K2"] != 0:
+            fail("150 bp phase launched K2 (extension should stay on the "
+                 "host)")
+        for name, r in recs.items():
+            if not r.calls:
+                fail(f"the main path did not reach the {name} wrapper")
 
-    # 5. kernel times at the main path's shapes
-    t0 = time.perf_counter()
-    k1 = time_k1(rec1)
-    k2 = time_k2(rec2)
-    log(f"timing done in {time.perf_counter() - t0:.1f} s")
-    for name, k in (("K1", k1), ("K2", k2)):
-        if not k["equal"]:
-            fail(f"{name} disagrees with its plain version at the main "
-                 f"path's shape")
+        # 5. every recorded call against the plain version; times of the
+        # first call of each kernel
+        t0 = time.perf_counter()
+        k1 = time_k1(recs["K1"])
+        k2 = time_k2(recs["K2"])
+        for name, k in (("K1", k1), ("K2", k2)):
+            if not k["equal"]:
+                fail(f"{name} disagrees with its plain version at the main "
+                     f"path's shape")
+        calls = {k: check_calls(r, k) for k, r in recs.items()}
+        log(f"main-path calls checked and timed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for info, sam in ran:
+            check_first64(info, sam, cpu[info["phase"]])
+    finally:
+        for proc, err, _, _, _ in cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            err.close()
+
     kernels = []
     for name, src, repl, k, par, ph in (
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
@@ -566,6 +738,7 @@ def main(argv) -> int:
             plain_ms=k["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, timed_shape=k["shape"], parity=par,
             parity_at_main_shape=k["equal"],
+            main_path_calls=calls[name.split()[0]],
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps", "rows",
                                        "cells") if kk in k}))
     print(json.dumps(dict(

@@ -151,7 +151,7 @@ def test_k2_fused_matches_plain(jobs, zdrop):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("w", [100, 200, 500])
+@pytest.mark.parametrize("w", [100, 200, 500, 600])
 def test_k2_single_pass_matches_plain(jobs, w):
     from bwa_tpu_torch.ops.ext_gather import ExtGatherEngine, band_clamp
     from bwa_tpu_torch.options import MemOptions

@@ -112,6 +112,35 @@ def test_extend_batch_and_band_dp_match_jax(o):
     assert (want[:, 0] > want[:, 0].min()).any()
 
 
+@pytest.mark.parametrize("w", [600, 1000])
+def test_band_dp_wide_band_matches_jax(w):
+    """Bands wider than 1024 slots (P = 1280 and 2048; kernel K2 gives
+    each thread several slots there) on long problems whose best paths
+    cross a 150-base insertion or a 250-base deletion."""
+    rng = np.random.default_rng(w)
+    N, Q, T = 3, 1000, 1100
+    ref = rng.integers(0, 4, T).astype(np.uint8)
+    ins = np.concatenate([ref[:300], rng.integers(0, 4, 150), ref[300:]])
+    dele = np.concatenate([ref[:300], ref[550:]])
+    qs = np.full((N, Q), 4, np.uint8)
+    ql = np.zeros(N, np.int64)
+    for n, q in enumerate((ins, dele, ref)):
+        q = _mutate(rng, q, 0.03, 0, 1)[:Q]
+        ql[n] = len(q)
+        qs[n, :ql[n]] = q
+    ts = np.tile(ref, (N, 1))
+    tl = np.full(N, T)
+    h0 = np.array([30, 20, 5])
+    ws = np.full(N, w)
+    o = (1, 1, 1, 1, 100)
+    mat = _mat(1, 1)
+    want = _jax_extend_batch(qs, ql, ts, tl, mat, o, ws, h0)
+    band = np.stack(extend_band(qs, ql, ts, tl, mat, *o[:4], ws, 5, o[4],
+                                h0), 1)
+    np.testing.assert_array_equal(band, want)
+    assert want[0, 5] >= 140 and want[1, 5] >= 240  # far off the diagonal
+
+
 @pytest.fixture(scope="module")
 def jobs():
     """A resident reference and read batch plus mem_chain2aln job rows

@@ -150,13 +150,6 @@ def test_lane_helpers():
         tops._next_valid_device(torch.from_numpy(q), torch.from_numpy(ql))
         .numpy(), np.asarray(jops._next_valid_device(jnp.asarray(q),
                                                      jnp.asarray(ql))))
-    pa = np.array([3, 0, 5], np.int32)
-    pb = np.array([1, -1, 8], np.int32)
-    np.testing.assert_array_equal(
-        tops._gather_pack(torch.from_numpy(q), torch.from_numpy(pa).long(),
-                          torch.from_numpy(pb).long()).numpy(),
-        np.asarray(jops._gather_pack(jnp.asarray(q), jnp.asarray(pa),
-                                     jnp.asarray(pb))))
     sn = np.array([3, 0, 7], np.int32)
     ov = np.array([False, True, False])
     ds = np.array([5, 9, 2], np.int32)

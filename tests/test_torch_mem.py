@@ -135,7 +135,7 @@ def test_cli_mem_on_cpu(world):
 
 def test_device_extension_gate():
     """Auto sends a batch to the band kernel only from a CUDA engine, for
-    reads of 512 bp or more, and while the doubled band fits K2."""
+    reads of 512 bp or more; a doubled band wider than K2 takes raises."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -153,8 +153,13 @@ def test_device_extension_gate():
     assert not use_device_ext(opt, gpu, short)
     assert use_device_ext(opt, cpu, short, device_ext=True)
     assert not use_device_ext(opt, gpu, long_, device_ext=False)
-    opt.w = 300  # the 2w retry band, P = 1280, is wider than K2 takes
-    assert not use_device_ext(opt, gpu, long_)
+    opt.w = 1000  # the 2w retry band, P = 4096, is the widest K2 takes
+    assert use_device_ext(opt, gpu, long_)
+    opt.w = 1100  # P = 4480
+    with pytest.raises(ValueError):
+        use_device_ext(opt, gpu, long_)
+    assert not use_device_ext(opt, gpu, short)
+    assert use_device_ext(opt, cpu, long_, device_ext=True)
 
 
 def test_unported_modes_raise(world):

@@ -143,30 +143,3 @@ def test_engine_collect_seeds_matches_jax(world):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
-
-
-def test_gather_dispatch_matches_packed_dispatch(world):
-    """Lanes gathered on the device from a resident batch seed exactly like
-    the same lanes packed on the host."""
-    from bwa_tpu_torch.ops.fm import BatchedFMEngine
-    from bwa_tpu_torch.options import MemOptions
-
-    opt = MemOptions()
-    codes = world["short"][:12]
-    eng = BatchedFMEngine(world["fm"], device="cpu")
-    eng.upload_batch(codes)
-    assert eng.qdev_batch() == len(codes)
-    L = 192
-    B2 = 6
-    pa = np.arange(B2)
-    pb = np.arange(B2, 2 * B2)
-    pb[-1] = -1
-    qlen = np.array([len(codes[i]) for i in pa], np.int32)
-    qlen[:-1] = (L + 1) + np.array([len(codes[i]) for i in pb[:-1]])
-    got = eng.collect_seeds_wait(eng.collect_seeds_dispatch_gather(
-        pa, pb, qlen, opt, 48))
-    q, ql = _packed_pairs(codes[:2 * B2 - 1] + [np.zeros(0, np.uint8)], L)
-    want = eng.collect_seeds(q, ql, opt, 48)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-
