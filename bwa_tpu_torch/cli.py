@@ -1,9 +1,10 @@
 """Command-line interface, flag-compatible with the reference bwa.
 
     python -m bwa_tpu_torch.cli index [-p prefix] <in.fasta>
-    python -m bwa_tpu_torch.cli mem [options] [--device cuda|cpu] <idx> <in.fq>
+    python -m bwa_tpu_torch.cli mem [options] [--device cuda|cpu] <idx> <in.fq> [in2.fq]
 
-mem runs single-end reads; the device defaults to the CUDA card.
+mem runs single-end reads, paired-end reads from two files, or (-p)
+interleaved pairs; the device defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -63,17 +64,20 @@ def main_mem(argv: list[str], out_fp=None) -> int:
     from bwa_tpu_torch.engine import make_engine
     from bwa_tpu_torch.index.fmindex import FMIndex
     from bwa_tpu_torch.io.fastq import SeqReader, read_batch
-    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.mem.pairing import PEStat
+    from bwa_tpu_torch.mem.pipeline import process_seqs, process_seqs_smart
     from bwa_tpu_torch.options import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ,
                                        MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
-                                       MEM_F_NOPAIRING, MEM_F_REF_HDR,
-                                       MEM_F_SOFTCLIP, MEM_F_XB, MemOptions)
+                                       MEM_F_NOPAIRING, MEM_F_PE,
+                                       MEM_F_PRIMARY5, MEM_F_REF_HDR,
+                                       MEM_F_SMARTPE, MEM_F_SOFTCLIP,
+                                       MEM_F_XB, MemOptions)
 
     argv, device = _pop_device(argv)
     opt = MemOptions()
     mode = None
     fixed_chunk_size = -1
-    rg_line = rg_id = hdr_line = None
+    rg_line = rg_id = hdr_line = pes0 = None
     ignore_alt = copy_comment = False
     out_fp = out_fp if out_fp is not None else sys.stdout
     opened_out = False
@@ -85,8 +89,6 @@ def main_mem(argv: list[str], out_fp=None) -> int:
         return 1
     for c, a in opts:
         c = c[1:]
-        if c in ("p", "I", "5"):
-            raise NotImplementedError(f"mem -{c} is not ported yet")
         if c == "k": opt.set("min_seed_len", int(a))
         elif c == "1": pass
         elif c == "x": mode = a
@@ -98,10 +100,12 @@ def main_mem(argv: list[str], out_fp=None) -> int:
         elif c == "t": opt.n_threads = max(int(a), 1)
         elif c == "P": opt.flag |= MEM_F_NOPAIRING
         elif c == "a": opt.flag |= MEM_F_ALL
+        elif c == "p": opt.flag |= MEM_F_PE | MEM_F_SMARTPE
         elif c == "M": opt.flag |= MEM_F_NO_MULTI
         elif c == "S": opt.flag |= MEM_F_NO_RESCUE
         elif c == "Y": opt.flag |= MEM_F_SOFTCLIP
         elif c == "V": opt.flag |= MEM_F_REF_HDR
+        elif c == "5": opt.flag |= MEM_F_PRIMARY5 | MEM_F_KEEP_SUPP_MAPQ
         elif c == "q": opt.flag |= MEM_F_KEEP_SUPP_MAPQ
         elif c == "u": opt.flag |= MEM_F_XB
         elif c == "c": opt.set("max_occ", int(a))
@@ -154,13 +158,23 @@ def main_mem(argv: list[str], out_fp=None) -> int:
         elif c == "H":
             ln = _escape(a) if a.startswith("@") else open(a).read().rstrip("\n")
             hdr_line = (hdr_line + "\n" + ln) if hdr_line else ln
+        elif c == "I":
+            parts = a.replace(",", " ").split()
+            pes0 = [PEStat(failed=1) for _ in range(4)]
+            p = PEStat(failed=0)
+            p.avg = float(parts[0])
+            p.std = float(parts[1]) if len(parts) > 1 else p.avg * 0.1
+            p.high = (int(parts[2]) if len(parts) > 2
+                      else int(p.avg + 4.0 * p.std + 0.499))
+            p.low = (int(parts[3]) if len(parts) > 3
+                     else max(int(p.avg - 4.0 * p.std + 0.499), 1))
+            pes0[1] = p
     if rg_line:
         hdr_line = (hdr_line + "\n" + rg_line) if hdr_line else rg_line
-    if len(args) == 3:
-        raise NotImplementedError("paired-end mem is not ported yet")
-    if len(args) != 2:
+    if len(args) not in (2, 3):
         print("Usage: python -m bwa_tpu_torch.cli mem [options] "
-              "[--device cuda|cpu] <idxbase> <in.fq>", file=sys.stderr)
+              "[--device cuda|cpu] <idxbase> <in1.fq> [in2.fq]",
+              file=sys.stderr)
         return 1
     opt.apply_mode(mode)
 
@@ -169,7 +183,15 @@ def main_mem(argv: list[str], out_fp=None) -> int:
         for c0 in fm.bnt.contigs:
             c0.is_alt = False
     engine = make_engine(fm, device)
-    ks = SeqReader(args[1])
+    ks1 = SeqReader(args[1])
+    ks2 = None
+    if len(args) > 2:
+        if opt.flag & MEM_F_PE:
+            print("[W::main_mem] when '-p' is in use, the second query file "
+                  "is ignored.", file=sys.stderr)
+        else:
+            ks2 = SeqReader(args[2])
+            opt.flag |= MEM_F_PE
     pg = ("@PG\tID:bwa\tPN:bwa-tpu-torch\tVN:" + __version__
           + "\tCL:bwa-tpu-torch mem " + " ".join(argv))
     out_fp.write(_hdr_lines(fm.bnt, hdr_line, pg))
@@ -177,10 +199,11 @@ def main_mem(argv: list[str], out_fp=None) -> int:
              else opt.chunk_size * opt.n_threads)
     n_processed = 0
     while True:
-        reads = read_batch(ks, None, chunk, copy_comment)
+        reads = read_batch(ks1, ks2, chunk, copy_comment)
         if not reads:
             break
-        process_seqs(opt, engine, fm, reads, n_processed, rg_id)
+        run = process_seqs_smart if opt.flag & MEM_F_SMARTPE else process_seqs
+        run(opt, engine, fm, reads, n_processed, pes0, rg_id)
         n_processed += len(reads)
         for r in reads:
             out_fp.write(r.sam)
@@ -225,7 +248,8 @@ def main(argv=None, out_fp=None) -> int:
               f"PyTorch/CUDA)\nVersion: {__version__}\n"
               f"Usage:   python -m bwa_tpu_torch.cli <command> [options]\n\n"
               f"Command: index     index sequences in the FASTA format\n"
-              f"         mem       BWA-MEM algorithm (single-end)\n",
+              f"         mem       BWA-MEM algorithm (single-end, "
+              f"paired-end, -p interleaved)\n",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]

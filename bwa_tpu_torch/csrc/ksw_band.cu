@@ -5,7 +5,11 @@
 // bwa_tpu/ops/ext_gather.py::_side_call (ExtGatherEngine.run_fused) and
 // ::_ext_band_meta (ExtGatherEngine.run): one pass of mem_chain2aln seed
 // extensions (ksw.c:416-515 semantics) in band-relative coordinates
-// p = j - (i - W), W = P/2 - 1.
+// p = j - (i - W), W = P/2 - 1.  Its host-array mode (bwa_ksw_band_arrays)
+// replaces the same body as called through
+// bwa_tpu/ops/ksw_pallas.py::_extend_band (extend_band_pallas): query rows
+// and target rows come from [n, Q] and [n, T] code arrays instead of read
+// coordinates and the .pac.
 //
 // Design: one block per problem, thread t owning the S consecutive band
 // slots p = t*S .. t*S+S-1 (S = 1 up to P = 1024, 2 up to 2048, 4 up to
@@ -33,13 +37,12 @@
 // kernel leans on many resident blocks (one problem each) to keep the
 // SMs busy.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ksw_common.cuh"
 
 namespace {
 
-constexpr int NEG = -(1 << 30);
-constexpr int MAXW = 32;      // warps per block (1024 threads)
+using namespace ksw;
+
 constexpr int MAX_P = 4096;   // widest band: 4 slots per thread
 
 struct BandArgs {
@@ -47,6 +50,11 @@ struct BandArgs {
   int64_t l_pac;
   const uint8_t *qflat;   // flat read codes of the batch
   int64_t nq;
+  // host-array mode (ts != nullptr): problem r's query is qflat[r*q_stride
+  // ...] forwards, its target ts[r*t_stride ...]; qbase/qdir/tbase/tdir
+  // and the .pac are not read
+  const uint8_t *ts;
+  int64_t q_stride, t_stride;
   const int64_t *qbase, *tbase;
   const int32_t *qdir, *qlen, *tdir, *tlen, *w, *h0;
   int32_t *out;           // [n, 7]: score qle tle gtle gscore max_off rows
@@ -72,61 +80,6 @@ __device__ __forceinline__ int pac_at(const BandArgs &a, int64_t pos) {
   return fwd ? code : 3 - code;
 }
 
-// first-row eh init (ksw.c:445-449) in closed form
-__device__ __forceinline__ int eh_init(int j, int h0, int e1, int e_ins,
-                                       int qlen) {
-  if (j < 0 || j > qlen) return 0;
-  if (j == 0) return h0;
-  if (j == 1) return e1;
-  int fill = e1 - (j - 1) * e_ins;
-  int prev = e1 - (j - 2) * e_ins;
-  return prev > e_ins ? fill : 0;
-}
-
-__device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
-
-// block-wide reductions: every thread gets the result
-__device__ int64_t block_max64(int64_t v, int64_t *red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    int64_t u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = u > v ? u : v;
-  }
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  int nw = blockDim.x >> 5;
-  int64_t r = red[0];
-  for (int k = 1; k < nw; ++k) r = red[k] > r ? red[k] : r;
-  __syncthreads();
-  return r;
-}
-
-__device__ int block_min32(int v, int64_t *red) {
-  return (int)-block_max64(-(int64_t)v, red);
-}
-
-__device__ int block_max32(int v, int64_t *red) {
-  return (int)block_max64((int64_t)v, red);
-}
-
-// exclusive prefix max over the block (thread order): the max of the
-// values of all lower threads, NEG for thread 0
-__device__ int block_scan_max_excl(int v, int *wtot) {
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    int u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v = imax(u, v);
-  }
-  int ex = __shfl_up_sync(0xffffffffu, v, 1);
-  if (lane == 0) ex = NEG;
-  if (lane == 31) wtot[wid] = v;
-  __syncthreads();
-  int pre = NEG;
-  for (int k = 0; k < wid; ++k) pre = imax(wtot[k], pre);
-  __syncthreads();
-  return imax(pre, ex);
-}
-
 template <int S>
 __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
   extern __shared__ int smem[];
@@ -140,8 +93,11 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
 
   const int prob = blockIdx.x;
   const int p0 = threadIdx.x * S;  // this thread's slots: p0 .. p0+S-1
-  const int64_t qb = a.qbase[prob], tb = a.tbase[prob];
-  const int qd = a.qdir[prob], td = a.tdir[prob];
+  const bool arrays = a.ts != nullptr;
+  const int64_t qb = arrays ? prob * a.q_stride : a.qbase[prob];
+  const int64_t tb = arrays ? prob * a.t_stride : a.tbase[prob];
+  const int qd = arrays ? 1 : a.qdir[prob];
+  const int td = arrays ? 1 : a.tdir[prob];
   const int qlen = a.qlen[prob], tlen = a.tlen[prob];
   const int w = a.w[prob], h0 = a.h0[prob];
   const int oe_del = a.o_del + a.e_del, oe_ins = a.o_ins + a.e_ins;
@@ -182,7 +138,7 @@ __global__ void __launch_bounds__(1024) ksw_band_kernel(BandArgs a) {
       }
       __syncthreads();
     }
-    const int tci = pac_at(a, tb + (int64_t)td * i);
+    const int tci = arrays ? a.ts[tb + i] : pac_at(a, tb + (int64_t)td * i);
     const int beg_r = beg > i - w ? beg : i - w;
     int end_r = end < i + w + 1 ? end : i + w + 1;
     end_r = end_r < qlen ? end_r : qlen;
@@ -315,6 +271,18 @@ int launch(const BandArgs &a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int run(BandArgs &a, cudaStream_t stream) {
+  if (a.n == 0) return 0;
+  const int P = a.P;
+  const int S = P <= 1024 ? 1 : (P <= 2048 ? 2 : 4);
+  if (P < 32 || P > MAX_P || P % (32 * S) != 0)
+    return (int)cudaErrorInvalidValue;
+  a.W = P / 2 - 1;
+  if (S == 1) return launch<1>(a, stream);
+  if (S == 2) return launch<2>(a, stream);
+  return launch<4>(a, stream);
+}
+
 }  // namespace
 
 extern "C" int bwa_ksw_band(const uint8_t *pac, int64_t l_pac,
@@ -326,16 +294,24 @@ extern "C" int bwa_ksw_band(const uint8_t *pac, int64_t l_pac,
                             const int32_t *mat, int o_del, int e_del,
                             int o_ins, int e_ins, int zdrop, int P, int n,
                             int32_t *out, void *stream) {
-  if (n == 0) return 0;
-  const int S = P <= 1024 ? 1 : (P <= 2048 ? 2 : 4);
-  if (P < 32 || P > MAX_P || P % (32 * S) != 0)
-    return (int)cudaErrorInvalidValue;
-  BandArgs a{pac, l_pac, qflat, nq, qbase, tbase, qdir, qlen, tdir, tlen,
-             w, h0, out, n, P, P / 2 - 1, {0}, o_del, e_del, o_ins, e_ins,
-             zdrop};
+  BandArgs a{pac, l_pac, qflat, nq, nullptr, 0, 0, qbase, tbase, qdir,
+             qlen, tdir, tlen, w, h0, out, n, P, 0, {0}, o_del, e_del,
+             o_ins, e_ins, zdrop};
   for (int k = 0; k < 25; ++k) a.mat[k] = mat[k];
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S == 1) return launch<1>(a, st);
-  if (S == 2) return launch<2>(a, st);
-  return launch<4>(a, st);
+  return run(a, (cudaStream_t)stream);
+}
+
+// host-array mode: qs [n, Q] and ts [n, T] row-major code arrays
+extern "C" int bwa_ksw_band_arrays(const uint8_t *qs, int64_t Q,
+                                   const uint8_t *ts, int64_t T,
+                                   const int32_t *qlen, const int32_t *tlen,
+                                   const int32_t *w, const int32_t *h0,
+                                   const int32_t *mat, int o_del, int e_del,
+                                   int o_ins, int e_ins, int zdrop, int P,
+                                   int n, int32_t *out, void *stream) {
+  BandArgs a{nullptr, 0, qs, (int64_t)n * Q, ts, Q, T, nullptr, nullptr,
+             nullptr, qlen, nullptr, tlen, w, h0, out, n, P, 0, {0}, o_del,
+             e_del, o_ins, e_ins, zdrop};
+  for (int k = 0; k < 25; ++k) a.mat[k] = mat[k];
+  return run(a, (cudaStream_t)stream);
 }

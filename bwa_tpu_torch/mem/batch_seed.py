@@ -255,3 +255,28 @@ def occurrence_positions(opt, engine, mems_list):
         caches[b][int(k)] = int(p)
     return caches
 
+
+def collect_se_flat(opt, engine, fm, codes_list, cap_s: int = 24):
+    """Whole-batch flat seed arrays with batch-global offsets, for the PE
+    finalize (one call over every read, in file order: its insert-size
+    estimate and hash_64 ids cover the whole batch).  Built on
+    se_flat_buckets, so it climbs the same cap ladder (lane-wide rung
+    included); returns None if a bucket still overflows (the caller takes
+    the tuple path)."""
+    if not codes_list:
+        return None
+    parts = []
+    for _, _, flat in se_flat_buckets(opt, engine, fm, codes_list, cap_s):
+        if flat is None:
+            return None
+        parts.append(flat)
+    iv_off, rb_off = [np.zeros(1, np.int32)], [np.zeros(1, np.int32)]
+    iv_base = rb_base = 0
+    for o_iv, _, _, _, _, o_rb in parts:
+        iv_off.append((iv_base + o_iv[1:]).astype(np.int32))
+        rb_off.append((rb_base + o_rb[1:]).astype(np.int32))
+        iv_base += int(o_iv[-1])
+        rb_base += int(o_rb[-1])
+    return (np.concatenate(iv_off),
+            *(np.concatenate([p[k] for p in parts]) for k in range(1, 5)),
+            np.concatenate(rb_off))

@@ -1,4 +1,4 @@
-"""Glue for the C++ SE finalize (native/memfin.cpp).
+"""Glue for the C++ SE and PE finalize (native/memfin.cpp).
 
 Packs the per-batch inputs (read codes, device-produced seeds + occurrence
 positions, reference view) into flat arrays and gets back the SAM text for
@@ -33,6 +33,16 @@ def _lib():
             c, u8p, i64p, ctypes.c_char_p, i64p, ctypes.c_char_p, i64p,
             ctypes.c_char_p, i64p, ctypes.c_int64, i64p, ctypes.c_char_p,
             i32p, i64p, i32p, i32p, i64p, i32p,
+            ctypes.c_char_p, ctypes.c_int64, i64p,
+        ]
+        lib.mem_finalize_pe_batch.restype = ctypes.c_int64
+        lib.mem_finalize_pe_batch.argtypes = [
+            ctypes.c_void_p,
+            u8p, ctypes.c_int64, i64p, i32p, u8p, ctypes.c_char_p, i32p, c,
+            c, u8p, i64p, ctypes.c_char_p, i64p, ctypes.c_char_p, i64p,
+            ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_char_p,
+            i32p, i64p, i32p, i32p, i64p, i32p,
+            ctypes.POINTER(ctypes.c_double), c,
             ctypes.c_char_p, ctypes.c_int64, i64p,
         ]
         _configured = True
@@ -86,27 +96,20 @@ class RefBlob:
         self.n = len(bns.contigs)
 
 
-def finalize_se_batch(opt, fm, ref_blob: RefBlob, reads, codes_list,
-                      mems_list, caches, n_processed: int,
-                      rg_id: str | None, device_ext=None,
-                      ids=None) -> list[str]:
-    """Run the full post-seeding SE pipeline in C++; returns SAM per read.
-    device_ext: None/False for the host DP, else the torch device the
-    chain2aln seed extensions run on (mem/ext_device.py)."""
-    n = len(reads)
+def flatten_tuple_seeds(opt, mems_list, caches):
+    """Per-read seed tuples (x0, x1, x2, start << 32 | end) and their
+    occurrence caches -> the flat arrays the C++ finalize consumes:
+    (iv_off per read, x2, start, end, rbegs, rb_off per seed), with the
+    occurrences sampled in reference order (bwamem.c:304-305)."""
+    n = len(mems_list)
     iv_off = np.zeros(n + 1, np.int32)
-    iv_x2 = []
-    iv_start = []
-    iv_end = []
-    rbegs = []
-    rb_off = [0]
+    iv_x2, iv_start, iv_end, rbegs, rb_off = [], [], [], [], [0]
     for i, mems in enumerate(mems_list):
         iv_off[i + 1] = iv_off[i] + len(mems)
         for iv in mems:
             iv_x2.append(iv[2])
             iv_start.append(iv[3] >> 32)
             iv_end.append(iv[3] & 0xFFFFFFFF)
-            # sampled occurrences in reference order (bwamem.c:304-305)
             step = iv[2] // opt.max_occ if iv[2] > opt.max_occ else 1
             k = 0
             count = 0
@@ -116,28 +119,18 @@ def finalize_se_batch(opt, fm, ref_blob: RefBlob, reads, codes_list,
                 k += step
                 count += 1
             rb_off.append(len(rbegs))
-    return finalize_se_arrays(
-        opt, fm, ref_blob, reads, codes_list,
-        iv_off, np.array(iv_x2, np.int64), np.array(iv_start, np.int32),
-        np.array(iv_end, np.int32), np.array(rbegs, np.int64),
-        np.array(rb_off, np.int32), n_processed, rg_id,
-        device_ext=device_ext, ids=ids)
+    return (iv_off, np.array(iv_x2, np.int64), np.array(iv_start, np.int32),
+            np.array(iv_end, np.int32), np.array(rbegs, np.int64),
+            np.array(rb_off, np.int32))
 
 
-def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
-                       iv_off, iv_x2, iv_start, iv_end, rbegs_a, rb_off_a,
-                       n_processed: int, rg_id: str | None,
-                       device_ext=None, ids=None) -> list[str]:
-    """The ctypes call itself, over pre-flattened seed/occurrence arrays
-    (either from the tuple path above or se_flat_buckets).  device_ext
-    (a torch device, or None/False) routes the chain2aln seed extensions
-    through the band kernel (mem/ext_device.py) instead of the scalar
-    C++ DP.
-
-    ids: optional per-read int64 hash_64 seeds (the ORIGINAL
-    n_processed + read index) for callers that feed reads in a permuted
-    order (trip-sorted seeding buckets); None = id0 + i."""
-    lib = _lib()
+def _finalize(entry, opt, fm, ref_blob: RefBlob, reads, codes_list, mid,
+              seeds, tail, device_ext) -> list[str]:
+    """One native finalize call over the batch: entry(opt blob, reference,
+    reads, *mid, seed arrays, *tail, out, cap, out_off).  device_ext (a
+    torch device, or None/False) routes the chain2aln seed extensions
+    through the band kernel (mem/ext_device.py) instead of the scalar C++
+    DP.  Returns the SAM text of each read."""
     n = len(reads)
     blob = pack_opt(opt)
 
@@ -163,14 +156,13 @@ def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
     names_b, name_off = blobify([r.name for r in reads])
     quals_b, qual_off = blobify([r.qual for r in reads])
     comm_b, comm_off = blobify([r.comment for r in reads])
-    iv_off = np.ascontiguousarray(iv_off, np.int32)
-    iv_x2 = np.ascontiguousarray(iv_x2, np.int64)
-    iv_start = np.ascontiguousarray(iv_start, np.int32)
-    iv_end = np.ascontiguousarray(iv_end, np.int32)
-    rbegs_a = np.ascontiguousarray(rbegs_a, np.int64)
-    rb_off_a = np.ascontiguousarray(rb_off_a, np.int32)
-    if ids is not None:
-        ids = np.ascontiguousarray(ids, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    seeds = [np.ascontiguousarray(a, dt) for a, dt in zip(
+        seeds, (np.int32, np.int64, np.int32, np.int32, np.int64, np.int32))]
+    seed_args = [a.ctypes.data_as(i64p if a.dtype == np.int64 else i32p)
+                 for a in seeds]
 
     out_off = np.zeros(n + 1, np.int64)
     # initial output-buffer guess: a SAM record carries SEQ+QUAL (~2x qlen)
@@ -180,13 +172,10 @@ def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
     # that silent 2x was the entire pacbio finalize overhead once), so
     # scale with total query bytes, not just read count.
     cap = max(1 << 20, 1024 * n + 6 * int(l_off[-1]))
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
 
     def run(cap):
         out = ctypes.create_string_buffer(cap)
-        rc = lib.mem_finalize_se_batch(
+        rc = entry(
             blob,
             ref_blob.pac.ctypes.data_as(u8p), ref_blob.l_pac,
             ref_blob.offsets.ctypes.data_as(i64p),
@@ -198,26 +187,66 @@ def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
             names_b, name_off.ctypes.data_as(i64p),
             quals_b, qual_off.ctypes.data_as(i64p),
             comm_b, comm_off.ctypes.data_as(i64p),
-            n_processed,
-            ids.ctypes.data_as(i64p) if ids is not None else None,
-            (rg_id or "").encode(),
-            iv_off.ctypes.data_as(i32p), iv_x2.ctypes.data_as(i64p),
-            iv_start.ctypes.data_as(i32p), iv_end.ctypes.data_as(i32p),
-            rbegs_a.ctypes.data_as(i64p), rb_off_a.ctypes.data_as(i32p),
-            out, cap, out_off.ctypes.data_as(i64p))
+            *mid, *seed_args, *tail, out, cap, out_off.ctypes.data_as(i64p))
+        return rc, out
+
+    def run_sized():
+        rc, out = run(cap)
+        if rc < 0:  # the buffer was short: -rc is the size needed
+            rc, out = run(-rc)
         return rc, out
 
     if device_ext:
         from bwa_tpu_torch.mem.ext_device import DeviceExtContext
 
         with DeviceExtContext(opt, fm, codes_flat, device_ext):
-            rc, out = run(cap)
-            if rc < 0:
-                rc, out = run(-rc)
+            rc, out = run_sized()
     else:
-        rc, out = run(cap)
-        if rc < 0:
-            rc, out = run(-rc)
+        rc, out = run_sized()
     assert rc >= 0
     raw = out.raw[:rc].decode()
     return [raw[out_off[i]:out_off[i + 1]] for i in range(n)]
+
+
+def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
+                       iv_off, iv_x2, iv_start, iv_end, rbegs_a, rb_off_a,
+                       n_processed: int, rg_id: str | None,
+                       device_ext=None, ids=None) -> list[str]:
+    """The SE finalize (mem_finalize_se_batch) over pre-flattened
+    seed/occurrence arrays (from flatten_tuple_seeds or se_flat_buckets).
+
+    ids: optional per-read int64 hash_64 seeds (the ORIGINAL
+    n_processed + read index) for callers that feed reads in a permuted
+    order; None = id0 + i."""
+    if ids is not None:
+        ids = np.ascontiguousarray(ids, np.int64)
+    mid = (n_processed,
+           ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+           if ids is not None else None,
+           (rg_id or "").encode())
+    return _finalize(_lib().mem_finalize_se_batch, opt, fm, ref_blob, reads,
+                     codes_list, mid, (iv_off, iv_x2, iv_start, iv_end,
+                                       rbegs_a, rb_off_a), (), device_ext)
+
+
+def finalize_pe_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,
+                       iv_off, iv_x2, iv_start, iv_end, rbegs_a, rb_off_a,
+                       n_processed: int, pes0, rg_id: str | None,
+                       device_ext=None) -> list[str]:
+    """The PE finalize (mem_finalize_pe_batch: insert-size estimate, mate
+    rescue, pairing, SAM) over the whole batch's flat seed arrays, reads
+    interleaved r1, r2.  n_processed is passed as is: the C++ halves it
+    for the pair ids of hash_64 (memfin.cpp:2125).  pes0: the -I
+    insert-size statistics (four PEStat, one per orientation), or None to
+    estimate them from the batch."""
+    pes_arr = np.zeros(20, np.float64)
+    if pes0 is not None:
+        for d in range(4):
+            p = pes0[d]
+            pes_arr[d * 5:d * 5 + 5] = (p.failed, p.low, p.high, p.avg, p.std)
+    tail = (pes_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            int(pes0 is not None))
+    return _finalize(_lib().mem_finalize_pe_batch, opt, fm, ref_blob, reads,
+                     codes_list, (n_processed, (rg_id or "").encode()),
+                     (iv_off, iv_x2, iv_start, iv_end, rbegs_a, rb_off_a),
+                     tail, device_ext)

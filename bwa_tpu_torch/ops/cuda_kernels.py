@@ -2,11 +2,11 @@
 
 Each source is compiled by nvcc for sm_90a into its own shared library
 with a plain C interface, at first use, into the repository's
-build/kernels directory (git-ignored), keyed by a hash of the source; all
-sources compile in parallel.  The libraries are loaded with ctypes;
-pointers and the stream are passed as Python ints.  Every entry point
-launches on PyTorch's current stream, allocates nothing, and raises if the
-launch is refused.
+build/kernels directory (git-ignored), keyed by a hash of the source and
+the shared headers (csrc/*.cuh); all sources compile in parallel.  The
+libraries are loaded with ctypes; pointers and the stream are passed as
+Python ints.  Every entry point launches on PyTorch's current stream,
+allocates nothing, and raises if the launch is refused.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("seed_machine.cu", "ksw_band.cu")
+SOURCES = ("seed_machine.cu", "ksw_band.cu", "ksw_full.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,9 +43,11 @@ def _nvcc() -> str:
 
 
 def _so_path(src: str) -> Path:
-    h = hashlib.sha256((_CSRC / src).read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"{Path(src).stem}_{h}.so"
+    h = hashlib.sha256()
+    for f in [_CSRC / src, *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"{Path(src).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
@@ -88,6 +90,14 @@ def _bind(libs) -> None:
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                   i32, i32, i32, i32, i32, i32, i32, vp, vp]
+    f = libs["ksw_band.cu"].bwa_ksw_band_arrays
+    f.restype = ctypes.c_int
+    f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp,
+                  i32, i32, i32, i32, i32, i32, i32, vp, vp]
+    f = libs["ksw_full.cu"].bwa_ksw_full
+    f.restype = ctypes.c_int
+    f.argtypes = [vp, i32, vp, i64, vp, vp, vp, vp, vp,
+                  i32, i32, i32, i32, i32, i32, vp, vp]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -121,6 +131,10 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
     _check(rc, "seed_machine")
 
 
+def _mat(mat) -> ctypes.c_void_p:
+    return ctypes.cast((ctypes.c_int32 * 25)(*mat), ctypes.c_void_p)
+
+
 def ksw_band(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen, w,
              h0, mat, o_del, e_del, o_ins, e_ins, zdrop, P, out) -> None:
     """Launch K2 (csrc/ksw_band.cu) on the current stream."""
@@ -129,7 +143,32 @@ def ksw_band(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen, w,
     rc = lib.bwa_ksw_band(
         _ptr(pac), int(l_pac), _ptr(qflat), qflat.shape[0], _ptr(qbase),
         _ptr(qdir), _ptr(qlen), _ptr(tbase), _ptr(tdir), _ptr(tlen), _ptr(w),
-        _ptr(h0), ctypes.cast((ctypes.c_int32 * 25)(*mat), ctypes.c_void_p),
-        int(o_del), int(e_del), int(o_ins), int(e_ins), int(zdrop), int(P),
-        n, _ptr(out), _stream(qbase))
+        _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
+        int(zdrop), int(P), n, _ptr(out), _stream(qbase))
     _check(rc, "ksw_band")
+
+
+def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
+                    e_ins, zdrop, P, out) -> None:
+    """Launch K2 in host-array mode (qs [n, Q], ts [n, T] code rows) on the
+    current stream."""
+    lib = build_all()["ksw_band.cu"]
+    n, Q = qs.shape
+    rc = lib.bwa_ksw_band_arrays(
+        _ptr(qs), Q, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
+        _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
+        int(zdrop), int(P), n, _ptr(out), _stream(qs))
+    _check(rc, "ksw_band_arrays")
+
+
+def ksw_full(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins, e_ins,
+             zdrop, out) -> None:
+    """Launch K5 (csrc/ksw_full.cu, qs [n, QP], ts [n, T]) on the current
+    stream."""
+    lib = build_all()["ksw_full.cu"]
+    n, QP = qs.shape
+    rc = lib.bwa_ksw_full(
+        _ptr(qs), QP, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
+        _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
+        int(zdrop), n, _ptr(out), _stream(qs))
+    _check(rc, "ksw_full")

@@ -10,8 +10,10 @@ adaptive beg/end band with stale cells, the first-row eh init, z-drop, h0
 seeding, gscore/max_ie/max_off bookkeeping and every tie rule.
 
 ksw_band_side runs one extension pass over per-job coordinates (query
-windows from the flat read codes, target rows from the 2-bit .pac): a CUDA
-tensor launches K2, a CPU tensor runs the plain version.
+windows from the flat read codes, target rows from the 2-bit .pac);
+ksw_band_arrays runs it over host-built query and target code rows (K2's
+host-array mode, the JAX package's extend_band_pallas).  A CUDA tensor
+launches K2, a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch
 
 NEG = -(1 << 30)
 
-# launches of the K2 kernel (the CUDA wrapper below adds one per launch)
+# launches of the K2 kernel: gather mode (ksw_band_side) and host-array
+# mode (ksw_band_arrays); each CUDA wrapper below adds one per launch
 launches = 0
+array_launches = 0
 
 # widest band K2 takes: up to 4 band slots per thread, 1024 threads a block
 K2_MAX_BAND = 4096
@@ -33,39 +37,25 @@ def _band_for(w_max: int) -> int:
     return -(-(2 * w_max + 2) // 128) * 128
 
 
-def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
-              o_del: int, e_del: int, o_ins: int, e_ins: int, zdrop: int):
-    """The plain band DP.  qb0 [N, P] query codes of the row-0 window
-    (q[p - W]); qn [N, T] the code entering slot P-1 at row i
-    (q[i - W + P - 1]); ts [N, T] target codes; qlen, tlen, w, h0 [N].
-    Returns [N, 7] int32: score, qle, tle, gtle, gscore, max_off, and
-    the number of target rows swept (a work diagnostic)."""
-    dev = qb0.device
+def _sweep(H, E, QB, ts, qlen, tlen, w, h0, mat, W: int, o_del: int,
+           e_del: int, o_ins: int, e_ins: int, zdrop: int, slide=None):
+    """The ksw_extend2 row recurrence shared by the band DP (band_rows) and
+    the full-width DP (ops/ksw_full.py::full_rows).  H, E, QB [N, P] int64
+    hold the row-0 state.  slide(i, H, E, QB), when given, moves the band
+    one column right before every row i > 0, and slot p is query column
+    j = p + i - W at row i; without it slot p is column p (the full
+    width).  ts [N, T]
+    target codes; qlen, tlen, w, h0 [N] int64.  Returns [N, 7] int32:
+    score, qle, tle, gtle, gscore, max_off, and the number of target rows
+    swept (a work diagnostic)."""
+    dev = H.device
     i64 = torch.int64
-    N = qb0.shape[0]
-    T = ts.shape[1]
-    qb0, qn, ts = qb0.to(i64), qn.to(i64), ts.to(i64)
-    qlen, tlen, w, h0 = (a.to(i64) for a in (qlen, tlen, w, h0))
+    N, P = H.shape
     mat = torch.as_tensor(np.asarray(mat, np.int64).reshape(-1), device=dev)
     oe_del = o_del + e_del
     oe_ins = o_ins + e_ins
     colp = torch.arange(P, dtype=i64, device=dev)[None, :]
-    e1 = (h0 - oe_ins).clamp(min=0)[:, None]
-    ql2 = qlen[:, None]
-    h02 = h0[:, None]
     W_ = torch.where
-
-    def eh_init(j):
-        fill = e1 - (j - 1) * e_ins
-        prev = e1 - (j - 2) * e_ins
-        keep = (j >= 2) & (prev > e_ins) & (j <= ql2)
-        v = W_(j == 0, h02, W_(j == 1, e1, W_(keep, fill,
-                                              torch.zeros_like(fill))))
-        return W_((j >= 0) & (j <= ql2), v, torch.zeros_like(v))
-
-    H = eh_init(colp - W)
-    E = torch.zeros((N, P), dtype=i64, device=dev)
-    QB = qb0.clone()
     z = torch.zeros(N, dtype=i64, device=dev)
     beg, end, mx = z.clone(), qlen.clone(), h0.clone()
     mx_i, mx_j, mx_ie, gsc = (torch.full((N,), -1, dtype=i64, device=dev)
@@ -74,19 +64,14 @@ def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
     done = torch.zeros(N, dtype=torch.bool, device=dev)
     rows = z.clone()
     negs = torch.full((N, P), NEG, dtype=i64, device=dev)
-    zc = torch.zeros((N, 1), dtype=i64, device=dev)
-    for i in range(T):
+    for i in range(ts.shape[1]):
         act = ~done & (i < tlen)
         if not bool(act.any()):
             break  # no later row can change an output
         rows = torch.where(act, torch.full_like(rows, i + 1), rows)
-        if i > 0:  # slide the band one column right
-            h_ent = eh_init(torch.full((N, 1), i - W + P - 1, dtype=i64,
-                                       device=dev))
-            H = torch.cat([H[:, 1:], h_ent], dim=1)
-            E = torch.cat([E[:, 1:], zc], dim=1)
-            QB = torch.cat([QB[:, 1:], qn[:, i:i + 1]], dim=1)
-        colj = colp + (i - W)
+        if slide is not None and i > 0:
+            H, E, QB = slide(i, H, E, QB)
+        colj = colp + (i - W) if slide is not None else colp
         beg_r = torch.maximum(beg, torch.full_like(beg, i) - w)
         end_r = torch.minimum(torch.minimum(end, i + w + 1), qlen)
         h1 = (h0 - (o_del + e_del * (i + 1))).clamp(min=0)
@@ -153,6 +138,49 @@ def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
         H, E = H2, E2
     return torch.stack([mx, mx_j + 1, mx_i + 1, mx_ie + 1, gsc, mx_off,
                         rows], dim=1).to(torch.int32)
+
+
+def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
+              o_del: int, e_del: int, o_ins: int, e_ins: int, zdrop: int):
+    """The plain band DP.  qb0 [N, P] query codes of the row-0 window
+    (q[p - W]); qn [N, T] the code entering slot P-1 at row i
+    (q[i - W + P - 1]); ts [N, T] target codes; qlen, tlen, w, h0 [N].
+    Returns [N, 7] int32: score, qle, tle, gtle, gscore, max_off, and
+    the number of target rows swept (a work diagnostic)."""
+    dev = qb0.device
+    i64 = torch.int64
+    N = qb0.shape[0]
+    qb0, qn, ts = qb0.to(i64), qn.to(i64), ts.to(i64)
+    qlen, tlen, w, h0 = (a.to(i64) for a in (qlen, tlen, w, h0))
+    e1 = (h0 - (o_ins + e_ins)).clamp(min=0)[:, None]
+    ql2 = qlen[:, None]
+    h02 = h0[:, None]
+    W_ = torch.where
+
+    def eh_init(j):
+        fill = e1 - (j - 1) * e_ins
+        prev = e1 - (j - 2) * e_ins
+        keep = (j >= 2) & (prev > e_ins) & (j <= ql2)
+        v = W_(j == 0, h02, W_(j == 1, e1, W_(keep, fill,
+                                              torch.zeros_like(fill))))
+        return W_((j >= 0) & (j <= ql2), v, torch.zeros_like(v))
+
+    zc = torch.zeros((N, 1), dtype=i64, device=dev)
+
+    def slide(i, H, E, QB):
+        """Slot p takes slot p+1; slot P-1 takes q[i-W+P-1] with its
+        first-row eh init (stale cells keep their init)."""
+        h_ent = eh_init(torch.full((N, 1), i - W + P - 1, dtype=i64,
+                                   device=dev))
+        return (torch.cat([H[:, 1:], h_ent], dim=1),
+                torch.cat([E[:, 1:], zc], dim=1),
+                torch.cat([QB[:, 1:], qn[:, i:i + 1]], dim=1))
+
+    colp = torch.arange(P, dtype=i64, device=dev)[None, :]
+    return _sweep(eh_init(colp - W), torch.zeros((N, P), dtype=i64,
+                                                 device=dev),
+                  qb0.clone(), ts, qlen, tlen, w, h0, mat, W, o_del, e_del,
+                  o_ins, e_ins, zdrop, slide)
 
 
 def _q_gather(qflat, qbase, qdir, qlen, j):
@@ -227,4 +255,61 @@ def ksw_band_side(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen,
         [int(v) for v in np.asarray(mat, np.int64).reshape(-1)], o_del,
         e_del, o_ins, e_ins, zdrop, P, out)
     launches += 1
+    return out
+
+
+def ksw_band_arrays_plain(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del,
+                          o_ins, e_ins, zdrop, P: int):
+    """The plain version of K2's host-array mode: the query windows come
+    from the rows of qs [N, Q] (q[j] for j in [0, qlen), code 4 elsewhere),
+    the target codes from the rows of ts [N, T] (tlen <= T)."""
+    dev = qs.device
+    i64 = torch.int64
+    N, Q = qs.shape
+    W = P // 2 - 1
+    T = ts.shape[1]
+    qlen = qlen.to(i64)
+    qflat = qs.reshape(-1) if N * Q else torch.full((1,), 4, dtype=qs.dtype,
+                                                    device=dev)
+    qbase = torch.arange(N, dtype=i64, device=dev) * Q
+    one = torch.ones(N, dtype=i64, device=dev)
+    colp = torch.arange(P, dtype=i64, device=dev)[None, :]
+    coli = torch.arange(T, dtype=i64, device=dev)[None, :]
+    qb0 = _q_gather(qflat, qbase, one, qlen, colp - W)
+    qn = _q_gather(qflat, qbase, one, qlen, coli - W + P - 1)
+    return band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P, W, o_del,
+                     e_del, o_ins, e_ins, zdrop)
+
+
+def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
+                    e_ins, zdrop, P: int):
+    """One band pass over host-built rows: qs [N, Q] and ts [N, T] uint8
+    codes, qlen <= Q, tlen <= T, w band-clamped and <= P/2 - 1.  Returns
+    [N, 7] int32 (score, qle, tle, gtle, gscore, max_off, rows swept).  A
+    CUDA qs launches K2 in host-array mode; a CPU qs runs the plain
+    version."""
+    if not qs.is_cuda:
+        return ksw_band_arrays_plain(qs, ts, qlen, tlen, w, h0, mat, o_del,
+                                     e_del, o_ins, e_ins, zdrop, P)
+    global array_launches
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    if P > K2_MAX_BAND:
+        raise ValueError(f"K2 takes bands up to P = {K2_MAX_BAND} "
+                         f"(got P = {P})")
+    for t in (qs, ts):
+        if not (t.is_cuda and t.dtype == torch.uint8 and t.is_contiguous()
+                and t.dim() == 2 and t.shape[0] == qs.shape[0]):
+            raise ValueError("K2 needs contiguous uint8 CUDA qs/ts rows")
+    dev = qs.device
+    i32 = lambda a: a.to(device=dev, dtype=torch.int32).contiguous()  # noqa: E731
+    n = qs.shape[0]
+    out = torch.empty((n, 7), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    cuda_kernels.ksw_band_arrays(
+        qs, ts, i32(qlen), i32(tlen), i32(w), i32(h0),
+        [int(v) for v in np.asarray(mat, np.int64).reshape(-1)], o_del,
+        e_del, o_ins, e_ins, zdrop, P, out)
+    array_launches += 1
     return out

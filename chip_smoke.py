@@ -12,18 +12,28 @@ Run from the repository root on a machine with one CUDA card.  In order:
      seeding machine) on pack_k=2 lanes and tagged long-read shards, with
      default and tiny caps; K2 (the band DP) at P=256 and P=512, with
      z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run, and at
-     P=1280 and P=3072 (several band slots per thread);
+     P=1280 and P=3072 (several band slots per thread); K5 (the full-width
+     DP) and K2's host-array mode through the kernel entry point
+     (ops/ksw_pallas.py) at tests/test_ksw_pallas.py's shapes plus two wide
+     ones (QP = 1536 and 3072: 2 and 4 columns a thread);
   4. drives `mem` through the CLI on 4,096 x 150 bp SE reads (default
-     options) and on 512 x 2 kb + 32 x 10 kb reads with -x pacbio, counting
-     kernel launches and recording every kernel call, and checks the SAM of
-     the first 64 reads of each (four of them 10 kb reads in the pacbio
-     phase) against the port's CPU run of the same reads, which runs in a
-     subprocess from step 2 on;
-  5. holds every recorded kernel call to the plain version: the first call
+     options), on 512 x 2 kb + 32 x 10 kb reads with -x pacbio and on
+     12,288 pairs of 150 bp reads from two FASTQs (insert 350 +- 40),
+     counting kernel launches and recording every kernel call; checks the
+     SAM of the first 64 reads of each SE phase (four of them 10 kb reads in
+     the pacbio phase) against the port's CPU run of the same reads, and
+     the SAM of the first 256 pairs, run alone on the card, against the CPU
+     run of those pairs and against the card's run of them with the seed
+     extensions on K2 (the PE finalize's callback); the CPU runs go in
+     subprocesses from step 2 on;
+  5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
+     its three shapes (K2 host-array mode and K5, launches counted);
+  6. holds every recorded kernel call to the plain version: the first call
      of each kernel on all its rows (and times both), every later call on a
      subset of its lanes or jobs (rows are independent, so the subset keeps
-     the call's width, caps and band); prints the kernel table, the card's
-     name and power limit, and finally {"ok": true, "device": {...}}.
+     the call's width, caps and band), and K5 and K2's host-array mode at
+     bench_kernel's first shape; prints the kernel table, the card's name
+     and power limit, and finally {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -111,6 +121,33 @@ def simulate(codes, n, length, seed, err, indel_rate, prefix):
             origins.append(s)
         reads.append((f"{prefix}{i}", r.astype(np.uint8)))
     return reads, origins
+
+
+def simulate_pairs(codes, n, length, seed, err, prefix, isize_mean=350,
+                   isize_std=40):
+    """Read pairs from fragments of insert size N(isize_mean, isize_std)
+    (at least length + 10): the fragment's left end forwards and its right
+    end reverse-complemented, substitutions at rate err, mates swapped half
+    the time (the shape of tests/datagen.py simulate_reads(paired=True)).
+    Returns (reads1, reads2), mates sharing a name."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    glen = len(codes)
+    r1, r2 = [], []
+    for i in range(n):
+        isize = max(length + 10, int(rng.normal(isize_mean, isize_std)))
+        s = int(rng.integers(0, glen - isize))
+        mates = [codes[s:s + length].copy(),
+                 (3 - codes[s + isize - length:s + isize])[::-1].copy()]
+        for m in mates:
+            sub = rng.random(length) < err
+            m[sub] = rng.integers(0, 4, int(sub.sum()))
+        if rng.random() < 0.5:
+            mates.reverse()
+        r1.append((f"{prefix}{i}", mates[0].astype(np.uint8)))
+        r2.append((f"{prefix}{i}", mates[1].astype(np.uint8)))
+    return r1, r2
 
 
 def write_fastq(path: Path, reads) -> None:
@@ -273,6 +310,100 @@ def k2_parity(fm, reads2k, origins):
     return results
 
 
+def entry_rows(seed, n, q, t, zdrop, w_hi):
+    """Host-array extension problems of tests/test_ksw_pallas.py's shape
+    (ragged query and target lengths, 85% of the target copies the
+    query): the arguments of ops/ksw_pallas.py's entry points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mat = np.full((5, 5), -4, np.int32)
+    for i in range(4):
+        mat[i, i] = 1
+    mat[4, :] = -1
+    mat[:, 4] = -1
+    qs = rng.integers(0, 4, (n, q)).astype(np.uint8)
+    ts = rng.integers(0, 4, (n, t)).astype(np.uint8)
+    lim = min(q, t - 3)
+    ts[:, 3:3 + lim] = np.where(rng.random((n, lim)) < 0.85,
+                                qs[:, :lim], ts[:, 3:3 + lim])
+    qlens = rng.integers(q // 3, q + 1, n).astype(np.int32)
+    tlens = rng.integers(t // 3, t + 1, n).astype(np.int32)
+    ws = rng.integers(10, w_hi, n).astype(np.int32)
+    h0s = rng.integers(1, 60, n).astype(np.int32)
+    return (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, zdrop, h0s)
+
+
+def entry_parity():
+    """K5 and K2's host-array mode against their plain versions on the
+    same device tensors, and the two entry points against each other."""
+    import numpy as np
+    import torch
+
+    from bwa_tpu_torch.ops import ksw_band, ksw_full, ksw_pallas
+
+    results = []
+    # tests/test_ksw_pallas.py's shapes, then wide queries (K5: QP = 1536
+    # and 3072, 2 and 4 columns a thread; K2: P = 1408 and 2432)
+    for seed, n, q, t, zdrop, w_hi in (
+            (1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
+            (3, 16, 33, 300, 20, 120), (4, 8, 700, 900, 100, 120),
+            (5, 6, 1500, 1200, 100, 700), (6, 3, 3000, 1600, 100, 1200)):
+        a = entry_rows(seed, n, q, t, zdrop, w_hi)
+        rest = (a[4], 6, 1, 6, 1, zdrop)
+        QP = -(-(q + 1) // 128) * 128
+        res = dict(case=f"n={n} Q={q} T={t} zdrop={zdrop}", QP=QP)
+        for name, width, kern, plain in (
+                ("K5", QP, ksw_full.ksw_full, ksw_full.full_rows),
+                ("K2 host-array", q, ksw_band.ksw_band_arrays,
+                 ksw_band.ksw_band_arrays_plain)):
+            d = ksw_pallas.device_rows(*a[:11], a[12], width, "cuda")
+            args = (*d, *rest)
+            if name != "K5":
+                res["P"] = ksw_band._band_for(int(d[4].max()))
+                args = (*args, res["P"])
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            res[name] = int((got.to(torch.int64) - want.to(torch.int64))
+                            .abs().max())
+        full = ksw_pallas.extend_batch_pallas(*a)
+        band = ksw_pallas.extend_band_pallas(*a)
+        res["entry_points_equal"] = all(np.array_equal(x, y)
+                                        for x, y in zip(full, band))
+        log(f"K5/K2 host-array parity {res}")
+        results.append(res)
+        if res["K5"] or res["K2 host-array"] or not res["entry_points_equal"]:
+            fail(f"kernel entry point disagrees with a plain version: {res}")
+    return results
+
+
+def time_entry(kind, shape, bench):
+    """K5 or K2's host-array mode at one bench_kernel shape: the kernel
+    against its plain version on the same device tensors (error, plain
+    time), and the work a bound counts from this run's rows."""
+    import torch
+
+    from bwa_tpu_torch import bench_kernel
+
+    kern, plain, _ = bench_kernel.KERNELS[kind]
+    args = bench_kernel.device_args(kind, *shape)
+    out = kern(*args)
+    want, plain_ms = timed_once(lambda: plain(*args))
+    err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+    q, t, w = args[0], args[1], args[4]
+    n, width = q.shape
+    rows = out[:, 6].to(torch.int64)
+    # cells the DP evaluates: rows swept x (2w+1) band cells (K2) or x all
+    # QP query columns (K5), ~20 integer operations each
+    per_row = (2 * w.to(torch.int64) + 1) if kind == "band" else width
+    cells = int((rows * per_row).sum())
+    nbytes = q.numel() + t.numel() + n * 4 * 4 + n * 7 * 4
+    return dict(ms=bench["kernel_s"] * 1e3, plain_ms=plain_ms,
+                equal=err == 0, err=err, shape=bench["shape"],
+                rows=int(rows.sum()), cells=cells, bytes=int(nbytes),
+                ops=float(cells * 20))
+
+
 # --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
@@ -314,34 +445,42 @@ class Recorder:
         setattr(self.mod, self.name, self.real)
 
 
-def start_cpu_run(d, prefix, phase, reads, extra):
-    """The port's CPU run of the phase's first 64 reads, in a subprocess
-    that sees no card; returns (process, log file, SAM path, names, and a
-    dict that a waiter thread fills with the run's seconds)."""
-    fq64 = d / f"{phase}_first64.fq"
-    sam = d / f"{phase}_first64_cpu.sam"
-    write_fastq(fq64, reads[:64])
-    err = open(d / f"{phase}_first64_cpu.log", "w")
+def start_cpu_run(d, prefix, name, fqs, extra):
+    """The port's CPU run of `mem` on the FASTQs fqs, in a subprocess that
+    sees no card; returns (process, log file, SAM path, and a dict that a
+    waiter thread fills with the run's seconds)."""
+    sam = d / f"{name}_cpu.sam"
+    err = open(d / f"{name}_cpu.log", "w")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "bwa_tpu_torch.cli", "mem", *extra,
-         "--device", "cpu", "-o", str(sam), str(prefix), str(fq64)],
+         "--device", "cpu", "-o", str(sam), str(prefix), *map(str, fqs)],
         cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT)
     took = {}
     threading.Thread(target=lambda: took.setdefault(
         "s", (proc.wait(), time.perf_counter() - t0)[1]), daemon=True).start()
-    return proc, err, sam, {n for n, _ in reads[:64]}, took
+    return proc, err, sam, took
 
 
-def run_mem(prefix, fq, extra):
+def wait_cpu_run(cpu, what) -> tuple[str, float]:
+    """The CPU run's SAM text and seconds, once it has ended."""
+    proc, err, sam_path, took = cpu
+    if proc.wait() != 0:
+        fail(f"{what}: the CPU run exited {proc.returncode} (see {err.name})")
+    while "s" not in took:
+        time.sleep(0.01)
+    return sam_path.read_text(), took["s"]
+
+
+def run_mem(prefix, fqs, extra):
     from bwa_tpu_torch.cli import main as cli_main
     import torch
 
     out = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli_main(["mem", *extra, "--device", "cuda", str(prefix), str(fq)],
-                  out_fp=out)
+    rc = cli_main(["mem", *extra, "--device", "cuda", str(prefix),
+                   *map(str, fqs)], out_fp=out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if rc != 0:
@@ -349,10 +488,11 @@ def run_mem(prefix, fq, extra):
     return out.getvalue(), dt
 
 
-def records_of(sam: str, names: set) -> str:
+def records_of(sam: str, names: set | None = None) -> str:
+    """The SAM's records (of the reads named in names, or all)."""
     return "".join(ln + "\n" for ln in sam.split("\n")
                    if ln and not ln.startswith("@")
-                   and ln.split("\t", 1)[0] in names)
+                   and (names is None or ln.split("\t", 1)[0] in names))
 
 
 def check_sam(sam: str, n_reads: int) -> None:
@@ -365,41 +505,116 @@ def check_sam(sam: str, n_reads: int) -> None:
         fail(f"only {mapped} of {n_reads} reads mapped")
 
 
-def main_path(d, prefix, phase, reads, extra, recs):
-    from bwa_tpu_torch.ops import fm_machine, ksw_band
+def check_pe_sam(sam: str, n_pairs: int) -> float:
+    """Every pair has its two primary records; returns the share of pairs
+    whose primaries are both flagged properly paired (0x2)."""
+    prim = {}
+    for ln in sam.split("\n"):
+        if not ln or ln.startswith("@"):
+            continue
+        name, flag = ln.split("\t", 2)[:2]
+        flag = int(flag)
+        if not flag & 0x900:
+            prim.setdefault(name, []).append(flag)
+    if len(prim) != n_pairs or any(len(f) != 2 for f in prim.values()):
+        fail(f"PE SAM: {len(prim)} pairs with primary records, expected "
+             f"{n_pairs} pairs of two")
+    proper = sum(all(f & 2 for f in fl) for fl in prim.values()) / n_pairs
+    if proper < 0.9:
+        fail(f"PE SAM: only {proper:.1%} of pairs properly paired")
+    return proper
 
-    fq = d / f"{phase}.fq"
-    write_fastq(fq, reads)
+
+def zero_launches():
+    from bwa_tpu_torch.ops import fm_machine, ksw_band, ksw_full
+
+    fm_machine.launches = ksw_band.launches = 0
+    ksw_band.array_launches = ksw_full.launches = 0
+
+
+def read_launches() -> dict:
+    from bwa_tpu_torch.ops import fm_machine, ksw_band, ksw_full
+
+    return {"K1": fm_machine.launches, "K2": ksw_band.launches,
+            "K2 host-array": ksw_band.array_launches,
+            "K5": ksw_full.launches}
+
+
+def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
+    fqs = [d / f"{phase}.fq"]
+    write_fastq(fqs[0], reads)
+    if reads2 is not None:
+        fqs.append(d / f"{phase}_2.fq")
+        write_fastq(fqs[1], reads2)
     for r in recs.values():
         r.events = []
         r.phase = phase
-    fm_machine.launches = 0
-    ksw_band.launches = 0
-    sam, dt = run_mem(prefix, fq, extra)
-    launches = {"K1": fm_machine.launches, "K2": ksw_band.launches}
+    zero_launches()
+    sam, dt = run_mem(prefix, fqs, extra)
+    launches = read_launches()
     kernel_ms = {k: r.take_ms() for k, r in recs.items()}
-    check_sam(sam, len(reads))
-    info = dict(phase=phase, reads=len(reads),
-                bases=int(sum(len(r) for _, r in reads)), seconds=dt,
-                reads_per_s=len(reads) / dt, launches=launches,
+    n = len(reads) * len(fqs)
+    info = dict(phase=phase, reads=n,
+                bases=int(sum(len(r) for _, r in reads)) * len(fqs),
+                seconds=dt, reads_per_s=n / dt, launches=launches,
                 kernel_event_ms=kernel_ms)
+    if reads2 is None:
+        check_sam(sam, len(reads))
+    else:
+        info["proper_pair_share"] = check_pe_sam(sam, len(reads))
     return info, sam
 
 
-def check_first64(info, sam, cpu):
+def check_first64(info, sam, cpu, names):
     """The phase's first 64 SAM records against the CPU run's."""
-    proc, err, sam_path, names, took = cpu
-    if proc.wait() != 0:
-        fail(f"{info['phase']}: the CPU run exited {proc.returncode} "
-             f"(see {err.name})")
-    while "s" not in took:
-        time.sleep(0.01)
-    same = records_of(sam, names) == records_of(sam_path.read_text(), names)
+    cpu_sam, secs = wait_cpu_run(cpu, info["phase"])
+    same = records_of(sam, names) == records_of(cpu_sam, names)
     if not same:
         fail(f"{info['phase']}: SAM of the first 64 reads differs from the "
              f"CPU run")
-    info.update(first64_equal_cpu=same, cpu_first64_seconds=took["s"])
+    info.update(first64_equal_cpu=same, cpu_first64_seconds=secs)
     print(json.dumps(info), flush=True)
+
+
+def check_pe256(d, prefix, fm, fqs, cpu):
+    """The first 256 pairs alone: the card's SAM against the CPU run's,
+    then the card's run with the seed extensions on K2 (the PE finalize's
+    callback) against the card's host-extension run."""
+    import torch
+
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
+    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.ops import ksw_band
+    from bwa_tpu_torch.options import MEM_F_PE, MemOptions
+
+    card_sam, card_s = run_mem(prefix, fqs, [])
+    opt = MemOptions()
+    opt.flag |= MEM_F_PE
+    reads = read_batch(SeqReader(str(fqs[0])), SeqReader(str(fqs[1])),
+                       1 << 62)
+    k2_0 = ksw_band.launches
+    t0 = time.perf_counter()
+    process_seqs(opt, make_engine(fm, "cuda"), fm, reads, 0, None, None,
+                 device_ext=True)
+    torch.cuda.synchronize()
+    ext_s = time.perf_counter() - t0
+    k2 = ksw_band.launches - k2_0
+    ext_sam = "".join(r.sam for r in reads)
+    if not k2:
+        fail("PE with device_ext=True launched no K2")
+    if ext_sam != records_of(card_sam):
+        fail("PE: the SAM with extension on K2 differs from the host "
+             "extension's")
+    cpu_sam, cpu_s = wait_cpu_run(cpu, "mem_pe_first256")
+    if records_of(card_sam) != records_of(cpu_sam):
+        fail("PE: SAM of the first 256 pairs differs from the CPU run")
+    info = dict(phase="mem_pe_first256", pairs=len(reads) // 2,
+                card_seconds=card_s, equal_cpu=True, cpu_seconds=cpu_s,
+                device_ext_k2_launches=k2, device_ext_seconds=ext_s,
+                device_ext_equal_host=True)
+    print(json.dumps(info), flush=True)
+    return info
 
 
 # --------------------------------------------------------------------------
@@ -652,7 +867,8 @@ def main(argv) -> int:
             "\n".join(f"== {k}\n{v}" for k, v in
                       cuda_kernels.build_log.items()))
 
-    # 2. genome, index, reads; the CPU runs of each phase's first 64 reads
+    # 2. genome, index, reads; the CPU runs of each SE phase's first 64
+    # reads and of the first 256 pairs
     d = REPO / "build" / "smoke"
     d.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -665,20 +881,31 @@ def main(argv) -> int:
     reads150, _ = simulate(codes, 4096, 150, SEED + 3, 0.005, 0.0002, "s")
     pb2k, org2k = simulate(codes, 512, 2000, SEED + 4, 0.05, 0.03, "p")
     pb10k, _ = simulate(codes, 32, 10000, SEED + 5, 0.05, 0.03, "q")
+    pe1, pe2 = simulate_pairs(codes, 12288, 150, SEED + 6, 0.005, "f")
     # four 10 kb reads lead, so the CPU run of the first 64 takes the same
     # 10,048-base lanes and cap ladder as the card
     pacbio = pb10k[:4] + pb2k + pb10k[4:]
-    phases = (("mem_se_150bp", reads150, []),
-              ("mem_pacbio", pacbio, ["-x", "pacbio"]))
+    phases = (("mem_se_150bp", reads150, None, []),
+              ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
+              ("mem_pe_150bp", pe1, pe2, []))
     cpu = {}
     try:
-        for ph, reads, extra in phases:
-            cpu[ph] = start_cpu_run(d, str(fa), ph, reads, extra)
+        for ph, reads, _, extra in phases[:2]:
+            fq = d / f"{ph}_first64.fq"
+            write_fastq(fq, reads[:64])
+            cpu[ph] = start_cpu_run(d, str(fa), f"{ph}_first64", [fq],
+                                    extra)
+        pe256 = [d / "mem_pe_first256_1.fq", d / "mem_pe_first256_2.fq"]
+        write_fastq(pe256[0], pe1[:256])
+        write_fastq(pe256[1], pe2[:256])
+        cpu["mem_pe_first256"] = start_cpu_run(d, str(fa), "mem_pe_first256",
+                                               pe256, [])
 
         # 3. parity on the card
         t0 = time.perf_counter()
         k1_par = k1_parity(fm, reads150, pb2k)
         k2_par = k2_parity(fm, pb2k, org2k)
+        entry_par = entry_parity()
         log(f"parity done in {time.perf_counter() - t0:.1f} s")
 
         # 4. main path, with every kernel call recorded
@@ -686,65 +913,98 @@ def main(argv) -> int:
 
         recs = {"K1": Recorder(fm_machine, "seed_machine"),
                 "K2": Recorder(ext_gather, "ksw_band_side")}
-        ran = [main_path(d, str(fa), ph, reads, extra, recs)
-               for ph, reads, extra in phases]
+        ran = [main_path(d, str(fa), ph, reads, extra, recs, reads2)
+               for ph, reads, reads2, extra in phases]
         for r in recs.values():
             r.restore()
-        (phase_se, sam_se), (phase_pb, sam_pb) = ran
+        (phase_se, sam_se), (phase_pb, sam_pb), (phase_pe, _) = ran
         for name, ph in (("K1", phase_se), ("K1", phase_pb),
-                         ("K2", phase_pb)):
+                         ("K2", phase_pb), ("K1", phase_pe)):
             if ph["launches"][name] < 1:
                 fail(f"{ph['phase']}: kernel {name} was not launched")
-        if phase_se["launches"]["K2"] != 0:
-            fail("150 bp phase launched K2 (extension should stay on the "
-                 "host)")
+        for ph in (phase_se, phase_pe):
+            if ph["launches"]["K2"] != 0:
+                fail(f"{ph['phase']} launched K2 (150 bp extension should "
+                     f"stay on the host)")
         for name, r in recs.items():
             if not r.calls:
                 fail(f"the main path did not reach the {name} wrapper")
+        pe_info = check_pe256(d, str(fa), fm, pe256,
+                              cpu["mem_pe_first256"])
 
-        # 5. every recorded call against the plain version; times of the
+        # 5. the kernel entry point (K2 host-array mode and K5) through
+        # bench_kernel at its three shapes
+        from bwa_tpu_torch import bench_kernel
+
+        t0 = time.perf_counter()
+        zero_launches()
+        bench = [bench_kernel.run_shape(kind, *shape)
+                 for shape in bench_kernel.SHAPES
+                 for kind in bench_kernel.KERNELS]
+        phase_entry = dict(phase="kernel_entry", launches=read_launches(),
+                           seconds=time.perf_counter() - t0)
+        for b in bench:
+            print(json.dumps(b), flush=True)
+        for name in ("K2 host-array", "K5"):
+            if phase_entry["launches"][name] < 1:
+                fail(f"kernel entry: {name} was not launched")
+
+        # 6. every recorded call against the plain version; times of the
         # first call of each kernel
         t0 = time.perf_counter()
         k1 = time_k1(recs["K1"])
         k2 = time_k2(recs["K2"])
-        for name, k in (("K1", k1), ("K2", k2)):
+        k2h = time_entry("band", bench_kernel.SHAPES[0], bench[0])
+        k5 = time_entry("full", bench_kernel.SHAPES[0], bench[1])
+        for name, k in (("K1", k1), ("K2", k2), ("K2 host-array", k2h),
+                        ("K5", k5)):
             if not k["equal"]:
                 fail(f"{name} disagrees with its plain version at the main "
                      f"path's shape")
         calls = {k: check_calls(r, k) for k, r in recs.items()}
         log(f"main-path calls checked and timed in "
             f"{time.perf_counter() - t0:.1f} s")
-        for info, sam in ran:
-            check_first64(info, sam, cpu[info["phase"]])
+        for (info, sam), (_, reads, _, _) in zip(ran[:2], phases):
+            check_first64(info, sam, cpu[info["phase"]],
+                          {n for n, _ in reads[:64]})
+        print(json.dumps(phase_pe), flush=True)
     finally:
-        for proc, err, _, _, _ in cpu.values():
+        for proc, err, _, _ in cpu.values():
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
             err.close()
 
     kernels = []
-    for name, src, repl, k, par, ph in (
+    for name, src, repl, k, par, n, checked in (
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", k1, k1_par,
-             phase_se["launches"]["K1"] + phase_pb["launches"]["K1"]),
+             sum(p["launches"]["K1"] for p in (phase_se, phase_pb,
+                                                phase_pe)), calls["K1"]),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par,
-             phase_pb["launches"]["K2"])):
+             phase_pb["launches"]["K2"], calls["K2"]),
+            ("K2 ksw_band host-array mode", "bwa_tpu_torch/csrc/ksw_band.cu",
+             "bwa_tpu/ops/ksw_pallas.py:622", k2h, entry_par,
+             phase_entry["launches"]["K2 host-array"], None),
+            ("K5 ksw_full", "bwa_tpu_torch/csrc/ksw_full.cu",
+             "bwa_tpu/ops/ksw_pallas.py:273", k5, entry_par,
+             phase_entry["launches"]["K5"], None)):
         b_ms, b_by = bound(k["bytes"], k["ops"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=int(ph), max_abs_err=k["err"], tolerance=0, ms=k["ms"],
+            launches=int(n), max_abs_err=k["err"], tolerance=0, ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, timed_shape=k["shape"], parity=par,
-            parity_at_main_shape=k["equal"],
-            main_path_calls=calls[name.split()[0]],
+            parity_at_main_shape=k["equal"], main_path_calls=checked,
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps", "rows",
                                        "cells") if kk in k}))
     print(json.dumps(dict(
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
-                            for p in (phase_se, phase_pb)},
+                            for p in (phase_se, phase_pb, phase_pe,
+                                      phase_entry)},
+        pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line, flush=True)

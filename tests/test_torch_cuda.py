@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain PyTorch versions on a CUDA
-card: K1 (csrc/seed_machine.cu) and K2 (csrc/ksw_band.cu), exactly.  This
-file imports no JAX, so it runs on a card machine without it:
+card: K1 (csrc/seed_machine.cu), K2 (csrc/ksw_band.cu, gather and
+host-array modes) and K5 (csrc/ksw_full.cu), exactly.  This file imports no
+JAX, so it runs on a card machine without it:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from datagen import random_genome, simulate_reads, write_fasta
+from test_torch_ksw_pallas import _problems
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +174,63 @@ def test_k2_single_pass_matches_plain(jobs, w):
         e.set_reads(qflat)
         outs.append(e.run(*args, *rest))
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+_SHAPES = [(1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
+           (3, 16, 33, 300, 20, 120), (4, 8, 700, 900, 100, 120),
+           (5, 6, 1500, 1200, 100, 700), (6, 3, 3000, 1600, 100, 1200)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed,n,q,t,zdrop,w_hi", _SHAPES)
+def test_k5_and_k2_arrays_match_plain(card, seed, n, q, t, zdrop, w_hi):
+    """K5 (full width, QP up to 3072: 1, 2 and 4 columns a thread) and K2
+    in host-array mode against their plain versions on the same device
+    tensors; the two entry points agree with each other."""
+    from bwa_tpu_torch.ops import ksw_band, ksw_full
+    from bwa_tpu_torch.ops.ksw_pallas import (device_rows, extend_band_pallas,
+                                              extend_batch_pallas)
+
+    qs, qlens, ts, tlens, mat, ws, h0s = _problems(seed, n, q, t, w_hi)
+    args = (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, h0s)
+    QP = -(-(q + 1) // 128) * 128
+    qd, td, ql, tl, w, h0 = device_rows(*args, QP, card)
+    rest = (mat, 6, 1, 6, 1, zdrop)
+    n0 = ksw_full.launches
+    got = ksw_full.ksw_full(qd, td, ql, tl, w, h0, *rest)
+    assert ksw_full.launches == n0 + 1
+    want = ksw_full.full_rows(qd, td, ql, tl, w, h0, *rest)
+    assert torch.equal(got.cpu(), want.cpu())
+
+    qd, td, ql, tl, w, h0 = device_rows(*args, q, card)
+    P = ksw_band._band_for(int(w.max()))
+    n0 = ksw_band.array_launches
+    got = ksw_band.ksw_band_arrays(qd, td, ql, tl, w, h0, *rest, P)
+    assert ksw_band.array_launches == n0 + 1
+    want = ksw_band.ksw_band_arrays_plain(qd, td, ql, tl, w, h0, *rest, P)
+    assert torch.equal(got.cpu(), want.cpu())
+
+    full = extend_batch_pallas(*args[:11], zdrop, h0s)
+    band = extend_band_pallas(*args[:11], zdrop, h0s)
+    for a, b in zip(full, band):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["full", "band"])
+def test_k5_and_k2_arrays_raise_past_one_block(card, kind):
+    """A query row wider than one block holds (K5: QP > 4096) or a band
+    wider than K2 takes (P > 4096) raises on the card; nothing falls back
+    to the plain version."""
+    from bwa_tpu_torch.ops import ksw_band, ksw_full
+
+    n = 2
+    q = torch.full((n, 4224), 1, dtype=torch.uint8, device=card)
+    t = torch.full((n, 256), 1, dtype=torch.uint8, device=card)
+    v = torch.full((n,), 100, dtype=torch.int32, device=card)
+    rest = (np.eye(5, dtype=np.int32), 6, 1, 6, 1, 100)
+    with pytest.raises(ValueError):
+        if kind == "full":
+            ksw_full.ksw_full(q, t, v, v, v, v, *rest)
+        else:
+            ksw_band.ksw_band_arrays(q, t, v, v, v, v, *rest, 4224)

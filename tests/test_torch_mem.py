@@ -48,7 +48,7 @@ def _torch_sam(prefix, rs, mode, device_ext=None):
     opt = MemOptions()
     opt.apply_mode(mode)
     reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
-    process_seqs(opt, make_engine(fm, "cpu"), fm, reads, 0, None,
+    process_seqs(opt, make_engine(fm, "cpu"), fm, reads, 0, None, None,
                  device_ext=device_ext)
     return "".join(r.sam for r in reads)
 
@@ -111,10 +111,39 @@ def test_mem_lane_wide_rung_before_host_fallback(world):
     opt = MemOptions()
     opt.apply_mode("pacbio")
     reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
-    process_seqs(opt, eng, fm, reads, 0, None)
+    process_seqs(opt, eng, fm, reads, 0, None, None)
     assert caps == [24, 96, 256, 704]
     assert "".join(r.sam for r in reads) == \
         _jax_sam(world["prefix"], rs, "pacbio")
+
+
+def test_mem_se_tuple_fallback_matches_jax(world):
+    """Every rung of the ladder, the lane-wide one included, reports
+    overflow: the bucket takes the per-read host seeding path into the SE
+    finalize, with the same SAM bytes."""
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.mem.types import Read
+    from bwa_tpu_torch.options import MemOptions
+
+    rs = simulate_reads(world["genome"], 8, read_len=150, seed=31)
+    fm = FMIndex.load(world["prefix"])
+    eng = make_engine(fm, "cpu")
+    caps = []
+    real_wait = eng.collect_seeds_wait
+
+    def wait(h):
+        out = real_wait(h)
+        caps.append(h[2])
+        return out[:5] + (out[5] * 0 + h[2] + 1,) + out[6:]
+
+    eng.collect_seeds_wait = wait
+    reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
+    process_seqs(MemOptions(), eng, fm, reads, 0, None, None)
+    assert caps == [24, 96, 256]
+    assert "".join(r.sam for r in reads) == \
+        _jax_sam(world["prefix"], rs, None)
 
 
 def test_cli_mem_on_cpu(world):
@@ -163,16 +192,16 @@ def test_device_extension_gate():
 
 
 def test_unported_modes_raise(world):
+    """Single-end -5 is not ported yet."""
     from bwa_tpu_torch.engine import make_engine
     from bwa_tpu_torch.index.fmindex import FMIndex
     from bwa_tpu_torch.mem.pipeline import process_seqs
     from bwa_tpu_torch.mem.types import Read
-    from bwa_tpu_torch.options import MEM_F_PE, MEM_F_PRIMARY5, MemOptions
+    from bwa_tpu_torch.options import MEM_F_PRIMARY5, MemOptions
 
     fm = FMIndex.load(world["prefix"])
     eng = make_engine(fm, "cpu")
-    for flag in (MEM_F_PE, MEM_F_PRIMARY5):
-        opt = MemOptions()
-        opt.flag |= flag
-        with pytest.raises(NotImplementedError):
-            process_seqs(opt, eng, fm, [Read(name="r", seq=b"ACGT" * 40)])
+    opt = MemOptions()
+    opt.flag |= MEM_F_PRIMARY5
+    with pytest.raises(NotImplementedError):
+        process_seqs(opt, eng, fm, [Read(name="r", seq=b"ACGT" * 40)])
