@@ -61,10 +61,39 @@ def make_problems(N, Q, T, w, h0=60):
             np.full(N, w, np.int64), np.full(N, h0, np.int64))
 
 
+def ragged_problems(seed, n, q, t, w_hi=120):
+    """The repository's tests/test_ksw_pallas.py problems: ragged query and
+    target lengths (qlen < Q on most rows), 85% of the target copies the
+    query from its fourth base on; bands drawn from [10, w_hi).  Returns
+    make_problems's tuple."""
+    rng = np.random.default_rng(seed)
+    mat = np.full((5, 5), -4, np.int32)
+    for i in range(4):
+        mat[i, i] = 1
+    mat[4, :] = -1
+    mat[:, 4] = -1
+    qs = rng.integers(0, 4, (n, q)).astype(np.uint8)
+    ts = rng.integers(0, 4, (n, t)).astype(np.uint8)
+    lim = min(q, t - 3)
+    ts[:, 3:3 + lim] = np.where(rng.random((n, lim)) < 0.85,
+                                qs[:, :lim], ts[:, 3:3 + lim])
+    qlens = rng.integers(q // 3, q + 1, n).astype(np.int32)
+    tlens = rng.integers(t // 3, t + 1, n).astype(np.int32)
+    ws = rng.integers(10, w_hi, n).astype(np.int32)
+    h0s = rng.integers(1, 60, n).astype(np.int32)
+    return qs, qlens, ts, tlens, mat, ws, h0s
+
+
+def entry_args(problems, zdrop=ZDROP):
+    """The entry points' arguments (extend_*_pallas minus device) for a
+    problem tuple (qs, qlens, ts, tlens, mat, ws, h0s)."""
+    qs, qlens, ts, tlens, mat, ws, h0s = problems
+    return (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, zdrop, h0s)
+
+
 def host_args(N, Q, T, w):
-    """The entry points' arguments (extend_*_pallas minus device)."""
-    qs, qlens, ts, tlens, mat, ws, h0s = make_problems(N, Q, T, w)
-    return (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, ZDROP, h0s)
+    """The entry points' arguments at one benchmark shape."""
+    return entry_args(make_problems(N, Q, T, w))
 
 
 def device_args(kind, N, Q, T, w, device="cuda"):

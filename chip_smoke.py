@@ -32,8 +32,8 @@ Run from the repository root on a machine with one CUDA card.  In order:
      of each kernel on all its rows (and times both), every later call on a
      subset of its lanes or jobs (rows are independent, so the subset keeps
      the call's width, caps and band), and K5 and K2's host-array mode at
-     bench_kernel's first shape; prints the kernel table, the card's name
-     and power limit, and finally {"ok": true, "device": {...}}.
+     each of bench_kernel's shapes; prints the kernel table, the card's
+     name and power limit, and finally {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -310,36 +310,13 @@ def k2_parity(fm, reads2k, origins):
     return results
 
 
-def entry_rows(seed, n, q, t, zdrop, w_hi):
-    """Host-array extension problems of tests/test_ksw_pallas.py's shape
-    (ragged query and target lengths, 85% of the target copies the
-    query): the arguments of ops/ksw_pallas.py's entry points."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    mat = np.full((5, 5), -4, np.int32)
-    for i in range(4):
-        mat[i, i] = 1
-    mat[4, :] = -1
-    mat[:, 4] = -1
-    qs = rng.integers(0, 4, (n, q)).astype(np.uint8)
-    ts = rng.integers(0, 4, (n, t)).astype(np.uint8)
-    lim = min(q, t - 3)
-    ts[:, 3:3 + lim] = np.where(rng.random((n, lim)) < 0.85,
-                                qs[:, :lim], ts[:, 3:3 + lim])
-    qlens = rng.integers(q // 3, q + 1, n).astype(np.int32)
-    tlens = rng.integers(t // 3, t + 1, n).astype(np.int32)
-    ws = rng.integers(10, w_hi, n).astype(np.int32)
-    h0s = rng.integers(1, 60, n).astype(np.int32)
-    return (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, zdrop, h0s)
-
-
 def entry_parity():
     """K5 and K2's host-array mode against their plain versions on the
     same device tensors, and the two entry points against each other."""
     import numpy as np
     import torch
 
+    from bwa_tpu_torch.bench_kernel import entry_args, ragged_problems
     from bwa_tpu_torch.ops import ksw_band, ksw_full, ksw_pallas
 
     results = []
@@ -349,7 +326,7 @@ def entry_parity():
             (1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
             (3, 16, 33, 300, 20, 120), (4, 8, 700, 900, 100, 120),
             (5, 6, 1500, 1200, 100, 700), (6, 3, 3000, 1600, 100, 1200)):
-        a = entry_rows(seed, n, q, t, zdrop, w_hi)
+        a = entry_args(ragged_problems(seed, n, q, t, w_hi), zdrop)
         rest = (a[4], 6, 1, 6, 1, zdrop)
         QP = -(-(q + 1) // 128) * 128
         res = dict(case=f"n={n} Q={q} T={t} zdrop={zdrop}", QP=QP)
@@ -377,31 +354,48 @@ def entry_parity():
     return results
 
 
-def time_entry(kind, shape, bench):
-    """K5 or K2's host-array mode at one bench_kernel shape: the kernel
+def time_entry(kind, bench):
+    """K5 or K2's host-array mode at every bench_kernel shape: the kernel
     against its plain version on the same device tensors (error, plain
-    time), and the work a bound counts from this run's rows."""
+    time); the times at the first shape, and the work a bound counts from
+    that shape's rows.  bench maps (kind, shape) to run_shape's line."""
     import torch
 
     from bwa_tpu_torch import bench_kernel
 
     kern, plain, _ = bench_kernel.KERNELS[kind]
-    args = bench_kernel.device_args(kind, *shape)
-    out = kern(*args)
-    want, plain_ms = timed_once(lambda: plain(*args))
-    err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
-    q, t, w = args[0], args[1], args[4]
+    checked = []
+    for shape in bench_kernel.SHAPES:
+        args = bench_kernel.device_args(kind, *shape)
+        out = kern(*args)
+        want, plain_ms = timed_once(lambda: plain(*args))
+        err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+        checked.append(dict(shape=bench[kind, shape]["shape"], err=err,
+                            ms=bench[kind, shape]["kernel_s"] * 1e3,
+                            plain_ms=plain_ms))
+        log(f"{kind} entry {checked[-1]}")
+        if err:
+            fail(f"{kind} entry disagrees with its plain version at "
+                 f"{checked[-1]}")
+        if shape == bench_kernel.SHAPES[0]:
+            first = args, out
+    (q, t, qlen, _, w, *_), out = first
     n, width = q.shape
     rows = out[:, 6].to(torch.int64)
-    # cells the DP evaluates: rows swept x (2w+1) band cells (K2) or x all
-    # QP query columns (K5), ~20 integer operations each
-    per_row = (2 * w.to(torch.int64) + 1) if kind == "band" else width
-    cells = int((rows * per_row).sum())
+    # cells the function needs: rows swept x the in-band cells (2w+1, at
+    # most qlen), ~20 integer operations each.  K5 sweeps all QP columns
+    # of a row (full_width_cells), but those outside the band are masked
+    # and reach no output.
+    band = torch.minimum(2 * w.to(torch.int64) + 1, qlen.to(torch.int64))
+    cells = int((rows * band).sum())
     nbytes = q.numel() + t.numel() + n * 4 * 4 + n * 7 * 4
-    return dict(ms=bench["kernel_s"] * 1e3, plain_ms=plain_ms,
-                equal=err == 0, err=err, shape=bench["shape"],
-                rows=int(rows.sum()), cells=cells, bytes=int(nbytes),
-                ops=float(cells * 20))
+    res = dict(ms=checked[0]["ms"], plain_ms=checked[0]["plain_ms"],
+               equal=True, err=0, shape=checked[0]["shape"],
+               rows=int(rows.sum()), cells=cells, bytes=int(nbytes),
+               ops=float(cells * 20), shapes=checked)
+    if kind == "full":
+        res["full_width_cells"] = int(rows.sum()) * width
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -660,7 +654,9 @@ def k1_lanes(q, qlen, longest: bool):
     """Lanes of a recorded K1 call to hold to the plain version: every lane
     of one read less than half as long as the longest, one empty lane, and
     with `longest` every lane of the longest read (lanes of one read share
-    their codes and length)."""
+    their codes and length).  When every live lane has one length (150 bp
+    reads packed two a lane), that rule finds no short read, so 128 lanes
+    spread evenly over the call are held as well."""
     import torch
 
     ql = qlen.to(torch.int64)
@@ -677,6 +673,9 @@ def k1_lanes(q, qlen, longest: bool):
     empty = (ql == 0).nonzero().flatten()
     if empty.numel():
         sel.add(int(empty[0]))
+    live = (ql > 0).nonzero().flatten()
+    if live.numel() and bool((ql[live] == ql[top]).all()):
+        sel |= set(live[::max(1, live.numel() // 128)][:128].tolist())
     if not sel:
         sel = lanes_of(top)
     return sorted(sel)
@@ -938,12 +937,12 @@ def main(argv) -> int:
 
         t0 = time.perf_counter()
         zero_launches()
-        bench = [bench_kernel.run_shape(kind, *shape)
+        bench = {(kind, shape): bench_kernel.run_shape(kind, *shape)
                  for shape in bench_kernel.SHAPES
-                 for kind in bench_kernel.KERNELS]
+                 for kind in bench_kernel.KERNELS}
         phase_entry = dict(phase="kernel_entry", launches=read_launches(),
                            seconds=time.perf_counter() - t0)
-        for b in bench:
+        for b in bench.values():
             print(json.dumps(b), flush=True)
         for name in ("K2 host-array", "K5"):
             if phase_entry["launches"][name] < 1:
@@ -954,8 +953,8 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         k1 = time_k1(recs["K1"])
         k2 = time_k2(recs["K2"])
-        k2h = time_entry("band", bench_kernel.SHAPES[0], bench[0])
-        k5 = time_entry("full", bench_kernel.SHAPES[0], bench[1])
+        k2h = time_entry("band", bench)
+        k5 = time_entry("full", bench)
         for name, k in (("K1", k1), ("K2", k2), ("K2 host-array", k2h),
                         ("K5", k5)):
             if not k["equal"]:
@@ -997,8 +996,10 @@ def main(argv) -> int:
             plain_ms=k["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, timed_shape=k["shape"], parity=par,
             parity_at_main_shape=k["equal"], main_path_calls=checked,
+            entry_shapes=k.get("shapes"),
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps", "rows",
-                                       "cells") if kk in k}))
+                                       "cells", "full_width_cells")
+                  if kk in k}))
     print(json.dumps(dict(
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from datagen import random_genome, simulate_reads, write_fasta
-from test_torch_ksw_pallas import _problems
 
 
 @pytest.fixture(scope="module")
@@ -187,11 +186,12 @@ def test_k5_and_k2_arrays_match_plain(card, seed, n, q, t, zdrop, w_hi):
     """K5 (full width, QP up to 3072: 1, 2 and 4 columns a thread) and K2
     in host-array mode against their plain versions on the same device
     tensors; the two entry points agree with each other."""
+    from bwa_tpu_torch.bench_kernel import ragged_problems
     from bwa_tpu_torch.ops import ksw_band, ksw_full
     from bwa_tpu_torch.ops.ksw_pallas import (device_rows, extend_band_pallas,
                                               extend_batch_pallas)
 
-    qs, qlens, ts, tlens, mat, ws, h0s = _problems(seed, n, q, t, w_hi)
+    qs, qlens, ts, tlens, mat, ws, h0s = ragged_problems(seed, n, q, t, w_hi)
     args = (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, h0s)
     QP = -(-(q + 1) // 128) * 128
     qd, td, ql, tl, w, h0 = device_rows(*args, QP, card)

@@ -10,28 +10,6 @@ import torch
 torch.set_num_threads(1)
 
 
-def _problems(seed, n, q, t, w_hi=120):
-    """tests/test_ksw_pallas.py's problems: ragged query and target
-    lengths (qlen < Q on most rows), 85% of the target copies the query;
-    bands drawn from [10, w_hi)."""
-    rng = np.random.default_rng(seed)
-    mat = np.full((5, 5), -4, np.int32)
-    for i in range(4):
-        mat[i, i] = 1
-    mat[4, :] = -1
-    mat[:, 4] = -1
-    qs = rng.integers(0, 4, (n, q)).astype(np.uint8)
-    ts = rng.integers(0, 4, (n, t)).astype(np.uint8)
-    lim = min(q, t - 3)
-    ts[:, 3:3 + lim] = np.where(rng.random((n, lim)) < 0.85,
-                                qs[:, :lim], ts[:, 3:3 + lim])
-    qlens = rng.integers(q // 3, q + 1, n).astype(np.int32)
-    tlens = rng.integers(t // 3, t + 1, n).astype(np.int32)
-    ws = rng.integers(10, w_hi, n).astype(np.int32)
-    h0s = rng.integers(1, 60, n).astype(np.int32)
-    return qs, qlens, ts, tlens, mat, ws, h0s
-
-
 _SHAPES = [(1, 37, 80, 150, 100), (2, 64, 128, 128, -1),
            (3, 16, 33, 300, 20), (4, 8, 700, 900, 100)]
 
@@ -42,11 +20,12 @@ _SHAPES = [(1, 37, 80, 150, 100), (2, 64, 128, 128, -1),
 def test_entry_point_matches_jax(kind, seed, n, q, t, zdrop):
     from bwa_tpu.ops import ksw_pallas as jax_kp
 
+    from bwa_tpu_torch.bench_kernel import entry_args, ragged_problems
     from bwa_tpu_torch.ops import ksw_pallas as torch_kp
 
-    qs, qlens, ts, tlens, mat, ws, h0s = _problems(seed, n, q, t)
-    assert (qlens < q).any()
-    args = (qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, zdrop, h0s)
+    problems = ragged_problems(seed, n, q, t)
+    assert (problems[1] < q).any()
+    args = entry_args(problems, zdrop)
     name = "extend_batch_pallas" if kind == "full" else "extend_band_pallas"
     want = getattr(jax_kp, name)(*args, interpret=True)
     got = getattr(torch_kp, name)(*args, device="cpu")

@@ -76,6 +76,31 @@ def test_mem_pe_150bp_matches_jax(world):
     assert _torch_sam(world["prefix"], rs) == want
 
 
+def test_mem_pe_several_buckets_match_jax(world, monkeypatch):
+    """Buckets of 32 reads: 60 pairs seed in four machine calls (the last
+    one partly filled) and collect_se_flat joins them with batch-global
+    offsets before the one PE finalize, with the same SAM bytes as
+    bwa_tpu's single bucket."""
+    from bwa_tpu_torch.mem import batch_seed
+
+    monkeypatch.setattr(batch_seed, "_lane_bucket", lambda L, nb=None: 32)
+    calls = []
+
+    def hook(eng):
+        real = eng.collect_seeds_dispatch
+
+        def dispatch(q, lens, *a, **kw):
+            calls.append(len(lens))
+            return real(q, lens, *a, **kw)
+
+        eng.collect_seeds_dispatch = dispatch
+
+    rs = _pairs(world, 60, 67)
+    got = _torch_sam(world["prefix"], rs, engine_hook=hook)
+    assert calls == [16, 16, 16, 16]
+    assert got == _jax_sam(world["prefix"], rs)
+
+
 def test_mem_pe_retry_ladder_matches_jax(world, monkeypatch):
     """A stack cap of 2 overflows lanes: both climb the device cap ladder
     before the PE finalize and still agree byte for byte."""
