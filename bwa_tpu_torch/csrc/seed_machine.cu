@@ -1,4 +1,4 @@
-// Kernel K1: the per-lane SMEM seeding machine.
+// Kernel K1: the per-lane SMEM seeding machine, a warp per lane.
 //
 // Replaces the JAX package's XLA while_loop
 // bwa_tpu/ops/fm_machine.py::seed_machine_seg (with ops/fm.py::_occ4,
@@ -6,26 +6,48 @@
 // (bwamem.c:140-188) -- pass 1 SMEMs (bwt_smem1a, bwt.c:289-351), pass 2
 // re-seeding from the midpoints of long unique SMEMs, pass 3 LAST-like
 // seeds (bwt_seed_strategy1, bwt.c:358-379) on lanes whose hi3 bound is
-// non-zero.
+// non-zero.  Its plain version is
+// bwa_tpu_torch/ops/fm_machine.py::seed_machine_seg; per lane, seeds (after
+// sort_seeds), seed_n, ovf, done_step and steps are equal bit for bit.
 //
-// Design: one thread per lane runs its machine to completion in a single
-// launch; each loop iteration is one step of the plain version
-// (bwa_tpu_torch/ops/fm_machine.py::seed_machine_seg), statement for
-// statement, so the per-lane outputs (seeds, seed_n, ovf) are identical.
-// The interval stacks (capped at `cap`) and the seed store (capped at
-// `cap_s`) live in global scratch, one slice per lane; a full stack keeps
-// overwriting its last slot and raises the lane's overflow flag, exactly
-// as the plain version does, so the host retry ladder sees the same flags.
+// What bounds it on an H100: not bytes and not operations, but the longest
+// lane's chain of dependent reads.  Every machine step extends an interval
+// by one base (bwt_extend), which needs two occ4 lookups in the fused occtab
+// at positions that the previous step produced.  The occtab of a 4.6 Mbp
+// genome is 1.5 MB and stays in the 50 MB L2, so a step costs one L2 round
+// trip plus the arithmetic that follows it, and a launch costs the longest
+// lane's steps times that.  The design shortens the chain and what hangs
+// off each link:
+//  1. A warp per lane.  The lane's scalar state lives in registers, the same
+//     in all 32 threads, so a warp never diverges on the machine's phase.
+//     4 warps a block: 2,048 lanes are 512 blocks over all 132 SMs.
+//  2. Cooperative occ4.  A group of G = 2R threads (2 for the R = 1 occtab,
+//     8 for R = 4) extends one interval: half the group counts B[0..k] and
+//     half B[0..l], each thread
+//     8 text words (two 16-byte loads) plus the row's counts, all issued
+//     together, so both lookups of a step cost one L2 latency.  A shuffle
+//     reduction of packed 10-bit counts within each half and one exchange
+//     between the halves finish bwt_extend.  In a forward step every group
+//     does the same lookup, so the result is uniform without a broadcast.
+//  3. A backward row in parallel.  The pn entries of row i are extended by
+//     the same base at once, 32/G a round.  What depends on order comes
+//     from ballots over the entries, in the plain version's order: an entry
+//     is pushed if it is not kept and no earlier entry of the row is unkept
+//     or its size differs from the nearest earlier unkept entry's; a push of
+//     rank r writes slot min(r, cap - 1), the last such push winning; the
+//     row can emit only at its first entry.  A row counts pn steps (one if
+//     pn = 0), as the plain machine takes them one j at a time.
+//  4. Stacks A and B in shared memory (2 x cap x 4 coordinates a lane);
+//     seeds and qmask stay in global memory, written by the warp.
+//  5. 32-bit arithmetic when 2*l_pac+2 < 2^31 (C = int32); occtab words are
+//     masked and shifted as uint32.  The int64 instantiation serves
+//     GRCh38-scale indexes.
+//  6. No initialisation pass: every seed slot is written once, by a push or,
+//     after the machine ends, by the warp's coalesced zeroing of the slots
+//     past seed_n; qmask is read only below seed_n.
 //
-// What bounds it: each machine step does two occ4 lookups, i.e. two
-// dependent random reads of a (16 + 32R)-byte occtab row from device
-// memory, plus a handful of popcounts.  The kernel is latency-bound on
-// those reads (the table of a 4.6 Mbp genome is 1.5 MB and stays in L2);
-// many lanes in flight per SM hide part of it.  Lanes diverge freely: a
-// lane never waits for another lane's step.
-//
-// Built with nvcc for sm_90a into a shared library with a plain C
-// interface (bwa_tpu_torch/ops/cuda_kernels.py).
+// Built with nvcc for sm_90a into a shared library with a plain C interface
+// (bwa_tpu_torch/ops/cuda_kernels.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,14 +57,15 @@ namespace {
 constexpr int P_NEXT = 0, P_FWD = 1, P_BWD = 2, P_DONE = 3;
 constexpr int S_P1 = 0, S_P2 = 1, S_P3 = 2;
 constexpr uint32_t M55 = 0x55555555u;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 4;  // lanes (warps) a block
+constexpr int WPT = 8;    // occtab words a thread reads for one lookup
 
 template <typename C>
 struct SeedArgs {
   const uint32_t *occtab;  // [n_rows, 4 + nw] counts || text words
-  int nw;                  // 8R words per row
-  int rbits;               // log2(R)
   const int64_t *L2;       // [5]
-  int64_t primary, seq_len;
+  C primary, seq_len;
   const uint8_t *q;        // [B, L] read codes
   int B, L;
   const int32_t *qlen, *nv, *job_lo, *hi1, *hi3;  // nv: [B, L+1]
@@ -52,299 +75,365 @@ struct SeedArgs {
   C *seeds;                // [B, cap_s, 5|6]
   int32_t *seed_n, *done_step, *steps;
   uint8_t *ovf;
-  C *stk;                  // [B, 2, cap, 4] scratch (stacks A and B)
   uint8_t *qmask;          // [B, cap_s] scratch
 };
 
-__device__ __forceinline__ int64_t clampi(int64_t v, int64_t lo, int64_t hi) {
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// bwt_occ4 (bwt.c:169-186) from the fused occtab; k == -1 -> zeros,
-// k == seq_len -> the L2 differences.
+// v[c] for a c known only at run time, by selects (no local memory)
 template <typename C>
-__device__ void occ4(const SeedArgs<C> &a, int64_t k, int64_t out[4]) {
+__device__ __forceinline__ C pick(const C v[5], int c) {
+  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : c == 3 ? v[3] : v[4];
+}
+
+// bwt_extend's counting half for one interval and base c, by a group of
+// G = 2H threads (gl: thread in the group).  Threads [0, H) count B[0..k1],
+// threads [H, 2H) B[0..k2] (bwt_occ4, bwt.c:169-186; k == -1 gives zeros,
+// k == seq_len the L2 differences).  Every thread of the group leaves with
+//   nb = L2[c] + 1 + occ(k1)[c],  sz = occ(k2)[c] - occ(k1)[c],
+//   above = sum over c' > c of occ(k2)[c'] - occ(k1)[c'].
+template <typename C, int NW>
+__device__ __forceinline__ void extend_c(const SeedArgs<C> &a, const C L2[5],
+                                         C k1, C k2, int gl, int c, C &nb,
+                                         C &sz, C &above) {
+  constexpr int H = NW / WPT;
+  constexpr int RB = NW == 8 ? 0 : 2;  // log2(R)
+  const bool half = gl >= H;
+  const int h = half ? gl - H : gl;
+  const C k = half ? k2 : k1;
+  C kk = k - (k >= a.primary ? 1 : 0);
+  kk = kk < 0 ? 0 : (kk > a.seq_len - 1 ? a.seq_len - 1 : kk);
+  const uint4 *row = reinterpret_cast<const uint4 *>(
+      a.occtab + (size_t)(kk >> (7 + RB)) * (4 + NW));
+  const uint4 cnt = __ldg(row);
+  uint4 w[WPT / 4];
+#pragma unroll
+  for (int u = 0; u < WPT / 4; ++u) w[u] = __ldg(row + 1 + h * (WPT / 4) + u);
+  const int kw = (int)(kk >> 4) & (NW - 1), kb = (int)(kk & 15);
+  uint32_t packed = 0;  // counts of bases 1, 2, 3 in 10 bits each
+#pragma unroll
+  for (int u = 0; u < WPT / 4; ++u) {
+    const uint32_t ws[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int nkeep = (kw - (h * WPT + u * 4 + t)) * 16 + kb + 1;
+      const uint32_t mask = nkeep <= 0 ? 0u
+                            : nkeep >= 16 ? FULL
+                                          : FULL << ((16 - nkeep) << 1);
+      const uint32_t word = ws[t] & mask;
+      const uint32_t hi = (word >> 1) & M55, lo = word & M55;
+      const uint32_t n3 = __popc(hi & lo);
+      packed += (__popc(lo) - n3) | ((__popc(hi) - n3) << 10) | (n3 << 20);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < H; off <<= 1)
+    packed += __shfl_xor_sync(FULL, packed, off);
+  const int n1 = packed & 1023, n2 = (packed >> 10) & 1023, n3 = packed >> 20;
+  C o0 = (C)cnt.x + (kw * 16 + kb + 1 - n1 - n2 - n3);
+  C o1 = (C)cnt.y + n1, o2 = (C)cnt.z + n2, o3 = (C)cnt.w + n3;
   if (k == -1) {
-    out[0] = out[1] = out[2] = out[3] = 0;
-    return;
+    o0 = o1 = o2 = o3 = 0;
+  } else if (k == a.seq_len) {
+    o0 = L2[1] - L2[0]; o1 = L2[2] - L2[1];
+    o2 = L2[3] - L2[2]; o3 = L2[4] - L2[3];
   }
-  if (k == a.seq_len) {
-    for (int c = 0; c < 4; ++c) out[c] = a.L2[c + 1] - a.L2[c];
-    return;
-  }
-  int64_t kk = k - (k >= a.primary ? 1 : 0);
-  kk = clampi(kk, 0, a.seq_len - 1);
-  const uint32_t *row = a.occtab + (kk >> (7 + a.rbits)) * (int64_t)(4 + a.nw);
-  int kw = (int)((kk >> 4) & (a.nw - 1));
-  int kb = (int)(kk & 15);
-  int64_t c0 = row[0], c1 = row[1], c2 = row[2], c3 = row[3];
-  for (int w = 0; w <= kw; ++w) {
-    int nkeep = w < kw ? 16 : kb + 1;
-    uint32_t mask = 0xFFFFFFFFu << ((16 - nkeep) << 1);
-    uint32_t word = row[4 + w] & mask;
-    uint32_t vm = mask & M55;
-    uint32_t hi = (word >> 1) & M55, lo = word & M55;
-    int n3 = __popc(hi & lo), nhi = __popc(hi), nlo = __popc(lo);
-    int nv = __popc(vm);
-    c0 += nv - nhi - nlo + n3;
-    c1 += nlo - n3;
-    c2 += nhi - n3;
-    c3 += n3;
-  }
-  out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
+  const C oc = c == 0 ? o0 : (c == 1 ? o1 : (c == 2 ? o2 : o3));
+  const C ab = (c < 1 ? o1 : 0) + (c < 2 ? o2 : 0) + (c < 3 ? o3 : 0);
+  const C oc_x = __shfl_xor_sync(FULL, oc, H);
+  const C ab_x = __shfl_xor_sync(FULL, ab, H);
+  const C tk = half ? oc_x : oc, tl = half ? oc : oc_x;
+  nb = pick(L2, c) + 1 + tk;
+  sz = tl - tk;
+  above = (half ? ab : ab_x) - (half ? ab_x : ab);
 }
 
-template <typename C>
-__device__ void push_row(C *buf, int64_t &n, int cap, int ncol,
-                         const int64_t *row, bool &ovf) {
-  int64_t slot = n < cap - 1 ? n : cap - 1;
-  C *dst = buf + slot * ncol;
-  for (int t = 0; t < ncol; ++t) dst[t] = (C)row[t];
-  if (n >= cap) ovf = true;
-  ++n;
-}
-
-template <typename C>
-__global__ void seed_machine_kernel(SeedArgs<C> a) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
+template <typename C, int NW>
+__global__ void __launch_bounds__(WARPS * 32)
+    seed_machine_kernel(SeedArgs<C> a) {
+  constexpr int G = 2 * NW / WPT;  // threads a group (one interval)
+  constexpr int E = 32 / G;        // backward entries a round
+  constexpr unsigned LEADERS = FULL / ((1u << G) - 1);  // first of each group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
   if (b >= a.B) return;
+  const int gl = lane & (G - 1), grp = lane / G;
+  const unsigned below = (1u << (lane & ~(G - 1))) - 1;  // earlier groups
   const int L = a.L, cap = a.cap, cap_s = a.cap_s;
   const int ncol = a.tagged ? 6 : 5;
-  const uint8_t *q = a.q + (int64_t)b * L;
-  const int32_t *nv = a.nv + (int64_t)b * (L + 1);
-  const int64_t qlen = a.qlen[b], hi1 = a.hi1[b], hi3 = a.hi3[b];
-  C *stkA = a.stk + (int64_t)b * 2 * cap * 4;
+  C *stkA = reinterpret_cast<C *>(smem_raw) + (size_t)warp * 2 * cap * 4;
   C *stkB = stkA + cap * 4;
-  C *seeds = a.seeds + (int64_t)b * cap_s * ncol;
-  uint8_t *qmask = a.qmask + (int64_t)b * cap_s;
-  for (int64_t t = 0; t < (int64_t)cap_s * ncol; ++t) seeds[t] = 0;
-  for (int t = 0; t < cap_s; ++t) qmask[t] = 0;
-  for (int t = 0; t < 2 * cap * 4; ++t) stkA[t] = 0;
-  int64_t L2[5];
-  for (int c = 0; c < 5; ++c) L2[c] = a.L2[c];
+  const uint8_t *q = a.q + (size_t)b * L;
+  const int32_t *nv = a.nv + (size_t)b * (L + 1);
+  C *seeds = a.seeds + (size_t)b * cap_s * ncol;
+  uint8_t *qmask = a.qmask + (size_t)b * cap_s;
+  const int qlen = a.qlen[b], hi1 = a.hi1[b], hi3 = a.hi3[b];
+  C L2[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) L2[c] = (C)a.L2[c];
 
-  int phase = P_NEXT, stage = S_P1;
-  int64_t old_n = 0, job = a.job_lo[b], x = 0, minv = 1;
-  int64_t ik[3] = {0, 0, 0};
-  int64_t info_end = 0, i = 0, j = 0, an = 0, bn = 0;
+  int phase = P_NEXT, stage = S_P1, old_n = 0, job = a.job_lo[b], x = 0;
+  C minv = 1, ik0 = 0, ik1 = 0, ik2 = 0;
+  int info_end = 0, i = 0, an = 0, bn = 0;
   bool cur_is_a = true, rev_read = true, ovf = false;
-  int64_t last_x2 = 0, call_last_start = 0, call_mem_n = 0, ret = 0;
-  int64_t seed_n = 0, cur_tag = 0, steps = 0, done_step = 0;
+  int call_last_start = 0, call_mem_n = 0, ret = 0, seed_n = 0;
+  int64_t cur_tag = 0;
+  int steps = 0, done_step = 0;
+
+  // one seed row, pushed by the warp (the last slot keeps being overwritten
+  // once the store is full; seed_n keeps counting)
+  auto push_seed = [&](C r0, C r1, C r2, int r3, int r4, int64_t tag) {
+    const int slot = seed_n < cap_s - 1 ? seed_n : cap_s - 1;
+    const C v = lane == 0 ? r0 : lane == 1 ? r1 : lane == 2 ? r2
+              : lane == 3 ? (C)r3 : lane == 4 ? (C)r4 : (C)tag;
+    if (lane < ncol) seeds[(size_t)slot * ncol + lane] = v;
+    if (lane == 0)
+      qmask[slot] = (r4 - r3) >= a.split_len && (int64_t)r2 <= a.split_width;
+    ++seed_n;
+    __syncwarp();
+  };
 
   while (phase != P_DONE) {
     const bool st1m = stage == S_P2;
-    bool st2m = stage == S_P3;
 
     // ---------- P_NEXT: acquire the next job (stage-dependent) ----------
-    const bool nx = phase == P_NEXT;
-    bool have = false, to_done = false;
-    if (nx) {
-      int64_t xv = nv[clampi(job, 0, L)];
-      bool have_nv = !st1m && xv < (st2m ? hi3 : hi1);
+    if (phase == P_NEXT) {
+      const bool st2m = stage == S_P3;
+      const int xv = nv[clampi(job, 0, L)];
+      const bool have_nv = !st1m && xv < (st2m ? hi3 : hi1);
       bool have_s1 = false;
-      int64_t x_s1 = 0;
-      if (st1m) {
-        int64_t jj_first = cap_s;
-        int64_t lim = old_n < cap_s ? old_n : cap_s;
-        for (int64_t s = job; s < lim; ++s)
-          if (qmask[s]) { jj_first = s; break; }
-        bool found = jj_first < cap_s;
-        int64_t jj = found ? jj_first : old_n;
-        int64_t k = jj < cap_s - 1 ? jj : cap_s - 1;
-        have_s1 = found && jj < old_n;
-        const C *row = seeds + k * ncol;
-        int64_t r2 = row[2], r3 = row[3], r4 = row[4];
-        x_s1 = (r3 + r4) >> 1;
-        if (a.tagged && have_s1) cur_tag = (r3 << 15) | r4;
-        if (have_s1) minv = r2 + 1;
+      int x_s1 = 0;
+      if (st1m) {  // the first qualifying seed at or after the cursor
+        const int lim = old_n < cap_s ? old_n : cap_s;
+        int jj = old_n;
+        for (int base = job; base < lim; base += 32) {
+          const int s = base + lane;
+          const unsigned m = __ballot_sync(FULL, s < lim && qmask[s]);
+          if (m) {
+            jj = base + __ffs(m) - 1;
+            break;
+          }
+        }
+        have_s1 = jj < old_n;
+        if (have_s1) {
+          const C *row = seeds + (size_t)jj * ncol;
+          const int r3 = (int)row[3], r4 = (int)row[4];
+          x_s1 = (r3 + r4) >> 1;
+          if (a.tagged) cur_tag = ((int64_t)r3 << 15) | r4;
+          minv = row[2] + 1;
+        }
         job = jj + (have_s1 ? 1 : 0);
       } else {
         minv = 1;
       }
-      have = st1m ? have_s1 : have_nv;
+      const bool have = st1m ? have_s1 : have_nv;
       if (have) x = st1m ? x_s1 : xv;
-      bool exh = !have;
-      bool to_s2 = exh && stage == S_P1;
-      bool to_s3 = exh && st1m && a.use_p3;
-      to_done = exh && (st2m || (st1m && !a.use_p3));
-      if (to_s2) old_n = seed_n;
-      if (to_s2) stage = S_P2;
-      else if (to_s3) stage = S_P3;
+      const bool exh = !have;
+      const bool to_s2 = exh && stage == S_P1;
+      const bool to_s3 = exh && st1m && a.use_p3;
+      const bool to_done = exh && (st2m || (st1m && !a.use_p3));
+      if (to_s2) {
+        old_n = seed_n;
+        stage = S_P2;
+      } else if (to_s3) {
+        stage = S_P3;
+      }
       if (to_s2 || to_s3) job = 0;
-    }
-    st2m = stage == S_P3;
-    bool startable = false;
-    if (have) {
-      int64_t qx = q[clampi(x, 0, L - 1)];
-      startable = qx < 4;
-      if (startable) {  // bwt_set_intv
-        int64_t cc = qx;
-        ik[0] = L2[cc] + 1;
-        ik[1] = L2[3 - cc] + 1;
-        ik[2] = L2[cc + 1] - L2[cc];
-        info_end = x + 1;
-        i = x + 1;
-        an = 0;
-      }
-    }
-    if (minv < 1) minv = 1;
-    if (startable) phase = P_FWD;
-    else if (to_done) phase = P_DONE;
-
-    // ---------- shared occ work ----------
-    const bool in_fwd = phase == P_FWD, in_bwd = phase == P_BWD;
-    const int64_t pn = cur_is_a ? an : bn;
-    int64_t jj2 = clampi(rev_read ? pn - 1 - j : j, 0, cap - 1);
-    const C *prow = (cur_is_a ? stkA : stkB) + jj2 * 4;
-    const int64_t p0 = prow[0], p1 = prow[1], p2 = prow[2], p3 = prow[3];
-    int64_t ok_nb[4] = {0, 0, 0, 0}, ok_sz[4] = {0, 0, 0, 0};
-    int64_t accs[4] = {0, 0, 0, 0};
-    if (in_fwd || in_bwd) {
-      int64_t e0 = in_bwd ? p0 : ik[0], e1 = in_bwd ? p1 : ik[1];
-      int64_t e2 = in_bwd ? p2 : ik[2];
-      int64_t fwd_side = in_bwd ? e0 : e1;
-      int64_t tk[4], tl[4];
-      occ4(a, fwd_side - 1, tk);
-      occ4(a, fwd_side - 1 + e2, tl);
-      for (int c = 0; c < 4; ++c) {
-        ok_nb[c] = L2[c] + 1 + tk[c];
-        ok_sz[c] = tl[c] - tk[c];
-      }
-      int64_t bk = in_bwd ? e1 : e0;
-      int64_t span = (fwd_side <= a.primary && fwd_side + e2 - 1 >= a.primary);
-      accs[3] = bk + span;
-      accs[2] = accs[3] + ok_sz[3];
-      accs[1] = accs[2] + ok_sz[2];
-      accs[0] = accs[1] + ok_sz[1];
-    }
-    const int64_t qi = q[clampi(i, 0, L - 1)];
-    const int64_t qb_i = i >= 0 ? qi : 4;
-    const int cf = (int)clampi(3 - qi, 0, 3);
-    const int64_t of0 = accs[cf], of1 = ok_nb[cf], of2 = ok_sz[cf];
-
-    // ---------- P_FWD micro-op (SMEM forward for stages 1/2) ----------
-    if (in_fwd && !st2m) {
-      bool run_f = i < qlen;
-      bool off_end = !run_f;
-      bool amb = run_f && qi >= 4;
-      bool ext_m = run_f && !amb;
-      bool changed = ext_m && of2 != ik[2];
-      if (amb || changed || off_end) {
-        int64_t rowf[4] = {ik[0], ik[1], ik[2], info_end};
-        push_row(stkA, an, cap, 4, rowf, ovf);
-      }
-      bool too_small = changed && of2 < minv;
-      bool stop_f = amb || too_small || off_end;
-      if (ext_m && !stop_f) {
-        ik[0] = of0; ik[1] = of1; ik[2] = of2;
-        info_end = i + 1;
-        i = i + 1;
-      }
-      if (stop_f) {
-        ret = info_end;
-        cur_is_a = true;
-        rev_read = true;
-        bn = 0;
-        j = 0;
-        i = x - 1;
-        call_mem_n = 0;
-        last_x2 = 0;
-        phase = P_BWD;
-      }
-    }
-
-    // ---------- P_FWD micro-op, stage 3 (bwt_seed_strategy1) ----------
-    bool write3 = false;
-    int64_t row3[5] = {of0, of1, of2, x, i + 1};
-    if (a.use_p3 && in_fwd && st2m) {
-      bool run3 = i < qlen;
-      bool hit_end3 = !run3;
-      bool amb3 = run3 && qi >= 4;
-      bool ext3 = run3 && !amb3;
-      bool hit3 = ext3 && of2 < a.max_intv3 && (i - x) >= a.min_seed_len;
-      write3 = hit3 && of2 > 0;
-      if (ext3 && !hit3) {
-        ik[0] = of0; ik[1] = of1; ik[2] = of2;
-        i = i + 1;
-      }
-      if (amb3 || hit3) job = i + 1;
-      else if (hit_end3) job = qlen;
-      if (amb3 || hit3 || hit_end3) phase = P_NEXT;
-    }
-
-    // ---------- P_BWD micro-op (one j of row i) ----------
-    bool jact = false, keep = false, can_emit = false, write = false;
-    int64_t ob0 = 0, ob1 = 0, ob2 = 0, curr_n_now = 0;
-    if (in_bwd) {
-      int64_t c = (i >= 0 && qb_i < 4) ? qb_i : -1;
-      jact = j < pn;
-      int cb = (int)clampi(c, 0, 3);
-      ob0 = ok_nb[cb]; ob1 = accs[cb]; ob2 = ok_sz[cb];
-      keep = jact && (c < 0 || ob2 < minv);
-      curr_n_now = cur_is_a ? bn : an;
-      can_emit = keep && curr_n_now == 0 &&
-                 (call_mem_n == 0 || (i + 1) < call_last_start);
-      int64_t slen = p3 - (i + 1);
-      write = can_emit && slen >= a.min_seed_len;
-    }
-    if (write || write3) {
-      int64_t row[6];
-      if (write3) {
-        for (int t = 0; t < 5; ++t) row[t] = row3[t];
-      } else {
-        row[0] = p0; row[1] = p1; row[2] = p2; row[3] = i + 1; row[4] = p3;
-      }
-      row[5] = write3 ? -1 : (st1m ? cur_tag : 0);
-      bool qual_new = (row[4] - row[3]) >= a.split_len && row[2] <= a.split_width;
-      qmask[seed_n < cap_s - 1 ? seed_n : cap_s - 1] = qual_new;
-      bool dummy = false;
-      push_row(seeds, seed_n, cap_s, ncol, row, dummy);
-    }
-    if (in_bwd) {
-      if (can_emit) {
-        call_last_start = i + 1;
-        ++call_mem_n;
-      }
-      bool push_b = jact && !keep && (curr_n_now == 0 || ob2 != last_x2);
-      if (push_b) {
-        int64_t rowb[4] = {ob0, ob1, ob2, p3};
-        if (cur_is_a) push_row(stkB, bn, cap, 4, rowb, ovf);
-        else push_row(stkA, an, cap, 4, rowb, ovf);
-        last_x2 = ob2;
-      }
-      if (jact) ++j;
-      if (j >= pn) {  // row done
-        int64_t new_n = cur_is_a ? bn : an;
-        bool call_over = new_n == 0 || i < 0;
-        if (!call_over) {
-          cur_is_a = !cur_is_a;
-          rev_read = false;
-          if (cur_is_a) bn = 0;
-          else an = 0;
-          --i;
-          j = 0;
-          last_x2 = 0;
-        } else {
-          if (stage == S_P1) job = ret;
-          phase = P_NEXT;
+      bool startable = false;
+      if (have) {
+        const int qx = q[clampi(x, 0, L - 1)];
+        startable = qx < 4;
+        if (startable) {  // bwt_set_intv
+          ik0 = pick(L2, qx) + 1;
+          ik1 = pick(L2, 3 - qx) + 1;
+          ik2 = pick(L2, qx + 1) - pick(L2, qx);
+          info_end = x + 1;
+          i = x + 1;
+          an = 0;
         }
       }
+      if (minv < 1) minv = 1;
+      if (!startable) {
+        if (to_done) phase = P_DONE;
+        ++steps;
+        if (phase == P_DONE && done_step == 0) done_step = steps;
+        continue;
+      }
+      phase = P_FWD;  // the forward micro-op runs in this same step
     }
-    ++steps;
-    if (phase == P_DONE && done_step == 0) done_step = steps;
+
+    // ---------- P_FWD: one forward extension (stages 1/2, or 3) ----------
+    if (phase == P_FWD) {
+      const int qi = q[clampi(i, 0, L - 1)];
+      const int cf = clampi(3 - qi, 0, 3);
+      C nb, sz, above;
+      extend_c<C, NW>(a, L2, ik1 - 1, ik1 - 1 + ik2, gl, cf, nb, sz, above);
+      const C span = (ik1 <= a.primary && ik1 + ik2 - 1 >= a.primary) ? 1 : 0;
+      const C of0 = ik0 + span + above, of1 = nb, of2 = sz;
+      if (stage != S_P3) {  // bwt_smem1a's forward loop
+        const bool run_f = i < qlen, off_end = !run_f;
+        const bool amb = run_f && qi >= 4, ext_m = run_f && !amb;
+        const bool changed = ext_m && of2 != ik2;
+        if (amb || changed || off_end) {
+          const int slot = an < cap - 1 ? an : cap - 1;
+          const C v = lane == 0 ? ik0 : lane == 1 ? ik1
+                    : lane == 2 ? ik2 : (C)info_end;
+          if (lane < 4) stkA[slot * 4 + lane] = v;
+          if (an >= cap) ovf = true;
+          ++an;
+        }
+        const bool stop_f = amb || (changed && of2 < minv) || off_end;
+        if (ext_m && !stop_f) {
+          ik0 = of0; ik1 = of1; ik2 = of2;
+          info_end = i + 1;
+          ++i;
+        }
+        if (stop_f) {
+          ret = info_end;
+          cur_is_a = true;
+          rev_read = true;
+          bn = 0;
+          i = x - 1;
+          call_mem_n = 0;
+          phase = P_BWD;
+        }
+      } else {  // bwt_seed_strategy1
+        const bool run3 = i < qlen, hit_end3 = !run3;
+        const bool amb3 = run3 && qi >= 4, ext3 = run3 && !amb3;
+        const bool hit3 = ext3 && (int64_t)of2 < a.max_intv3 &&
+                          (i - x) >= a.min_seed_len;
+        if (hit3 && of2 > 0) push_seed(of0, of1, of2, x, i + 1, -1);
+        if (ext3 && !hit3) {
+          ik0 = of0; ik1 = of1; ik2 = of2;
+          ++i;
+        }
+        if (amb3 || hit3) job = i + 1;
+        else if (hit_end3) job = qlen;
+        if (amb3 || hit3 || hit_end3) phase = P_NEXT;
+      }
+      ++steps;
+      __syncwarp();
+      continue;
+    }
+
+    // ---------- P_BWD: all pn entries of row i ----------
+    const int pn = cur_is_a ? an : bn;
+    const C *rd = cur_is_a ? stkA : stkB;
+    C *wr = cur_is_a ? stkB : stkA;
+    const int qi = q[clampi(i, 0, L - 1)];
+    const int c = (i >= 0 && qi < 4) ? qi : -1;  // -1: every entry is kept
+    int npush = 0;
+    bool keep0 = pn > 0;
+    if (c >= 0) {
+      bool have_prev = false;  // an unkept entry earlier in the row
+      C prev_ob2 = 0;          // its size
+      for (int base = 0; base < pn; base += E) {
+        const int j = base + grp;
+        const bool valid = j < pn;
+        C p0 = 0, p1 = 0, p2 = 0, p3 = 0;
+        if (valid) {
+          const C *pr = rd + clampi(rev_read ? pn - 1 - j : j, 0, cap - 1) * 4;
+          p0 = pr[0]; p1 = pr[1]; p2 = pr[2]; p3 = pr[3];
+        }
+        C nb, sz, above;
+        extend_c<C, NW>(a, L2, valid ? p0 - 1 : (C)-1,
+                        valid ? p0 - 1 + p2 : (C)-1, gl, c, nb, sz, above);
+        const C span = (p0 <= a.primary && p0 + p2 - 1 >= a.primary) ? 1 : 0;
+        const C ob0 = nb, ob1 = p1 + span + above, ob2 = sz;
+        const bool keep = ob2 < minv;
+        if (base == 0) keep0 = __ballot_sync(FULL, valid && keep) & 1u;
+        const bool unk = valid && !keep;
+        const unsigned U = __ballot_sync(FULL, unk) & LEADERS;
+        const unsigned P = U & below;
+        const C pob2 = __shfl_sync(FULL, ob2, P ? 31 - __clz(P) : lane);
+        const bool push = unk && (!(P || have_prev) ||
+                                  ob2 != (P ? pob2 : prev_ob2));
+        const unsigned PM = __ballot_sync(FULL, push) & LEADERS;
+        const int r = npush + __popc(PM & below), last = npush + __popc(PM) - 1;
+        if (push && (r < cap - 1 || r == last)) {
+          C *dst = wr + (r < cap - 1 ? r : cap - 1) * 4;
+          for (int col = gl; col < 4; col += G)
+            dst[col] = col == 0 ? ob0 : col == 1 ? ob1 : col == 2 ? ob2 : p3;
+        }
+        if (U) {
+          have_prev = true;
+          prev_ob2 = __shfl_sync(FULL, ob2, 31 - __clz(U));
+        }
+        npush = last + 1;
+      }
+    }
+    if (npush > cap) ovf = true;
+    // the row's first entry, if kept, ends an SMEM
+    if (keep0 && (call_mem_n == 0 || i + 1 < call_last_start)) {
+      const C *pr = rd + clampi(rev_read ? pn - 1 : 0, 0, cap - 1) * 4;
+      const C p0 = pr[0], p1 = pr[1], p2 = pr[2];
+      const int p3 = (int)pr[3];
+      if (p3 - (i + 1) >= a.min_seed_len)
+        push_seed(p0, p1, p2, i + 1, p3, st1m ? cur_tag : 0);
+      call_last_start = i + 1;
+      ++call_mem_n;
+    }
+    steps += pn > 0 ? pn : 1;
+    if (npush == 0 || i < 0) {  // the call is over
+      if (stage == S_P1) job = ret;
+      phase = P_NEXT;
+    } else {
+      cur_is_a = !cur_is_a;
+      rev_read = false;
+      if (cur_is_a) {
+        an = npush;
+        bn = 0;
+      } else {
+        bn = npush;
+        an = 0;
+      }
+      --i;
+    }
+    __syncwarp();
   }
-  a.seed_n[b] = (int32_t)seed_n;
-  a.ovf[b] = ovf ? 1 : 0;
-  a.done_step[b] = (int32_t)done_step;
-  atomicMax(a.steps, (int32_t)steps);
+
+  // the slots no push reached hold zeros, as in the plain version
+  const int filled = seed_n < cap_s ? seed_n : cap_s;
+  for (size_t t = (size_t)filled * ncol + lane; t < (size_t)cap_s * ncol;
+       t += 32)
+    seeds[t] = 0;
+  if (lane == 0) {
+    a.seed_n[b] = seed_n;
+    a.ovf[b] = ovf ? 1 : 0;
+    a.done_step[b] = done_step;
+    atomicMax(a.steps, steps);
+  }
+}
+
+template <typename C, int NW>
+int launch(const SeedArgs<C> &a, cudaStream_t stream) {
+  const size_t smem = (size_t)WARPS * 2 * a.cap * 4 * sizeof(C);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        seed_machine_kernel<C, NW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch would report it
+      return (int)e;
+    }
+  }
+  seed_machine_kernel<C, NW><<<(a.B + WARPS - 1) / WARPS, WARPS * 32, smem,
+                               stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename C>
-int launch(const SeedArgs<C> &a, cudaStream_t stream) {
+int launch_nw(const SeedArgs<C> &a, int nw, cudaStream_t stream) {
   if (a.B == 0) return 0;
-  const int threads = 128;
-  seed_machine_kernel<C><<<(a.B + threads - 1) / threads, threads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.cap < 1 || a.cap_s < 1) return (int)cudaErrorInvalidValue;
+  switch (nw) {
+    case 8: return launch<C, 8>(a, stream);
+    case 32: return launch<C, 32>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -356,22 +445,18 @@ extern "C" int bwa_seed_machine(
     const int32_t *hi1, const int32_t *hi3, int min_seed_len, int split_len,
     int64_t split_width, int64_t max_intv3, int cap, int cap_s, int use_p3,
     int tagged, void *seeds, int32_t *seed_n, uint8_t *ovf,
-    int32_t *done_step, int32_t *steps, void *stk, uint8_t *qmask,
-    void *stream) {
-  int rbits = 0;
-  while ((8 << rbits) < nw) ++rbits;
+    int32_t *done_step, int32_t *steps, uint8_t *qmask, void *stream) {
   if (coord64) {
-    SeedArgs<int64_t> a{occtab, nw, rbits, L2, primary, seq_len, q, B, L,
-                        qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
+    SeedArgs<int64_t> a{occtab, L2, primary, seq_len, q, B, L, qlen, nv,
+                        job_lo, hi1, hi3, min_seed_len, split_len,
                         split_width, max_intv3, cap, cap_s, use_p3, tagged,
                         (int64_t *)seeds, seed_n, done_step, steps, ovf,
-                        (int64_t *)stk, qmask};
-    return launch(a, (cudaStream_t)stream);
+                        qmask};
+    return launch_nw(a, nw, (cudaStream_t)stream);
   }
-  SeedArgs<int32_t> a{occtab, nw, rbits, L2, primary, seq_len, q, B, L,
-                      qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
+  SeedArgs<int32_t> a{occtab, L2, (int32_t)primary, (int32_t)seq_len, q, B,
+                      L, qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
                       split_width, max_intv3, cap, cap_s, use_p3, tagged,
-                      (int32_t *)seeds, seed_n, done_step, steps, ovf,
-                      (int32_t *)stk, qmask};
-  return launch(a, (cudaStream_t)stream);
+                      (int32_t *)seeds, seed_n, done_step, steps, ovf, qmask};
+  return launch_nw(a, nw, (cudaStream_t)stream);
 }

@@ -85,7 +85,7 @@ def _bind(libs) -> None:
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32,
                   vp, vp, vp, vp, vp, i32, i32, i64, i64, i32, i32, i32,
-                  i32, vp, vp, vp, vp, vp, vp, vp, vp]
+                  i32, vp, vp, vp, vp, vp, vp, vp]
     f = libs["ksw_band.cu"].bwa_ksw_band
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -116,7 +116,7 @@ def _check(rc: int, name: str) -> None:
 def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
                  hi3, min_seed_len, split_len, split_width, max_intv3, cap,
                  cap_s, use_p3, tagged, seeds, seed_n, ovf, done_step, steps,
-                 stk, qmask) -> None:
+                 qmask) -> None:
     """Launch K1 (csrc/seed_machine.cu) on the current stream."""
     lib = build_all()["seed_machine.cu"]
     B, L = q.shape
@@ -126,7 +126,7 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
         _ptr(nv), _ptr(job_lo), _ptr(hi1), _ptr(hi3), int(min_seed_len),
         int(split_len), int(split_width), int(max_intv3), int(cap),
         int(cap_s), int(use_p3), int(tagged), _ptr(seeds), _ptr(seed_n),
-        _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(stk), _ptr(qmask),
+        _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
         _stream(q))
     _check(rc, "seed_machine")
 

@@ -9,9 +9,11 @@ pass 3 LAST-like seeds (bwt_seed_strategy1, bwt.c:358-379).
 seed_machine_seg is the plain version: one machine step of every lane per
 loop iteration as masked tensor ops, a line-for-line port of the JAX
 package's ops/fm_machine.py::seed_machine_seg (no refill mode).  The CUDA
-kernel (csrc/seed_machine.cu, kernel K1) runs the same step function with
-one thread per lane until the lane is done.  seed_machine dispatches: a
-CUDA tensor launches K1, a CPU tensor takes the plain version.
+kernel (csrc/seed_machine.cu, kernel K1) runs the same machine with a warp
+per lane until the lane is done, extending all entries of a backward row
+at once; bwd_row_resolve is the plain form of how it orders that row's
+pushes and emit.  seed_machine dispatches: a CUDA tensor launches K1, a CPU
+tensor takes the plain version.
 
 Emission order within a lane differs from the reference's collection
 order; sort_seeds (stable by (start, end)) makes the result identical.
@@ -308,6 +310,69 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
     return d
 
 
+def bwd_row_resolve(ob2, keep, n0: int, last_x2: int, cap: int,
+                    emit_ok: bool, rev: bool, rounds: int | None = None):
+    """One backward row's order-dependent bookkeeping (the P_BWD micro-op
+    of seed_machine_seg, taken j = 0..pn-1; bwt_smem1a, bwt.c:318-340)
+    resolved for all its entries at once, as kernel K1 does it.  Nothing on
+    the main path calls it; the tests hold it to the one-j-at-a-time rule.
+
+    ob2: [pn] sizes of the entries' extensions and keep: [pn] bool, both in
+    processing order; n0: the target stack's count when the row starts and
+    last_x2 the size of its last push; emit_ok: call_mem_n == 0 or
+    i + 1 < call_last_start; rev: the call's first row, read backwards.
+    An entry is pushed if it is not kept and either no earlier entry of the
+    row is unkept (then as the rule has it: n0 == 0 or a size other than
+    last_x2) or its size differs from the nearest earlier unkept entry's:
+    that entry was pushed, or had the size last pushed.  `rounds` takes the
+    entries that many at a time, carrying the last unkept size and the push
+    count across rounds, K1's order of work.
+
+    Returns a dict: read_slot [pn] (stack slot each entry reads), push [pn]
+    bool, slot [pn] (target slot of each push), wins [pn] bool (the push
+    whose row its slot keeps: pushes past cap - 1 overwrite the last slot),
+    emit (entry that ends an SMEM, or -1), ovf, n (count after the row) and
+    last_x2 (after the row)."""
+    i64 = torch.int64
+    ob2 = torch.as_tensor(ob2).to(i64)
+    keep = torch.as_tensor(keep).to(torch.bool)
+    pn = ob2.shape[0]
+    dev = ob2.device
+    j = torch.arange(pn, dtype=i64, device=dev)
+    read_slot = ((pn - 1 - j) if rev else j).clamp(0, cap - 1)
+    unk = ~keep
+    push = torch.zeros(pn, dtype=torch.bool, device=dev)
+    rank = torch.zeros(pn, dtype=i64, device=dev)   # pushes before entry j
+    has_prev, prev_ob2, n_push = False, int(last_x2), 0
+    step = rounds or max(pn, 1)
+    for lo in range(0, pn, step):
+        u, o = unk[lo:lo + step], ob2[lo:lo + step]
+        k = torch.arange(u.shape[0], dtype=i64, device=dev)
+        upto = torch.cummax(torch.where(u, k, torch.full_like(k, -1)),
+                            0).values
+        before = torch.cat([upto.new_full((1,), -1), upto[:-1]])
+        in_round = before >= 0
+        cmp = torch.where(in_round, o[before.clamp(min=0)],
+                          torch.full_like(o, prev_ob2))
+        free = ~(in_round | has_prev) & (n0 == 0)
+        p = u & (free | (o != cmp))
+        push[lo:lo + step] = p
+        rank[lo:lo + step] = n_push + torch.cumsum(p.to(i64), 0) - p.to(i64)
+        if bool(u.any()):
+            has_prev = True
+            prev_ob2 = int(o[int(upto[-1])])
+        n_push += int(p.sum())
+    slot = (n0 + rank).clamp(max=cap - 1)
+    wins = push & ((slot < cap - 1) | (rank == n_push - 1))
+    ovf = bool((push & (n0 + rank >= cap)).any())
+    cand = (keep & (n0 + rank == 0)).nonzero().flatten()
+    emit = int(cand[0]) if emit_ok and cand.numel() else -1
+    pushed = push.nonzero().flatten()
+    last = int(ob2[int(pushed[-1])]) if pushed.numel() else int(last_x2)
+    return dict(read_slot=read_slot, push=push, slot=slot, wins=wins,
+                emit=emit, ovf=ovf, n=int(n0) + n_push, last_x2=last)
+
+
 # launches of the K1 kernel (the CUDA wrapper below adds one per launch)
 launches = 0
 
@@ -354,7 +419,7 @@ def seed_machine_plain(idx, q, qlen, next_valid, min_seed_len, split_len,
 
 def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
                        split_width, max_intv3, cap, cap_s, use_p3, shard):
-    """Kernel K1 launch: one thread per lane runs its machine to done."""
+    """Kernel K1 launch: a warp per lane runs its machine to done."""
     global launches
     from bwa_tpu_torch.ops import cuda_kernels
 
@@ -367,6 +432,10 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
     for t in (q, qlen, next_valid, occtab):
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError("K1 inputs must be contiguous CUDA tensors")
+    if occtab.dtype != torch.int32 or occtab.data_ptr() % 16 \
+            or occtab.shape[1] - 4 not in (8, 32):
+        raise ValueError("K1 reads an int32 occtab of 8 or 32 text words a "
+                         "row (R = 1 or 4), aligned to 16 bytes")
     tagged = shard is not None
     ncol = 6 if tagged else 5
     i32 = torch.int32
@@ -379,12 +448,13 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
     q8 = q.to(torch.uint8).contiguous()
     ql = qlen.to(i32).contiguous()
     nv = next_valid.to(i32).contiguous()
+    # no zeroing: the kernel writes every seed slot (the unreached ones with
+    # zeros) and reads qmask only where it wrote it
     seeds = torch.empty((B, cap_s, ncol), dtype=cdt, device=dev)
     seed_n = torch.empty(B, dtype=i32, device=dev)
     ovf = torch.empty(B, dtype=torch.uint8, device=dev)
     done_step = torch.empty(B, dtype=i32, device=dev)
     steps = torch.zeros(1, dtype=i32, device=dev)
-    stk = torch.empty((B, 2, cap, 4), dtype=cdt, device=dev)
     qmask = torch.empty((B, cap_s), dtype=torch.uint8, device=dev)
     L2 = idx["L2"].to(torch.int64).contiguous()
     cuda_kernels.seed_machine(
@@ -392,7 +462,7 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
         job_lo.contiguous(), hi1.contiguous(), hi3.contiguous(),
         int(min_seed_len), int(split_len), int(split_width),
         int(max_intv3), cap, cap_s, bool(use_p3), tagged, seeds, seed_n,
-        ovf, done_step, steps, stk, qmask)
+        ovf, done_step, steps, qmask)
     launches += 1
     return seeds, seed_n, steps, ovf.bool(), done_step
 

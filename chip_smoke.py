@@ -29,11 +29,14 @@ Run from the repository root on a machine with one CUDA card.  In order:
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
      its three shapes (K2 host-array mode and K5, launches counted);
   6. holds every recorded kernel call to the plain version: the first call
-     of each kernel on all its rows (and times both), every later call on a
-     subset of its lanes or jobs (rows are independent, so the subset keeps
-     the call's width, caps and band), and K5 and K2's host-array mode at
-     each of bench_kernel's shapes; prints the kernel table, the card's
-     name and power limit, and finally {"ok": true, "device": {...}}.
+     of each kernel, and K1's widest pacbio rung (as wide as the lane), on
+     all their rows (and times both; K1 on seeds, seed_n, ovf, done_step and
+     steps), every other call on a subset of its lanes or jobs (rows are
+     independent, so the subset keeps the call's width, caps and band), and
+     K5 and K2's host-array mode at each of bench_kernel's shapes; prints
+     each K1 launch's event time with its longest lane's steps and ns a
+     step, the kernel table, the card's name and power limit, and finally
+     {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -198,17 +201,15 @@ def k1_parity(fm, reads150, reads2k):
             qd = torch.from_numpy(q).cuda()
             qld = torch.from_numpy(ql).cuda()
             nv = _next_valid_device(qd, qld)
-            outs = []
-            for fn in (fmm.seed_machine, fmm.seed_machine_plain):
-                s, sn, _, ov, _ = fn(tt, qd, qld, nv, *consts, cap=cap,
-                                     cap_s=cap_s, use_p3=True, shard=sh)
-                outs.append((fmm.sort_seeds(s, sn, key64=False), sn, ov))
-            torch.cuda.synchronize()
+            outs = [k1_outputs(fn(tt, qd, qld, nv, *consts, cap=cap,
+                                  cap_s=cap_s, use_p3=True, shard=sh))
+                    for fn in (fmm.seed_machine, fmm.seed_machine_plain)]
             ok = all(torch.equal(a, b) for a, b in zip(*outs))
             res = dict(case=f"{name} cap={cap} cap_s={cap_s}",
                        lanes=int(q.shape[0]), equal=bool(ok),
                        overflow_lanes=int(outs[0][2].sum()),
-                       seeds=int(outs[0][1].sum()))
+                       seeds=int(outs[0][1].sum()),
+                       steps=int(outs[0][4][0]))
             log(f"K1 parity {res}")
             results.append(res)
             if not ok:
@@ -406,13 +407,17 @@ class Recorder:
     """Stands in for a kernel wrapper that the main path calls: keeps every
     call's arguments (tensors cloned) under the phase that made it, so the
     kernel can be held to its plain version at each shape the path gave
-    it, and brackets every call with CUDA events."""
+    it, brackets every call with CUDA events and keeps keep(output) of
+    each call."""
 
-    def __init__(self, mod, name):
+    def __init__(self, mod, name, keep=None):
         self.mod, self.name, self.real = mod, name, getattr(mod, name)
+        self.keep = keep
         self.phase = None
         self.calls = []  # (phase, args, kw)
-        self.events = []
+        self.kept = []
+        self.events = []  # (call index, start, end)
+        self.call_ms = {}
         setattr(mod, name, self)
 
     def __call__(self, *args, **kw):
@@ -425,13 +430,16 @@ class Recorder:
         a.record()
         out = self.real(*args, **kw)
         b.record()
-        self.events.append((a, b))
+        self.events.append((len(self.calls) - 1, a, b))
+        self.kept.append(self.keep(out) if self.keep else None)
         return out
 
     def take_ms(self) -> float:
         """Summed event time of the calls since the last take (after a
-        synchronize)."""
-        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        synchronize); each call's time goes to call_ms."""
+        for i, a, b in self.events:
+            self.call_ms[i] = a.elapsed_time(b)
+        ms = sum(self.call_ms[i] for i, _, _ in self.events)
         self.events = []
         return ms
 
@@ -644,10 +652,15 @@ def timed_once(fn):
 
 
 def k1_outputs(out):
+    """seeds after sort_seeds, seed_n, ovf, done_step and steps (the
+    longest lane's), on the host."""
+    import torch
+
     from bwa_tpu_torch.ops import fm_machine as fmm
 
     return [t.cpu() for t in (fmm.sort_seeds(out[0], out[1], False), out[1],
-                              out[3])]
+                              out[3], out[4].to(torch.int32))] \
+        + [torch.tensor([int(out[2])], dtype=torch.int32)]
 
 
 def k1_lanes(q, qlen, longest: bool):
@@ -732,15 +745,15 @@ def k2_subset(args, kw):
                            plain_host_s=time.perf_counter() - t0)
 
 
-def check_calls(rec, kernel):
-    """Every recorded call after the first, on a subset of its rows; the
-    first call is held on all its rows by time_k1/time_k2."""
+def check_calls(rec, kernel, skip=(0,)):
+    """Every recorded call but those in skip, on a subset of its rows; the
+    skipped calls are held on all their rows by time_k1/time_k2."""
     import torch
 
     res = []
     phases = [ph for ph, _, _ in rec.calls]
     for i, (ph, args, kw) in enumerate(rec.calls):
-        if i == 0:
+        if i in skip:
             continue
         if kernel == "K1":
             last = i == len(phases) - 1 or phases[i + 1] != ph
@@ -757,32 +770,157 @@ def check_calls(rec, kernel):
     return res
 
 
-def time_k1(rec):
+def k1_lane_wide(rec) -> int:
+    """Index of the pacbio phase's longest K1 launch: its widest rung."""
+    pb = [i for i, (ph, _, _) in enumerate(rec.calls) if ph == "mem_pacbio"]
+    return max(pb, key=lambda i: rec.calls[i][2]["cap_s"])
+
+
+def start_k1_host_plain(d: Path, rec, i):
+    """The plain version of recorded K1 call i on all its lanes, on the
+    host, in two subprocesses that see no card: the lanes of the longest
+    reads (at least half as long as the longest lane) and the rest, since a
+    plain run takes as many steps as its longest lane.  Returns the jobs
+    for wait_k1_host_plain."""
+    import numpy as np
+    import torch
+
+    _, args, kw = rec.calls[i]
+    idx = {k: (v.cpu() if torch.is_tensor(v) else v)
+           for k, v in args[0].items()}
+    q, qlen, nv = (t.cpu() for t in args[1:4])
+    ql = qlen.to(torch.int64)
+    longest = ql * 2 > ql.max()
+    jobs = []
+    for g, lanes in enumerate((longest.nonzero().flatten(),
+                               (~longest).nonzero().flatten())):
+        if not lanes.numel():
+            continue
+        k = dict(kw)
+        if k.get("shard") is not None:
+            k["shard"] = tuple(np.asarray(x)[lanes.numpy()]
+                               for x in k["shard"])
+        inp, out = d / f"k1_host_{g}.pt", d / f"k1_host_{g}_plain.pt"
+        torch.save(dict(idx=idx, q=q[lanes], qlen=qlen[lanes], nv=nv[lanes],
+                        consts=list(args[4:8]), kw=k), inp)
+        err = open(d / f"k1_host_{g}.log", "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--k1-plain",
+             str(inp), str(out)], cwd=REPO, env=env, stdout=err,
+            stderr=subprocess.STDOUT)
+        took = {}
+        threading.Thread(target=lambda p=proc, t=took, t0=t0: t.setdefault(
+            "s", (p.wait(), time.perf_counter() - t0)[1]), daemon=True).start()
+        jobs.append((proc, err, out, lanes, took))
+    return jobs
+
+
+def k1_plain_host(inp: str, out: str) -> int:
+    """Subprocess of start_k1_host_plain: the plain version on the host."""
     import torch
 
     from bwa_tpu_torch.ops import fm_machine as fmm
 
-    _, args, kw = rec.calls[0]
+    torch.set_num_threads(1)
+    a = torch.load(inp, weights_only=False)
+    res = fmm.seed_machine_plain(a["idx"], a["q"], a["qlen"], a["nv"],
+                                 *a["consts"], **a["kw"])
+    torch.save(k1_outputs(res), out)
+    return 0
+
+
+def wait_k1_host_plain(jobs, like):
+    """The host plain version's outputs of all lanes, assembled in lane
+    order in tensors shaped like the kernel's (like = k1_outputs of the
+    kernel), and the longest subprocess's seconds."""
+    import torch
+
+    want = [torch.zeros_like(t) for t in like]
+    secs = 0.0
+    for proc, err, out, lanes, took in jobs:
+        if proc.wait() != 0:
+            fail(f"K1 host plain version exited {proc.returncode} (see "
+                 f"{err.name})")
+        while "s" not in took:
+            time.sleep(0.01)
+        secs = max(secs, took["s"])
+        part = torch.load(out)
+        for t, p in zip(want[:4], part[:4]):
+            t[lanes] = p
+        want[4] = torch.maximum(want[4], part[4])
+    return want, secs
+
+
+def time_k1_call(rec, i, reps, host=None):
+    """Recorded K1 call i on all its lanes: the kernel against its plain
+    version (all five outputs; on the card on the same device tensors, or
+    from the host jobs of start_k1_host_plain), the kernel's time over reps
+    launches, and the work a bound counts from the plain version's step
+    counts."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    ph, args, kw = rec.calls[i]
     idx, q = args[0], args[1]
     out = fmm.seed_machine(*args, **kw)
-    plain, plain_ms = timed_once(lambda: fmm.seed_machine_plain(*args, **kw))
-    pairs = list(zip(k1_outputs(out), k1_outputs(plain)))
+    got = k1_outputs(out)
+    ms = cuda_time(lambda: fmm.seed_machine(*args, **kw), reps)
+    # what clearing the seed store in the wrapper would cost instead of
+    # the kernel's zeroing of the slots no push reached
+    zero_ms = cuda_time(lambda: torch.zeros_like(out[0]), reps)
+    if host is None:
+        plain, plain_ms = timed_once(
+            lambda: fmm.seed_machine_plain(*args, **kw))
+        want, plain_host_s = k1_outputs(plain), None
+    else:
+        (want, plain_host_s), plain_ms = wait_k1_host_plain(host, got), None
+    pairs = list(zip(got, want))
     equal = all(torch.equal(x, y) for x, y in pairs)
     err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
               for x, y in pairs)
-    ms = cuda_time(lambda: fmm.seed_machine(*args, **kw), 5)
     occ = idx["occtab"]
     nw = occ.shape[1] - 4
-    steps = int(out[4].to(torch.int64).sum())
+    steps = int(want[3].to(torch.int64).sum())
+    longest = int(want[4][0])
     nbytes = (occ.numel() * 4 + q.numel() + args[3].numel() * 4
               + q.shape[0] * 4 * 4 + out[0].numel() * out[0].element_size()
               + q.shape[0] * 9)
     # per machine step: two occ4 lookups scanning on average nw/2 + 1 words
     # at ~12 integer ops a word, plus ~64 ops of state update
     ops = steps * (2 * 12 * (nw / 2 + 1) + 64)
-    return dict(ms=ms, plain_ms=plain_ms, equal=bool(equal), err=err,
-                shape=f"B={q.shape[0]} L={q.shape[1]}", lane_steps=steps,
-                bytes=int(nbytes), ops=float(ops))
+    res = dict(phase=ph, call=i, ms=ms, plain_ms=plain_ms,
+               plain_host_s=plain_host_s, equal=bool(equal), err=err,
+               shape=f"B={q.shape[0]} L={q.shape[1]} cap={kw['cap']} "
+                     f"cap_s={kw['cap_s']}",
+               lane_steps=steps, longest_lane_steps=longest,
+               ns_per_step=ms * 1e6 / max(longest, 1),
+               zero_seed_store_ms=zero_ms, bytes=int(nbytes), ops=float(ops))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log(f"K1 timed {res}")
+    return res
+
+
+def time_k1(rec, host):
+    """K1 at the main path's first launch (150 bp SE), against the plain
+    version on the card, and at the pacbio phase's lane-wide rung, against
+    the host jobs' plain version, each on all its lanes; and every
+    main-path launch's event time with its longest lane's steps."""
+    se = time_k1_call(rec, 0, 5)
+    pb = time_k1_call(rec, k1_lane_wide(rec), 5, host)
+    launches = []
+    for i, (ph, _, kw) in enumerate(rec.calls):
+        ms, longest = rec.call_ms[i], int(rec.kept[i])
+        launches.append(dict(phase=ph, call=i, cap=kw["cap"],
+                             cap_s=kw["cap_s"], event_ms=ms,
+                             longest_lane_steps=longest,
+                             ns_per_step=ms * 1e6 / max(longest, 1)))
+        log(f"K1 launch {launches[-1]}")
+    return dict(se, pacbio_lane_wide=pb, launches_on_main_path=launches,
+                equal=se["equal"] and pb["equal"], err=max(se["err"],
+                                                           pb["err"]))
 
 
 def time_k2(rec):
@@ -820,6 +958,8 @@ def bound(nbytes, ops):
 # --------------------------------------------------------------------------
 
 def main(argv) -> int:
+    if argv[:1] == ["--k1-plain"]:  # a subprocess of start_k1_host_plain
+        return k1_plain_host(*argv[1:3])
     log_dir = None
     if "--log" in argv:
         log_dir = Path(argv[argv.index("--log") + 1])
@@ -887,7 +1027,7 @@ def main(argv) -> int:
     phases = (("mem_se_150bp", reads150, None, []),
               ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
               ("mem_pe_150bp", pe1, pe2, []))
-    cpu = {}
+    cpu, host = {}, []
     try:
         for ph, reads, _, extra in phases[:2]:
             fq = d / f"{ph}_first64.fq"
@@ -910,7 +1050,8 @@ def main(argv) -> int:
         # 4. main path, with every kernel call recorded
         from bwa_tpu_torch.ops import ext_gather, fm_machine
 
-        recs = {"K1": Recorder(fm_machine, "seed_machine"),
+        recs = {"K1": Recorder(fm_machine, "seed_machine",
+                               keep=lambda out: out[2]),
                 "K2": Recorder(ext_gather, "ksw_band_side")}
         ran = [main_path(d, str(fa), ph, reads, extra, recs, reads2)
                for ph, reads, reads2, extra in phases]
@@ -949,18 +1090,22 @@ def main(argv) -> int:
                 fail(f"kernel entry: {name} was not launched")
 
         # 6. every recorded call against the plain version; times of the
-        # first call of each kernel
+        # first call of each kernel and of K1's lane-wide rung, whose plain
+        # version runs on the host meanwhile
         t0 = time.perf_counter()
-        k1 = time_k1(recs["K1"])
+        lane_wide = k1_lane_wide(recs["K1"])
+        host = start_k1_host_plain(d, recs["K1"], lane_wide)
         k2 = time_k2(recs["K2"])
         k2h = time_entry("band", bench)
         k5 = time_entry("full", bench)
+        calls = {"K1": check_calls(recs["K1"], "K1", skip=(0, lane_wide)),
+                 "K2": check_calls(recs["K2"], "K2")}
+        k1 = time_k1(recs["K1"], host)
         for name, k in (("K1", k1), ("K2", k2), ("K2 host-array", k2h),
                         ("K5", k5)):
             if not k["equal"]:
                 fail(f"{name} disagrees with its plain version at the main "
                      f"path's shape")
-        calls = {k: check_calls(r, k) for k, r in recs.items()}
         log(f"main-path calls checked and timed in "
             f"{time.perf_counter() - t0:.1f} s")
         for (info, sam), (_, reads, _, _) in zip(ran[:2], phases):
@@ -968,7 +1113,7 @@ def main(argv) -> int:
                           {n for n, _ in reads[:64]})
         print(json.dumps(phase_pe), flush=True)
     finally:
-        for proc, err, _, _ in cpu.values():
+        for proc, err, *_ in [*cpu.values(), *host]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -997,9 +1142,12 @@ def main(argv) -> int:
             library_ms=None, timed_shape=k["shape"], parity=par,
             parity_at_main_shape=k["equal"], main_path_calls=checked,
             entry_shapes=k.get("shapes"),
-            work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps", "rows",
-                                       "cells", "full_width_cells")
-                  if kk in k}))
+            work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
+                                       "longest_lane_steps", "ns_per_step",
+                                       "rows", "cells", "full_width_cells")
+                  if kk in k},
+            **{kk: k[kk] for kk in ("pacbio_lane_wide",
+                                    "launches_on_main_path") if kk in k}))
     print(json.dumps(dict(
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]

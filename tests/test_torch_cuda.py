@@ -61,37 +61,147 @@ def _lanes(world, kind):
     return q[:n], ql[:n], tuple(a[:n] for a in shard)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("kind,cap,cap_s,use_p3", [
-    ("pack2", 16, 48, True), ("pack2", 2, 6, True), ("pack2", 16, 48, False),
-    ("shard", 16, 96, True), ("shard", 3, 8, True)])
-@pytest.mark.parametrize("coords", ["int32", "int64"])
-def test_k1_matches_plain(world, kind, cap, cap_s, use_p3, coords):
-    from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+def _k1_vs_plain(tt, q, ql, shard, consts, cap, cap_s, use_p3):
+    """K1 and the plain version on the same device tensors: seeds after
+    sort_seeds, seed_n, ovf, done_step and steps, each equal; returns K1's
+    overflow flags."""
     from bwa_tpu_torch.ops import fm_machine as fmm
     from bwa_tpu_torch.ops.fm import _next_valid_device
 
-    tt = DeviceFMIndex(world["fm"], device="cuda").tree()
-    if coords == "int64":  # the 2*l_pac+2 >= 2^31 code path
-        tt = dict(tt, cdt=torch.int64, L2=tt["L2"].long())
-    q, ql, shard = _lanes(world, kind)
-    consts = (17, 170, 10, 20) if shard else (19, 28, 10, 20)
     qd = torch.from_numpy(q).cuda()
     qld = torch.from_numpy(ql).cuda()
     nv = _next_valid_device(qd, qld)
     n0 = fmm.launches
     outs = []
     for fn in (fmm.seed_machine, fmm.seed_machine_plain):
-        s, n, _, o, _ = fn(tt, qd, qld, nv, *consts, cap=cap, cap_s=cap_s,
-                           use_p3=use_p3, shard=shard)
-        outs.append((fmm.sort_seeds(s, n, key64=False), n, o))
+        s, n, st, o, ds = fn(tt, qd, qld, nv, *consts, cap=cap, cap_s=cap_s,
+                             use_p3=use_p3, shard=shard)
+        outs.append((fmm.sort_seeds(s, n, key64=False), n, o, ds,
+                     torch.tensor([int(st)])))
     torch.cuda.synchronize()
     assert fmm.launches == n0 + 1
     assert outs[0][0].dtype == tt["cdt"]
-    for g, w in zip(*outs):
-        assert torch.equal(g.cpu(), w.cpu())
+    for g, w, name in zip(*outs, ("seeds", "seed_n", "ovf", "done_step",
+                                  "steps")):
+        assert torch.equal(g.cpu(), w.cpu()), name
+    return outs[0][2].cpu()
+
+
+def _tree(fm, coords, occ_r=None):
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+
+    tt = DeviceFMIndex(fm, device="cuda", occ_r=occ_r).tree()
+    if coords == "int64":  # the 2*l_pac+2 >= 2^31 code path
+        tt = dict(tt, cdt=torch.int64, L2=tt["L2"].long())
+    return tt
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,cap,cap_s,use_p3", [
+    ("pack2", 16, 48, True), ("pack2", 2, 6, True), ("pack2", 16, 48, False),
+    ("shard", 16, 96, True), ("shard", 3, 8, True), ("shard", 2, 8, True)])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k1_matches_plain(world, kind, cap, cap_s, use_p3, coords):
+    """Occtab R = 1 (8 text words a row); 600 bp reads at cap 2 and 3 push
+    rows longer than the stack."""
+    q, ql, shard = _lanes(world, kind)
+    consts = (17, 170, 10, 20) if shard else (19, 28, 10, 20)
+    ovf = _k1_vs_plain(_tree(world["fm"], coords), q, ql, shard, consts, cap,
+                       cap_s, use_p3)
     if cap <= 3:
-        assert bool(outs[0][2].any())
+        assert bool(ovf.any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,cap,cap_s", [
+    ("pack2", 16, 48), ("pack2", 2, 6), ("shard", 16, 96), ("shard", 2, 8)])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k1_occtab_r4_matches_plain(world, kind, cap, cap_s, coords):
+    """The production occtab layout, R = 4 (32 text words a row: groups of
+    8 threads a lookup), on the same genome."""
+    q, ql, shard = _lanes(world, kind)
+    consts = (17, 170, 10, 20) if shard else (19, 28, 10, 20)
+    _k1_vs_plain(_tree(world["fm"], coords, occ_r=4), q, ql, shard, consts,
+                 cap, cap_s, True)
+
+
+# tandem arrays in the repeat genome: (start, unit, copies)
+ARRAYS = ((20_000, b"AC", 60), (60_000, b"AGT", 45), (100_000, b"A", 40))
+
+
+@pytest.fixture(scope="module")
+def repeat_world(tmp_path_factory, card):
+    """A 150 kb genome with three tandem arrays, and lanes of one read each:
+    all N, empty, reads starting in or before an array (a forward pass
+    through an array changes the interval at almost every base, so rows
+    reach 33-64 entries and beyond) and four plain reads."""
+    from bwa_tpu_torch.index.build import index_build
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.index.pack import NT4_TABLE
+
+    name, seq = random_genome(150_000, seed=43, n_contigs=1,
+                              with_ns=False)[0]
+    seq = bytearray(seq)
+    for s, unit, n in ARRAYS:
+        seq[s:s + len(unit) * n] = unit * n
+    d = tmp_path_factory.mktemp("torch_cuda_repeats")
+    write_fasta(d / "g.fa", [(name, bytes(seq))])
+    fm = FMIndex.load(index_build(str(d / "g.fa")))
+    codes = NT4_TABLE[np.frombuffer(bytes(seq), np.uint8)]
+    rows = [np.full(200, 4, np.uint8), np.zeros(0, np.uint8)]
+    for s, unit, n in ARRAYS:
+        span = len(unit) * n
+        for m in (30, 45, 60, span):
+            for f in (0, 30):
+                rows.append(codes[s - f:s + min(m, span) + 30])
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        p = int(rng.integers(0, 149_000))
+        rows.append(codes[p:p + 150])
+    q = np.full((len(rows), 256), 4, np.uint8)
+    ql = np.zeros(len(rows), np.int32)
+    for k, r in enumerate(rows):
+        q[k, :len(r)] = r
+        ql[k] = len(r)
+    return fm, q, ql
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap", [64, 32, 2])
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k1_edge_lanes_match_plain(repeat_world, cap, occ_r, coords):
+    """An all-N lane, an empty lane and tandem-repeat reads whose backward
+    rows are longer than a warp (lane 2, 60 bases of (AC)n, overflows a
+    stack of 32 but not one of 64) or than the stack."""
+    fm, q, ql = repeat_world
+    ovf = _k1_vs_plain(_tree(fm, coords, occ_r), q, ql, None,
+                       (19, 28, 10, 20), cap, 64, True)
+    assert bool(ovf[2]) == (cap < 64)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("what", ["stack_past_shared_memory", "occtab_r2"])
+def test_k1_raises_and_launches_nothing(world, what):
+    """Stacks of cap 4096 need 512 KB of shared memory a block, and an
+    occtab of R = 2 is a layout K1 does not take: both raise on the card,
+    nothing falls back to the plain version, and a launch after them runs."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import _next_valid_device
+
+    q, ql, _ = _lanes(world, "pack2")
+    tt = _tree(world["fm"], "int32", occ_r=2 if what == "occtab_r2" else 1)
+    cap = 4096 if what == "stack_past_shared_memory" else 16
+    qd = torch.from_numpy(q).cuda()
+    qld = torch.from_numpy(ql).cuda()
+    nv = _next_valid_device(qd, qld)
+    n0 = fmm.launches
+    with pytest.raises((RuntimeError, ValueError)):
+        fmm.seed_machine(tt, qd, qld, nv, 19, 28, 10, 20, cap=cap, cap_s=48,
+                         use_p3=True)
+    assert fmm.launches == n0
+    _k1_vs_plain(_tree(world["fm"], "int32"), q[:8], ql[:8], None,
+                 (19, 28, 10, 20), 16, 48, True)
 
 
 @pytest.fixture(scope="module")
