@@ -14,6 +14,9 @@ and shape:
   `reps` launches after a warm-up, divided by `reps`.
 - e2e_s: the host-array wrapper (numpy rows in, numpy outputs back:
   padding, upload and download included), best of `reps` wall times.
+- longest_rows, ns_per_row: the longest problem's rows swept and
+  kernel_s over them, null when no row was swept (shapes with N = 1 or
+  4 time one warp's row chain of K2 alone on the card).
 
 Cells: banded = N*T*min(2w+1, Q); full-equiv = N*Q*T (what the unbanded
 spec computes for the same problems).  Each line names the card and its
@@ -160,6 +163,10 @@ def run_shape(kind, N, Q, T, w, reps=3):
         "e2e_band_gcups": band_cells / e2e / 1e9,
         "e2e_full_equiv_gcups": full_cells / e2e / 1e9,
         "rows_swept": int(out[:, 6].to(torch.int64).sum()),
+        # the longest problem's rows: a launch lasts as long as its chain
+        "longest_rows": int(out[:, 6].max()),
+        "ns_per_row": (kern_s * 1e9 / int(out[:, 6].max())
+                       if int(out[:, 6].max()) else None),
         "device": name,
         "power_limit": limit,
     }

@@ -96,7 +96,8 @@ class ExtGatherEngine:
         clamp = lambda ql, w, bonus: _band_clamp_t(  # noqa: E731
             ql, w, mat_max, o["o_del"], o["e_del"], o["o_ins"], o["e_ins"],
             bonus)
-        # longest problems first: K2 runs one block per problem
+        # longest problems first: K2 runs a warp per problem (four a
+        # block), and a launch lasts as long as its longest problem
         tl = np.maximum(meta[:, 4] - meta[:, 5], meta[:, 6]
                         - (meta[:, 4] + meta[:, 3]))
         order = np.argsort(-tl, kind="stable")

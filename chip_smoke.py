@@ -11,8 +11,9 @@ Run from the repository root on a machine with one CUDA card.  In order:
   3. holds each kernel to its plain PyTorch version on the card: K1 (the
      seeding machine) on pack_k=2 lanes and tagged long-read shards, with
      default and tiny caps; K2 (the band DP) at P=256 and P=512, with
-     z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run, and at
-     P=1280 and P=3072 (several band slots per thread); K5 (the full-width
+     z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run (the
+     warp path, a warp per problem), and at P=1280 and P=3072 (the block
+     path, several band slots per thread); K5 (the full-width
      DP) and K2's host-array mode through the kernel entry point
      (ops/ksw_pallas.py) at tests/test_ksw_pallas.py's shapes plus two wide
      ones (QP = 1536 and 3072: 2 and 4 columns a thread);
@@ -35,8 +36,10 @@ Run from the repository root on a machine with one CUDA card.  In order:
      independent, so the subset keeps the call's width, caps and band), and
      K5 and K2's host-array mode at each of bench_kernel's shapes; prints
      each K1 launch's event time with its longest lane's steps and ns a
-     step, the kernel table, the card's name and power limit, and finally
-     {"ok": true, "device": {...}}.
+     step, each K2 launch's event time with its P, n, the longest
+     problem's rows and ns a row (and the same for K2's host-array mode at
+     bench_kernel's shapes), the kernel table, the card's name and power
+     limit, and finally {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -355,6 +358,28 @@ def entry_parity():
     return results
 
 
+def band_cells(rows, w, qlen) -> int:
+    """Cells the band DP evaluates at most, summed over problems, with
+    ~20 integer operations each (ksw.c:460-478 inner loop).  Row i of a
+    problem covers query columns max(0, i - w) .. min(i + w + 1, qlen)
+    (ksw.c:454-458; the adaptive beg/end only narrows that); rows is each
+    problem's rows swept.  rows, w, qlen: [n] integer tensors."""
+    import torch
+
+    rows, w, q = (a.to(torch.int64) for a in (rows, w, qlen))
+    r = torch.minimum(rows, q + w)  # a row past qlen + w has no band
+    # sum of min(i + w + 1, q): i + w + 1 for the first k rows, q after
+    k = torch.minimum((q - w - 1).clamp(min=0), r)
+    hi = k * (w + 1) + k * (k - 1) // 2 + (r - k) * q
+    m = (r - w - 1).clamp(min=0)  # rows i > w: the band starts at i - w
+    return int((hi - m * (m + 1) // 2).sum())
+
+
+def per_unit(ms, units):
+    """ns a step or row of the longest chain; None when it swept none."""
+    return ms * 1e6 / units if units else None
+
+
 def time_entry(kind, bench):
     """K5 or K2's host-array mode at every bench_kernel shape: the kernel
     against its plain version on the same device tensors (error, plain
@@ -371,9 +396,11 @@ def time_entry(kind, bench):
         out = kern(*args)
         want, plain_ms = timed_once(lambda: plain(*args))
         err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+        ms = bench[kind, shape]["kernel_s"] * 1e3
+        top = int(out[:, 6].max())
         checked.append(dict(shape=bench[kind, shape]["shape"], err=err,
-                            ms=bench[kind, shape]["kernel_s"] * 1e3,
-                            plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms, longest_rows=top,
+                            ns_per_row=per_unit(ms, top)))
         log(f"{kind} entry {checked[-1]}")
         if err:
             fail(f"{kind} entry disagrees with its plain version at "
@@ -383,17 +410,16 @@ def time_entry(kind, bench):
     (q, t, qlen, _, w, *_), out = first
     n, width = q.shape
     rows = out[:, 6].to(torch.int64)
-    # cells the function needs: rows swept x the in-band cells (2w+1, at
-    # most qlen), ~20 integer operations each.  K5 sweeps all QP columns
-    # of a row (full_width_cells), but those outside the band are masked
-    # and reach no output.
-    band = torch.minimum(2 * w.to(torch.int64) + 1, qlen.to(torch.int64))
-    cells = int((rows * band).sum())
+    # K5 sweeps all QP columns of a row (full_width_cells), but those
+    # outside the band are masked and reach no output.
+    cells = band_cells(rows, w, qlen)
     nbytes = q.numel() + t.numel() + n * 4 * 4 + n * 7 * 4
     res = dict(ms=checked[0]["ms"], plain_ms=checked[0]["plain_ms"],
                equal=True, err=0, shape=checked[0]["shape"],
                rows=int(rows.sum()), cells=cells, bytes=int(nbytes),
-               ops=float(cells * 20), shapes=checked)
+               ops=float(cells * 20), shapes=checked,
+               longest_rows=checked[0]["longest_rows"],
+               ns_per_row=checked[0]["ns_per_row"])
     if kind == "full":
         res["full_width_cells"] = int(rows.sum()) * width
     return res
@@ -896,7 +922,7 @@ def time_k1_call(rec, i, reps, host=None):
                shape=f"B={q.shape[0]} L={q.shape[1]} cap={kw['cap']} "
                      f"cap_s={kw['cap_s']}",
                lane_steps=steps, longest_lane_steps=longest,
-               ns_per_step=ms * 1e6 / max(longest, 1),
+               ns_per_step=per_unit(ms, longest),
                zero_seed_store_ms=zero_ms, bytes=int(nbytes), ops=float(ops))
     res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log(f"K1 timed {res}")
@@ -916,14 +942,23 @@ def time_k1(rec, host):
         launches.append(dict(phase=ph, call=i, cap=kw["cap"],
                              cap_s=kw["cap_s"], event_ms=ms,
                              longest_lane_steps=longest,
-                             ns_per_step=ms * 1e6 / max(longest, 1)))
+                             ns_per_step=per_unit(ms, longest)))
         log(f"K1 launch {launches[-1]}")
     return dict(se, pacbio_lane_wide=pb, launches_on_main_path=launches,
                 equal=se["equal"] and pb["equal"], err=max(se["err"],
                                                            pb["err"]))
 
 
+def k2_longest(out):
+    """Rows swept by a K2 call's longest problem (a device tensor)."""
+    return out[:, 6].max() if out.numel() else out.new_zeros(())
+
+
 def time_k2(rec):
+    """K2 at the main path's first launch on all its jobs, against the
+    plain version on the card, with the work a bound counts; and every
+    main-path launch's event time with its P, n, the longest problem's
+    rows and ns a row."""
     import torch
 
     from bwa_tpu_torch.ops import ksw_band
@@ -938,15 +973,24 @@ def time_k2(rec):
     pac, qflat, w = args[0], args[2], args[9]
     n = args[3].shape[0]
     rows = out[:, 6].to(torch.int64)
-    # cells the DP must evaluate: rows swept x band width (2w+1), ~20
-    # integer operations each (ksw.c:460-478 inner loop)
-    cells = int((rows * (2 * w.to(torch.int64) + 1)).sum())
+    longest = int(rows.max())
+    cells = band_cells(rows, w, args[5])
     nbytes = pac.numel() + qflat.numel() + n * (8 * 2 + 4 * 6) + n * 7 * 4
+    launches = []
+    for i, (ph, a, k) in enumerate(rec.calls):
+        ms_i, top = rec.call_ms[i], int(rec.kept[i])
+        launches.append(dict(phase=ph, call=i, P=k.get("P", a[-1]),
+                             n=int(a[3].shape[0]), event_ms=ms_i,
+                             longest_rows=top,
+                             ns_per_row=per_unit(ms_i, top)))
+        log(f"K2 launch {launches[-1]}")
     return dict(ms=ms, plain_ms=plain_ms, equal=equal, err=err,
                 shape=f"n={n} P={kw.get('P', args[-1])} "
                       f"max_tlen={int(args[8].max())}",
                 rows=int(rows.sum()), cells=cells, bytes=int(nbytes),
-                ops=float(cells * 20))
+                ops=float(cells * 20), longest_rows=longest,
+                ns_per_row=per_unit(ms, longest),
+                launches_on_main_path=launches)
 
 
 def bound(nbytes, ops):
@@ -1052,7 +1096,8 @@ def main(argv) -> int:
 
         recs = {"K1": Recorder(fm_machine, "seed_machine",
                                keep=lambda out: out[2]),
-                "K2": Recorder(ext_gather, "ksw_band_side")}
+                "K2": Recorder(ext_gather, "ksw_band_side",
+                               keep=k2_longest)}
         ran = [main_path(d, str(fa), ph, reads, extra, recs, reads2)
                for ph, reads, reads2, extra in phases]
         for r in recs.values():
@@ -1144,7 +1189,8 @@ def main(argv) -> int:
             entry_shapes=k.get("shapes"),
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
                                        "longest_lane_steps", "ns_per_step",
-                                       "rows", "cells", "full_width_cells")
+                                       "rows", "cells", "full_width_cells",
+                                       "longest_rows", "ns_per_row")
                   if kk in k},
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
                                     "launches_on_main_path") if kk in k}))

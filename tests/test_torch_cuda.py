@@ -285,6 +285,155 @@ def test_k2_single_pass_matches_plain(jobs, w):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
+def _k2_problems(seed, n, P, kind, l_pac=20_000):
+    """n extension problems over a random reference of l_pac bases (with
+    kind "repeats", a tandem repeat of a 3-base unit over its middle half,
+    where most rows tie for their max): targets read from either half of
+    the doubled genome in either direction, queries mutated copies of the
+    target (5% substitutions, one indel) stored forwards or backwards in
+    a flat read array.  Every fifth problem is dead (tlen 0), h0 is 0 on
+    every fourth, bands run from 1 to W with W itself on every third, and
+    queries run from 0 bases up to several times W, so many are shorter
+    than W.  Returns (pac, qflat, coordinate columns, code rows)."""
+    from bwa_tpu_torch.index.pack import pack_codes
+
+    rng = np.random.default_rng(seed)
+    W = P // 2 - 1
+    ref = rng.integers(0, 4, l_pac).astype(np.uint8)
+    if kind == "repeats":
+        ref[l_pac // 4:3 * l_pac // 4] = np.resize(rng.integers(0, 4, 3),
+                                                   l_pac // 2)
+    two = np.concatenate([ref, 3 - ref[::-1]])
+    cols = {k: np.zeros(n, np.int64) for k in
+            ("qbase", "qdir", "qlen", "tbase", "tdir", "tlen", "w", "h0")}
+    qflat, trows, qrows, pos = [], [], [], 0
+    for k in range(n):
+        tl = 0 if k % 5 == 4 else int(rng.integers(40, 700))
+        td = 1 if rng.random() < 0.5 else -1
+        half = int(rng.integers(0, 2)) * l_pac
+        lo, hi = half + l_pac // 4 + 800, half + 3 * l_pac // 4 - 800
+        x0 = int(rng.integers(lo, hi))
+        t = two[x0 + td * np.arange(tl)] if tl else np.zeros(0, np.uint8)
+        q = two[x0 + td * np.arange(900)].copy()
+        m = rng.random(len(q)) < 0.05
+        q[m] = rng.integers(0, 4, int(m.sum()))
+        cut = int(rng.integers(20, 400))
+        q = np.delete(q, np.arange(cut, cut + int(rng.integers(1, 9))))
+        q = q[:int(rng.integers(0, min(len(q), 3 * W + 40) + 1))]
+        qd = 1 if rng.random() < 0.5 else -1
+        qflat.append(q if qd == 1 else q[::-1])
+        cols["qbase"][k] = pos if qd == 1 else pos + len(q) - 1
+        pos += len(q)
+        cols["qdir"][k], cols["qlen"][k] = qd, len(q)
+        cols["tbase"][k], cols["tdir"][k], cols["tlen"][k] = x0, td, tl
+        cols["w"][k] = W if k % 3 == 0 else int(rng.integers(1, W + 1))
+        cols["h0"][k] = 0 if k % 4 == 0 else int(rng.integers(1, 60))
+        qrows.append(q)
+        trows.append(t)
+    pac = np.zeros(l_pac // 4 + 1, np.uint8)
+    pac[:(l_pac + 3) // 4] = pack_codes(ref)[:(l_pac + 3) // 4]
+    qflat = np.concatenate(qflat + [np.full(1, 4, np.uint8)])
+    qs = np.full((n, max(1, max(len(r) for r in qrows))), 4, np.uint8)
+    ts = np.full((n, max(1, max(len(r) for r in trows))), 4, np.uint8)
+    for k in range(n):
+        qs[k, :len(qrows[k])] = qrows[k]
+        ts[k, :len(trows[k])] = trows[k]
+    return pac, qflat, cols, qs, ts
+
+
+def _k2_both_modes(card, pac, l_pac, qflat, cols, qs, ts, zdrop, P):
+    """Gather mode and host-array mode on the card, each against its plain
+    version on the same device tensors, exactly; the two modes agree."""
+    from bwa_tpu_torch.ops import ksw_band
+
+    mat = np.full((5, 5), -4, np.int64)
+    np.fill_diagonal(mat, 1)
+    mat[4, :] = mat[:, 4] = -1
+    rest = (mat, 6, 1, 6, 1, zdrop, P)
+    d = lambda a, dt=torch.int64: torch.as_tensor(a, dtype=dt,  # noqa: E731
+                                                  device=card)
+    gather = (d(pac, torch.uint8), l_pac, d(qflat, torch.uint8),
+              *(d(cols[k]) for k in ("qbase", "qdir", "qlen", "tbase",
+                                     "tdir", "tlen", "w", "h0")))
+    n0, a0 = ksw_band.launches, ksw_band.array_launches
+    got = ksw_band.ksw_band_side(*gather, *rest)
+    want = ksw_band.ksw_band_side_plain(*gather, *rest)
+    assert ksw_band.launches == n0 + 1
+    assert torch.equal(got.cpu(), want.cpu())
+    arrays = (d(qs, torch.uint8), d(ts, torch.uint8),
+              *(d(cols[k], torch.int32) for k in ("qlen", "tlen", "w",
+                                                  "h0")))
+    got_a = ksw_band.ksw_band_arrays(*arrays, *rest)
+    want_a = ksw_band.ksw_band_arrays_plain(*arrays, *rest)
+    assert ksw_band.array_launches == a0 + 1
+    assert torch.equal(got_a.cpu(), want_a.cpu())
+    assert torch.equal(got_a.cpu(), got.cpu())
+    return got.cpu()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["random", "repeats"])
+@pytest.mark.parametrize("P", [128, 256, 512, 1024, 1280, 3072, 4096])
+def test_k2_both_modes_match_plain(card, P, kind):
+    """K2 in both modes at the warp path's bands (P <= 1024) and the block
+    path's, with 1, 3 and 37 problems (37: the last block of four warps
+    holds one), z-drop on and off, dead problems among live ones, h0 = 0,
+    qlen < W, tandem repeats (row-max ties), and rows past several 32-row
+    code chunks."""
+    for n in (1, 3, 37):
+        pac, qflat, cols, qs, ts = _k2_problems(P + n, n, P, kind)
+        for zdrop in (100, -1):
+            out = _k2_both_modes(card, pac, 20_000, qflat, cols, qs, ts,
+                                 zdrop, P)
+            if n == 37 and zdrop < 0:
+                assert int(out[:, 6].max()) > 96
+                assert bool((out[:, 6] == 0).any())  # the dead ones
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [256, 1280])
+def test_k2_gather_past_2g_matches_plain(card, P):
+    """A reference of 2^30 + 4,321 bases (a 256 MB .pac on the card):
+    targets on the reverse half, whose doubled-genome positions pass
+    2^31, in both directions, against the plain version."""
+    from bwa_tpu_torch.ops import ksw_band
+
+    l_pac = (1 << 30) + 4321
+    g = torch.Generator(device=card).manual_seed(5)
+    pac = torch.randint(0, 256, (l_pac // 4 + 1,), dtype=torch.uint8,
+                        device=card, generator=g)
+    rng = np.random.default_rng(P)
+    n, W = 12, P // 2 - 1
+    two_l = 2 * l_pac
+    x0 = two_l - 1 - rng.integers(0, 3000, n)
+    td = np.where(np.arange(n) % 2 == 0, -1, 1)
+    tl = np.where(td < 0, rng.integers(100, 600, n),
+                  np.minimum(two_l - x0, 600))
+    tl[5] = 0
+    # queries: the targets' own codes with a few substitutions
+    j = torch.arange(700, device=card)[None, :]
+    pos = torch.as_tensor(x0, device=card)[:, None] \
+        + torch.as_tensor(td, device=card)[:, None] * j
+    codes = ksw_band._pac_gather(pac, l_pac, pos, pos < two_l).cpu().numpy()
+    ql = rng.integers(1, 3 * W, n).clip(max=700)
+    qflat = np.concatenate([np.where(rng.random(ql[k]) < 0.03, 3 - codes[
+        k, :ql[k]], codes[k, :ql[k]]).astype(np.uint8) for k in range(n)])
+    qbase = np.concatenate([[0], np.cumsum(ql)[:-1]])
+    cols = (qbase, np.ones(n), ql, x0, td, tl, np.full(n, W),
+            np.full(n, 30))
+    args = (pac, l_pac, torch.as_tensor(qflat, device=card),
+            *(torch.as_tensor(np.asarray(c, np.int64), device=card)
+              for c in cols))
+    mat = np.full((5, 5), -4, np.int64)
+    np.fill_diagonal(mat, 1)
+    mat[4, :] = mat[:, 4] = -1
+    rest = (mat, 6, 1, 6, 1, 100, P)
+    got = ksw_band.ksw_band_side(*args, *rest)
+    want = ksw_band.ksw_band_side_plain(*args, *rest)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int(x0.min()) >= 1 << 31 and int(want[:, 0].max()) > 100
+
+
 _SHAPES = [(1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
            (3, 16, 33, 300, 20, 120), (4, 8, 700, 900, 100, 120),
            (5, 6, 1500, 1200, 100, 700), (6, 3, 3000, 1600, 100, 1200)]
