@@ -1,14 +1,15 @@
 """Extension-kernel microbenchmark on a CUDA card.
 
-    python -m bwa_tpu_torch.bench_kernel [N,Q,T,w ...]
+    python -m bwa_tpu_torch.bench_kernel [--kind band|full] [N,Q,T,w ...]
 
 The port's counterpart of the repository's bench_kernel.py: the same
 problems (95%-matching sequences, so z-drop never cuts rows early: the
 worst-case work) and shapes (1024x2048x2048, 1024x1024x1024 and
 4096x256x512, all at w = 100), through the two kernels behind
 ops/ksw_pallas.py: K2 in host-array mode (the band, extend_band_pallas)
-and K5 (the full width, extend_batch_pallas).  One JSON line per kernel
-and shape:
+and K5 (extend_batch_pallas, each problem in a window of its own band
+width); --kind runs one of the two.  One JSON line per kernel and
+shape:
 
 - kernel_s: one launch on device-resident inputs, CUDA events around
   `reps` launches after a warm-up, divided by `reps`.
@@ -178,9 +179,14 @@ def main(argv=None) -> int:
         print("bench_kernel: no CUDA card: nothing to measure",
               file=sys.stderr)
         return 1
+    kinds = list(KERNELS)
+    if "--kind" in argv:
+        k = argv.index("--kind")
+        kinds = [argv[k + 1]]
+        argv = argv[:k] + argv[k + 2:]
     shapes = [tuple(int(x) for x in a.split(",")) for a in argv] or SHAPES
     for N, Q, T, w in shapes:
-        for kind in KERNELS:
+        for kind in kinds:
             print(json.dumps(run_shape(kind, N, Q, T, w)), flush=True)
     return 0
 

@@ -18,7 +18,6 @@ import numpy as np
 from bwa_tpu_torch.index.pack import NT4_TABLE
 from bwa_tpu_torch.mem.seeding import collect_intv
 from bwa_tpu_torch.mem.types import Read
-from bwa_tpu_torch.ops.ksw_band import K2_MAX_BAND, _band_for
 from bwa_tpu_torch.options import MEM_F_PE, MEM_F_PRIMARY5
 
 
@@ -43,19 +42,11 @@ def use_device_ext(opt, engine, codes,
     True/False wins; None (auto) means an engine on a CUDA device and a
     batch whose longest read is 512 bp or more (one extension batch then
     serves many long extensions; short-read extension is a few percent
-    of the time and stays on the host).  On a CUDA engine the doubled
-    retry band must fit K2 (-w up to 1023): a wider one raises."""
+    of the time and stays on the host).  K2 takes every band width."""
     on_cuda = getattr(getattr(engine, "device", None), "type", None) == "cuda"
     if device_ext is not None:
-        use = bool(device_ext) and bool(codes)
-    else:
-        use = on_cuda and bool(codes) and max(len(c) for c in codes) >= 512
-    if use and on_cuda and _band_for(opt.w << 1) > K2_MAX_BAND:
-        raise ValueError(
-            f"-w {opt.w}: the band-doubling retry needs P = "
-            f"{_band_for(opt.w << 1)} band slots, K2 takes up to "
-            f"{K2_MAX_BAND}")
-    return use
+        return bool(device_ext) and bool(codes)
+    return on_cuda and bool(codes) and max(len(c) for c in codes) >= 512
 
 
 def bseq_classify(reads: list[Read]):

@@ -89,15 +89,16 @@ def _bind(libs) -> None:
     f = libs["ksw_band.cu"].bwa_ksw_band
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                  i32, i32, i32, i32, i32, i32, i32, vp, vp]
+                  i32, i32, i32, i32, i32, i32, i32, vp, i64, vp, vp]
     f = libs["ksw_band.cu"].bwa_ksw_band_arrays
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp,
-                  i32, i32, i32, i32, i32, i32, i32, vp, vp]
+                  i32, i32, i32, i32, i32, i32, i32, vp, i64, vp, vp]
     f = libs["ksw_full.cu"].bwa_ksw_full
     f.restype = ctypes.c_int
     f.argtypes = [vp, i32, vp, i64, vp, vp, vp, vp, vp,
-                  i32, i32, i32, i32, i32, i32, vp, vp]
+                  i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, vp, i64,
+                  vp, vp]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -135,21 +136,32 @@ def _mat(mat) -> ctypes.c_void_p:
     return ctypes.cast((ctypes.c_int32 * 25)(*mat), ctypes.c_void_p)
 
 
+def _scratch(scratch) -> tuple[int | None, int]:
+    """The wide path's global ring band: (pointer, bytes a problem), or
+    (None, 0) for the ring in shared memory."""
+    if scratch is None:
+        return None, 0
+    buf, stride = scratch
+    return _ptr(buf), int(stride)
+
+
 def ksw_band(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen, w,
-             h0, mat, o_del, e_del, o_ins, e_ins, zdrop, P, out) -> None:
-    """Launch K2 (csrc/ksw_band.cu) on the current stream."""
+             h0, mat, o_del, e_del, o_ins, e_ins, zdrop, P, out,
+             scratch=None) -> None:
+    """Launch K2 (csrc/ksw_band.cu) on the current stream; scratch: the
+    wide path's (buffer, bytes a problem), or None."""
     lib = build_all()["ksw_band.cu"]
     n = qbase.shape[0]
     rc = lib.bwa_ksw_band(
         _ptr(pac), int(l_pac), _ptr(qflat), qflat.shape[0], _ptr(qbase),
         _ptr(qdir), _ptr(qlen), _ptr(tbase), _ptr(tdir), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
-        int(zdrop), int(P), n, _ptr(out), _stream(qbase))
+        int(zdrop), int(P), n, *_scratch(scratch), _ptr(out), _stream(qbase))
     _check(rc, "ksw_band")
 
 
 def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
-                    e_ins, zdrop, P, out) -> None:
+                    e_ins, zdrop, P, out, scratch=None) -> None:
     """Launch K2 in host-array mode (qs [n, Q], ts [n, T] code rows) on the
     current stream."""
     lib = build_all()["ksw_band.cu"]
@@ -157,18 +169,21 @@ def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
     rc = lib.bwa_ksw_band_arrays(
         _ptr(qs), Q, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
-        int(zdrop), int(P), n, _ptr(out), _stream(qs))
+        int(zdrop), int(P), n, *_scratch(scratch), _ptr(out), _stream(qs))
     _check(rc, "ksw_band_arrays")
 
 
 def ksw_full(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins, e_ins,
-             zdrop, out) -> None:
+             zdrop, perm, pw, counts, p_wide, out, scratch=None) -> None:
     """Launch K5 (csrc/ksw_full.cu, qs [n, QP], ts [n, T]) on the current
-    stream."""
+    stream: perm [n] the problems in window-class order, pw [n] their
+    windows, counts the problems of each class (host ints)."""
     lib = build_all()["ksw_full.cu"]
     n, QP = qs.shape
+    cnt = (ctypes.c_int * len(counts))(*counts)
     rc = lib.bwa_ksw_full(
         _ptr(qs), QP, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
-        int(zdrop), n, _ptr(out), _stream(qs))
+        int(zdrop), n, _ptr(perm), _ptr(pw), ctypes.cast(cnt, ctypes.c_void_p),
+        int(p_wide), *_scratch(scratch), _ptr(out), _stream(qs))
     _check(rc, "ksw_full")

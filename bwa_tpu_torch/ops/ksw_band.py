@@ -1,5 +1,6 @@
 """Banded ksw_extend2 in band-relative coordinates: the plain PyTorch
-version and its kernel (K2, csrc/ksw_band.cu).
+version and its kernel (K2, csrc/ksw_band.cu; device code in
+csrc/ksw_band.cuh).
 
 Semantics are those of the JAX package's Pallas kernel
 bwa_tpu/ops/ksw_pallas.py::_mk_band_kernel: the band is P columns wide,
@@ -13,10 +14,12 @@ ksw_band_side runs one extension pass over per-job coordinates (query
 windows from the flat read codes, target rows from the 2-bit .pac);
 ksw_band_arrays runs it over host-built query and target code rows (K2's
 host-array mode, the JAX package's extend_band_pallas).  A CUDA tensor
-launches K2, a CPU tensor runs the plain version.  K2 runs a warp per
-problem for P <= 1024 (warp_row is that decomposition of a row in plain
-PyTorch) and a block per problem above; either way a launch that the
-card refuses raises, and nothing falls back to the plain version.
+launches K2, a CPU tensor runs the plain version.  K2 takes any band P
+that is a multiple of 32: a warp per problem for P <= 1024 (warp_row is
+that decomposition of a row in plain PyTorch) and a block per problem
+above, its band in a ring in shared memory or, past WIDE_SMEM_BYTES, in a
+global scratch band (wide_scratch); either way a launch that the card
+refuses raises, and nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -31,24 +34,32 @@ NEG = -(1 << 30)
 launches = 0
 array_launches = 0
 
-# widest band K2 takes: a warp per problem up to P = 1024, then a block of
-# up to 1024 threads with 2 or 4 band slots each
-K2_MAX_BAND = 4096
+# shared memory the wide path's ring (9 bytes a slot) may take; a wider
+# band runs from a global scratch band (csrc/ksw_band.cuh, the same value)
+WIDE_SMEM_BYTES = 224 * 1024
 
 
 def check_band(P: int) -> None:
-    """Raise ValueError unless K2 takes a band of P slots: a multiple of
-    32 up to 1024 (warp path), of 64 up to 2048 and of 128 up to
-    K2_MAX_BAND (block path)."""
-    step = 32 if P <= 1024 else (64 if P <= 2048 else 128)
-    if not 32 <= P <= K2_MAX_BAND or P % step:
-        raise ValueError(f"K2 takes bands of 32 to {K2_MAX_BAND} slots, a "
-                         f"multiple of 32 up to 1024, of 64 up to 2048 and "
-                         f"of 128 above (got P = {P})")
+    """Raise ValueError unless K2 takes a band of P slots: any multiple of
+    32 from 32 on (the warp path up to 1024, the wide path above)."""
+    if P < 32 or P % 32:
+        raise ValueError(f"K2 takes bands of a multiple of 32 slots, from "
+                         f"32 on (got P = {P})")
 
 
-def _band_for(w_max: int) -> int:
-    """Band width P for a largest post-clamp w: roundup_128(2w + 2)."""
+def wide_scratch(n: int, P: int, device):
+    """The global ring band of n problems for K2's wide path at a band of P
+    slots, when the ring passes WIDE_SMEM_BYTES: (uint8 buffer, bytes a
+    problem); None when the ring fits in shared memory (or P <= 1024)."""
+    stride = -(-9 * P // 16) * 16
+    if P <= 1024 or stride <= WIDE_SMEM_BYTES:
+        return None
+    return torch.empty(n * stride, dtype=torch.uint8, device=device), stride
+
+
+def _band_for(w_max):
+    """Band width P for a largest post-clamp w: roundup_128(2w + 2) (an
+    int, or elementwise on an int64 array or tensor: K5's windows)."""
     return -(-(2 * w_max + 2) // 128) * 128
 
 
@@ -295,12 +306,14 @@ def _sweep(H, E, QB, ts, qlen, tlen, w, h0, mat, W: int, o_del: int,
 
 def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
               o_del: int, e_del: int, o_ins: int, e_ins: int, zdrop: int,
-              row=None):
+              row=None, col1: bool = False):
     """The plain band DP.  qb0 [N, P] query codes of the row-0 window
     (q[p - W]); qn [N, T] the code entering slot P-1 at row i
     (q[i - W + P - 1]); ts [N, T] target codes; qlen, tlen, w, h0 [N].
     row: _sweep's test seam (tests pass warp_row, which computes each
-    row the way K2's warp path does; the port never sets it).  Returns
+    row the way K2's warp path does; the port never sets it).  col1:
+    column 1 starts at e1 whatever qlen (K5's rule, ops/ksw_full.py).
+    Returns
     [N, 7] int32: score, qle, tle, gtle, gscore, max_off, and the number
     of target rows swept (a work diagnostic)."""
     dev = qb0.device
@@ -319,7 +332,8 @@ def band_rows(qb0, qn, ts, qlen, tlen, w, h0, mat, P: int, W: int,
         keep = (j >= 2) & (prev > e_ins) & (j <= ql2)
         v = W_(j == 0, h02, W_(j == 1, e1, W_(keep, fill,
                                               torch.zeros_like(fill))))
-        return W_((j >= 0) & (j <= ql2), v, torch.zeros_like(v))
+        keep = (j >= 0) & (j <= ql2)
+        return W_(keep | ((j == 1) & col1), v, torch.zeros_like(v))
 
     zc = torch.zeros((N, 1), dtype=i64, device=dev)
 
@@ -409,7 +423,7 @@ def ksw_band_side(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen,
         pac, l_pac, qflat, i64(qbase), i32(qdir), i32(qlen), i64(tbase),
         i32(tdir), i32(tlen), i32(w), i32(h0),
         [int(v) for v in np.asarray(mat, np.int64).reshape(-1)], o_del,
-        e_del, o_ins, e_ins, zdrop, P, out)
+        e_del, o_ins, e_ins, zdrop, P, out, wide_scratch(n, P, dev))
     launches += 1
     return out
 
@@ -465,6 +479,6 @@ def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
     cuda_kernels.ksw_band_arrays(
         qs, ts, i32(qlen), i32(tlen), i32(w), i32(h0),
         [int(v) for v in np.asarray(mat, np.int64).reshape(-1)], o_del,
-        e_del, o_ins, e_ins, zdrop, P, out)
+        e_del, o_ins, e_ins, zdrop, P, out, wide_scratch(n, P, dev))
     array_launches += 1
     return out

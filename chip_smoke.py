@@ -12,11 +12,11 @@ Run from the repository root on a machine with one CUDA card.  In order:
      seeding machine) on pack_k=2 lanes and tagged long-read shards, with
      default and tiny caps; K2 (the band DP) at P=256 and P=512, with
      z-drop and h0 > 0, through ExtGatherEngine.run_fused and .run (the
-     warp path, a warp per problem), and at P=1280 and P=3072 (the block
-     path, several band slots per thread); K5 (the full-width
-     DP) and K2's host-array mode through the kernel entry point
+     warp path, a warp per problem), and at P=1280 and P=3072 (the wide
+     path, a block per problem); K5 (each problem in a window of its own
+     band width) and K2's host-array mode through the kernel entry point
      (ops/ksw_pallas.py) at tests/test_ksw_pallas.py's shapes plus two wide
-     ones (QP = 1536 and 3072: 2 and 4 columns a thread);
+     ones (Q = 1500 and 3000);
   4. drives `mem` through the CLI on 4,096 x 150 bp SE reads (default
      options), on 512 x 2 kb + 32 x 10 kb reads with -x pacbio and on
      12,288 pairs of 150 bp reads from two FASTQs (insert 350 +- 40),
@@ -26,9 +26,16 @@ Run from the repository root on a machine with one CUDA card.  In order:
      the SAM of the first 256 pairs, run alone on the card, against the CPU
      run of those pairs and against the card's run of them with the seed
      extensions on K2 (the PE finalize's callback); the CPU runs go in
-     subprocesses from step 2 on;
+     subprocesses from step 2 on; then 64 x 2 kb + 4 x 10 kb reads and two
+     2.2 kb reads with an 860-base deletion (their extensions take the
+     band-doubling retry) with -x pacbio -w 1100 (K2's wide path, P = 2304
+     and 4480), whose SAM must equal the same reads' SAM with host
+     extension on the card;
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
-     its three shapes (K2 host-array mode and K5, launches counted);
+     its three shapes (K2 host-array mode and K5, launches counted), and
+     past the widths the first kernels refused (K5 at QP = 6016 with
+     w = 100 and 3000, K2 host-array at P = 4480 and 8192) against the
+     plain versions, each time beside its bound;
   6. holds every recorded kernel call to the plain version: the first call
      of each kernel, and K1's widest pacbio rung (as wide as the lane), on
      all their rows (and times both; K1 on seeds, seed_n, ovf, done_step and
@@ -127,6 +134,27 @@ def simulate(codes, n, length, seed, err, indel_rate, prefix):
             origins.append(s)
         reads.append((f"{prefix}{i}", r.astype(np.uint8)))
     return reads, origins
+
+
+def deletion_reads(codes, n, seed, prefix, pre=1100, gap=860, post=1100,
+                   err=0.02):
+    """Reads of `pre` bases and then the `post` bases that start `gap`
+    bases further on (a deletion of `gap` bases), substitutions at rate
+    err: a seed extension that crosses the deletion ends about `gap`
+    columns off its diagonal, past -w 1100's retry threshold (825), so it
+    takes the band-doubling retry (P = 4480)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        s = int(rng.integers(0, len(codes) - pre - gap - post))
+        r = np.concatenate([codes[s:s + pre],
+                            codes[s + pre + gap:s + pre + gap + post]])
+        m = rng.random(len(r)) < err
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        reads.append((f"{prefix}{i}", r.astype(np.uint8)))
+    return reads
 
 
 def simulate_pairs(codes, n, length, seed, err, prefix, isize_mean=350,
@@ -325,7 +353,7 @@ def entry_parity():
 
     results = []
     # tests/test_ksw_pallas.py's shapes, then wide queries (K5: QP = 1536
-    # and 3072, 2 and 4 columns a thread; K2: P = 1408 and 2432)
+    # and 3072; K2: P = 1408 and 2432, the wide path)
     for seed, n, q, t, zdrop, w_hi in (
             (1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
             (3, 16, 33, 300, 20, 120), (4, 8, 700, 900, 100, 120),
@@ -645,6 +673,73 @@ def check_pe256(d, prefix, fm, fqs, cpu):
     return info
 
 
+def check_w1100(prefix, fm, fq, info, sam):
+    """mem -x pacbio -w 1100: the SAM with the seed extensions on K2 (bands
+    of 2304 slots and 4480 for the retry, K2's wide path) against the same
+    reads' SAM with host extension (the native ksw), both on the card."""
+    import torch
+
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
+    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.options import MemOptions
+
+    opt = MemOptions()
+    opt.apply_mode("pacbio")
+    opt.w = 1100
+    reads = read_batch(SeqReader(str(fq)), None, 1 << 62)
+    t0 = time.perf_counter()
+    process_seqs(opt, make_engine(fm, "cuda"), fm, reads, 0, None, None,
+                 device_ext=False)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if records_of(sam) != "".join(r.sam for r in reads):
+        fail("mem_pacbio_w1100: the SAM with extension on K2 differs from "
+             "the host extension's")
+    info.update(host_ext_seconds=host_s, device_ext_equal_host=True)
+
+
+def entry_wide():
+    """The kernel entry point past the widths the first kernels refused:
+    K5 at Q = 6,000 (QP = 6,016) with w = 100 and w = 3,000 (windows of 256
+    and 6,016 slots) and K2's host-array mode at P = 4480 and 8192, each
+    against its plain version on the card, with its time and bound."""
+    import torch
+
+    from bwa_tpu_torch import bench_kernel
+
+    out = []
+    for kind, shape in (("full", (64, 6000, 1024, 100)),
+                        ("full", (64, 6000, 1024, 3000)),
+                        ("band", (64, 6000, 1024, 2200)),
+                        ("band", (64, 6000, 1024, 4090))):
+        kern, plain, _ = bench_kernel.KERNELS[kind]
+        args = bench_kernel.device_args(kind, *shape)
+        got = kern(*args)
+        want, plain_ms = timed_once(lambda: plain(*args))
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        ms = cuda_time(lambda: kern(*args), 3)
+        q, t, qlen, _, w = args[:5]
+        rows = got[:, 6].to(torch.int64)
+        cells = band_cells(rows, w, qlen)
+        nbytes = q.numel() + t.numel() + q.shape[0] * (4 * 4 + 7 * 4)
+        b_ms, b_by = bound(nbytes, cells * 20)
+        res = dict(kernel="K5" if kind == "full" else "K2 host-array",
+                   shape="{}x{}x{}/w{}".format(*shape), width=q.shape[1],
+                   P=args[-1] if kind == "band" else None, err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   longest_rows=int(rows.max()),
+                   ns_per_row=per_unit(ms, int(rows.max())))
+        log(f"entry past 4096 {res}")
+        out.append(res)
+        if err:
+            fail(f"kernel entry past 4096 disagrees with its plain version: "
+                 f"{res}")
+    if [r["P"] for r in out[2:]] != [4480, 8192]:
+        fail(f"kernel entry past 4096: bands {[r['P'] for r in out]}")
+    return out
+
+
 # --------------------------------------------------------------------------
 # each recorded call against the plain version
 # --------------------------------------------------------------------------
@@ -748,7 +843,9 @@ def k1_subset(args, kw, longest):
 def k2_subset(args, kw):
     """K2 on a subset of a recorded call's jobs (32 live ones spread over
     the call, longest first, and one empty one) against the plain version
-    on the host."""
+    on the host, or on the card for a band wider than 1024 slots (the
+    host's plain version at P >= 2304 over 10 kb targets takes tens of
+    seconds a call)."""
     import torch
 
     from bwa_tpu_torch.ops import ksw_band
@@ -763,12 +860,14 @@ def k2_subset(args, kw):
     r = torch.as_tensor(rows, device=tlen.device)
     a = list(args[:3]) + [x[r] for x in args[3:11]] + list(args[11:])
     got = ksw_band.ksw_band_side(*a, **kw).cpu()
-    host = [x.cpu() if torch.is_tensor(x) else x for x in a]
+    P = kw.get("P", args[-1])
+    host = a if P > 1024 else [x.cpu() if torch.is_tensor(x) else x
+                               for x in a]
     t0 = time.perf_counter()
-    want = ksw_band.ksw_band_side_plain(*host, **kw)
-    return got, want, dict(jobs=len(rows), P=kw.get("P", args[-1]),
-                           max_tlen=int(tlen[r].max()),
-                           plain_host_s=time.perf_counter() - t0)
+    want = ksw_band.ksw_band_side_plain(*host, **kw).cpu()
+    return got, want, dict(jobs=len(rows), P=P, max_tlen=int(tlen[r].max()),
+                           plain_on="card" if P > 1024 else "host",
+                           plain_s=time.perf_counter() - t0)
 
 
 def check_calls(rec, kernel, skip=(0,)):
@@ -954,16 +1053,16 @@ def k2_longest(out):
     return out[:, 6].max() if out.numel() else out.new_zeros(())
 
 
-def time_k2(rec):
-    """K2 at the main path's first launch on all its jobs, against the
-    plain version on the card, with the work a bound counts; and every
-    main-path launch's event time with its P, n, the longest problem's
-    rows and ns a row."""
+def time_k2(rec, i=0):
+    """K2 at recorded call i (the main path's first launch by default) on
+    all its jobs, against the plain version on the card, with the work a
+    bound counts; and every main-path launch's event time with its P, n,
+    the longest problem's rows and ns a row."""
     import torch
 
     from bwa_tpu_torch.ops import ksw_band
 
-    _, args, kw = rec.calls[0]
+    _, args, kw = rec.calls[i]
     out = ksw_band.ksw_band_side(*args, **kw)
     plain, plain_ms = timed_once(
         lambda: ksw_band.ksw_band_side_plain(*args, **kw))
@@ -977,12 +1076,12 @@ def time_k2(rec):
     cells = band_cells(rows, w, args[5])
     nbytes = pac.numel() + qflat.numel() + n * (8 * 2 + 4 * 6) + n * 7 * 4
     launches = []
-    for i, (ph, a, k) in enumerate(rec.calls):
-        ms_i, top = rec.call_ms[i], int(rec.kept[i])
-        launches.append(dict(phase=ph, call=i, P=k.get("P", a[-1]),
-                             n=int(a[3].shape[0]), event_ms=ms_i,
+    for j, (ph, a, k) in enumerate(rec.calls):
+        ms_j, top = rec.call_ms[j], int(rec.kept[j])
+        launches.append(dict(phase=ph, call=j, P=k.get("P", a[-1]),
+                             n=int(a[3].shape[0]), event_ms=ms_j,
                              longest_rows=top,
-                             ns_per_row=per_unit(ms_i, top)))
+                             ns_per_row=per_unit(ms_j, top)))
         log(f"K2 launch {launches[-1]}")
     return dict(ms=ms, plain_ms=plain_ms, equal=equal, err=err,
                 shape=f"n={n} P={kw.get('P', args[-1])} "
@@ -1065,6 +1164,9 @@ def main(argv) -> int:
     pb2k, org2k = simulate(codes, 512, 2000, SEED + 4, 0.05, 0.03, "p")
     pb10k, _ = simulate(codes, 32, 10000, SEED + 5, 0.05, 0.03, "q")
     pe1, pe2 = simulate_pairs(codes, 12288, 150, SEED + 6, 0.005, "f")
+    w1100 = simulate(codes, 64, 2000, SEED + 7, 0.05, 0.03, "w")[0] \
+        + simulate(codes, 4, 10000, SEED + 8, 0.05, 0.03, "x")[0] \
+        + deletion_reads(codes, 2, SEED + 9, "d")
     # four 10 kb reads lead, so the CPU run of the first 64 takes the same
     # 10,048-base lanes and cap ladder as the card
     pacbio = pb10k[:4] + pb2k + pb10k[4:]
@@ -1100,11 +1202,26 @@ def main(argv) -> int:
                                keep=k2_longest)}
         ran = [main_path(d, str(fa), ph, reads, extra, recs, reads2)
                for ph, reads, reads2, extra in phases]
-        for r in recs.values():
-            r.restore()
+        # -w 1100: K2's wide path (P = 2304, retry 4480); only K2's calls
+        # are recorded (K1's are those of the pacbio phase)
+        recs["K1"].restore()
+        phase_w, sam_w = main_path(d, str(fa), "mem_pacbio_w1100", w1100,
+                                   ["-x", "pacbio", "-w", "1100"],
+                                   {"K2": recs["K2"]})
+        recs["K2"].restore()
+        wide = [i for i, (ph, a, k) in enumerate(recs["K2"].calls)
+                if ph == "mem_pacbio_w1100"]
+        bands = [(recs["K2"].calls[i][2].get("P", recs["K2"].calls[i][1][-1]),
+                  int(recs["K2"].kept[i])) for i in wide]
+        if not wide or min(P for P, _ in bands) <= 1024 \
+                or not any(P == 4480 and rows for P, rows in bands):
+            fail(f"mem_pacbio_w1100: K2 launches (P, longest rows) {bands}: "
+                 f"not all on the wide path, or no live retry at P = 4480")
+        check_w1100(str(fa), fm, d / "mem_pacbio_w1100.fq", phase_w, sam_w)
         (phase_se, sam_se), (phase_pb, sam_pb), (phase_pe, _) = ran
         for name, ph in (("K1", phase_se), ("K1", phase_pb),
-                         ("K2", phase_pb), ("K1", phase_pe)):
+                         ("K2", phase_pb), ("K1", phase_pe), ("K1", phase_w),
+                         ("K2", phase_w)):
             if ph["launches"][name] < 1:
                 fail(f"{ph['phase']}: kernel {name} was not launched")
         for ph in (phase_se, phase_pe):
@@ -1133,6 +1250,7 @@ def main(argv) -> int:
         for name in ("K2 host-array", "K5"):
             if phase_entry["launches"][name] < 1:
                 fail(f"kernel entry: {name} was not launched")
+        entry_past = entry_wide()
 
         # 6. every recorded call against the plain version; times of the
         # first call of each kernel and of K1's lane-wide rung, whose plain
@@ -1141,13 +1259,20 @@ def main(argv) -> int:
         lane_wide = k1_lane_wide(recs["K1"])
         host = start_k1_host_plain(d, recs["K1"], lane_wide)
         k2 = time_k2(recs["K2"])
+        # the wide path at the -w 1100 phase's first launch with a live job
+        wide_i = next((i for i in wide if int(recs["K2"].kept[i])), wide[0])
+        k2w = time_k2(recs["K2"], wide_i)
+        for k, wide_phase in ((k2, False), (k2w, True)):
+            k["launches_on_main_path"] = [
+                x for x in k["launches_on_main_path"]
+                if (x["phase"] == "mem_pacbio_w1100") == wide_phase]
         k2h = time_entry("band", bench)
         k5 = time_entry("full", bench)
         calls = {"K1": check_calls(recs["K1"], "K1", skip=(0, lane_wide)),
-                 "K2": check_calls(recs["K2"], "K2")}
+                 "K2": check_calls(recs["K2"], "K2", skip=(0, wide_i))}
         k1 = time_k1(recs["K1"], host)
-        for name, k in (("K1", k1), ("K2", k2), ("K2 host-array", k2h),
-                        ("K5", k5)):
+        for name, k in (("K1", k1), ("K2", k2), ("K2 wide path", k2w),
+                        ("K2 host-array", k2h), ("K5", k5)):
             if not k["equal"]:
                 fail(f"{name} disagrees with its plain version at the main "
                      f"path's shape")
@@ -1157,6 +1282,7 @@ def main(argv) -> int:
             check_first64(info, sam, cpu[info["phase"]],
                           {n for n, _ in reads[:64]})
         print(json.dumps(phase_pe), flush=True)
+        print(json.dumps(phase_w), flush=True)
     finally:
         for proc, err, *_ in [*cpu.values(), *host]:
             if proc.poll() is None:
@@ -1169,10 +1295,15 @@ def main(argv) -> int:
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", k1, k1_par,
              sum(p["launches"]["K1"] for p in (phase_se, phase_pb,
-                                                phase_pe)), calls["K1"]),
+                                                phase_pe, phase_w)),
+             calls["K1"]),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par,
              phase_pb["launches"]["K2"], calls["K2"]),
+            ("K2 ksw_band wide path (P > 1024)",
+             "bwa_tpu_torch/csrc/ksw_band.cuh",
+             "bwa_tpu/ops/ksw_pallas.py:380", k2w, k2_par,
+             phase_w["launches"]["K2"], None),
             ("K2 ksw_band host-array mode", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:622", k2h, entry_par,
              phase_entry["launches"]["K2 host-array"], None),
@@ -1193,12 +1324,16 @@ def main(argv) -> int:
                                        "longest_rows", "ns_per_row")
                   if kk in k},
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
-                                    "launches_on_main_path") if kk in k}))
+                                    "launches_on_main_path") if kk in k},
+            **({"entry_past_4096": [
+                e for e in entry_past
+                if e["kernel"] == ("K5" if k is k5 else "K2 host-array")]}
+               if k is k5 or k is k2h else {})))
     print(json.dumps(dict(
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
                             for p in (phase_se, phase_pb, phase_pe,
-                                      phase_entry)},
+                                      phase_w, phase_entry)},
         pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -373,9 +373,10 @@ def _k2_both_modes(card, pac, l_pac, qflat, cols, qs, ts, zdrop, P):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kind", ["random", "repeats"])
-@pytest.mark.parametrize("P", [128, 256, 512, 1024, 1280, 3072, 4096])
+@pytest.mark.parametrize("P", [128, 256, 512, 1024, 1280, 3072, 4096, 4480,
+                               8192])
 def test_k2_both_modes_match_plain(card, P, kind):
-    """K2 in both modes at the warp path's bands (P <= 1024) and the block
+    """K2 in both modes at the warp path's bands (P <= 1024) and the wide
     path's, with 1, 3 and 37 problems (37: the last block of four warps
     holds one), z-drop on and off, dead problems among live ones, h0 = 0,
     qlen < W, tandem repeats (row-max ties), and rows past several 32-row
@@ -442,9 +443,10 @@ _SHAPES = [(1, 37, 80, 150, 100, 120), (2, 64, 128, 128, -1, 120),
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("seed,n,q,t,zdrop,w_hi", _SHAPES)
 def test_k5_and_k2_arrays_match_plain(card, seed, n, q, t, zdrop, w_hi):
-    """K5 (full width, QP up to 3072: 1, 2 and 4 columns a thread) and K2
-    in host-array mode against their plain versions on the same device
-    tensors; the two entry points agree with each other."""
+    """K5 (a window of each problem's own band on K2's device code) and K2
+    in host-array mode (the warp path, and the wide path at Q = 1500 and
+    3000) against their plain versions on the same device tensors; the two
+    entry points agree with each other."""
     from bwa_tpu_torch.bench_kernel import ragged_problems
     from bwa_tpu_torch.ops import ksw_band, ksw_full
     from bwa_tpu_torch.ops.ksw_pallas import (device_rows, extend_band_pallas,
@@ -475,21 +477,81 @@ def test_k5_and_k2_arrays_match_plain(card, seed, n, q, t, zdrop, w_hi):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("kind", ["full", "band"])
-def test_k5_and_k2_arrays_raise_past_one_block(card, kind):
-    """A query row wider than one block holds (K5: QP > 4096) or a band
-    wider than K2 takes (P > 4096) raises on the card; nothing falls back
-    to the plain version."""
+def _entry_vs_plain(card, kind, problems, zdrop=100):
+    """K5 (kind "full") or K2's host-array mode ("band") on the card against
+    its plain version on the same device tensors, exactly; returns the
+    output and the band K2 took (None for K5)."""
     from bwa_tpu_torch.ops import ksw_band, ksw_full
+    from bwa_tpu_torch.ops.ksw_pallas import device_rows
 
-    n = 2
-    q = torch.full((n, 4224), 1, dtype=torch.uint8, device=card)
-    t = torch.full((n, 256), 1, dtype=torch.uint8, device=card)
-    v = torch.full((n,), 100, dtype=torch.int32, device=card)
-    rest = (np.eye(5, dtype=np.int32), 6, 1, 6, 1, 100)
-    with pytest.raises(ValueError):
-        if kind == "full":
-            ksw_full.ksw_full(q, t, v, v, v, v, *rest)
-        else:
-            ksw_band.ksw_band_arrays(q, t, v, v, v, v, *rest, 4224)
+    qs, qlens, ts, tlens, mat, ws, h0s = problems
+    q = qs.shape[1]
+    width = -(-(q + 1) // 128) * 128 if kind == "full" else q
+    d = device_rows(qs, qlens, ts, tlens, mat, 6, 1, 6, 1, ws, 5, h0s, width,
+                    card)
+    rest = (mat, 6, 1, 6, 1, zdrop)
+    if kind == "full":
+        n0 = ksw_full.launches
+        got = ksw_full.ksw_full(*d, *rest)
+        assert ksw_full.launches == n0 + 1
+        want = ksw_full.full_rows(*d, *rest)
+        P = None
+    else:
+        P = ksw_band._band_for(int(d[4].max()))
+        n0 = ksw_band.array_launches
+        got = ksw_band.ksw_band_arrays(*d, *rest, P)
+        assert ksw_band.array_launches == n0 + 1
+        want = ksw_band.ksw_band_arrays_plain(*d, *rest, P)
+    assert torch.equal(got.cpu(), want.cpu())
+    return got.cpu(), P
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,q,w,width", [
+    ("full", 4200, 100, 4224), ("full", 6000, 100, 6016),
+    ("full", 6000, 3000, 6016), ("full", 14000, 13050, 14080),
+    ("band", 4200, 2050, 4224), ("band", 4200, 2200, 4480),
+    ("band", 6000, 4090, 8192), ("band", 14000, 13250, 26624)])
+def test_k5_and_k2_arrays_match_plain_past_4096(card, kind, q, w, width):
+    """Past the widths the first kernels refused (QP > 4096 for K5, P > 4096
+    for K2): K5 at QP = 4224, 6016 (with windows of 256 and 6016 slots)
+    and 14080, K2's host-array mode at P = 4224, 4480, 8192 and 26624, the
+    last two windows (K5's 26,112 slots and K2's 26,624) wider than the
+    wide path's shared-memory ring, so they run from the global scratch
+    band; 300-row targets holding the query from their fourth base, 85%
+    of it, with z-drop off."""
+    from bwa_tpu_torch.bench_kernel import ragged_problems
+
+    p = ragged_problems(q + w, 5, q, 300, w + 1)
+    qs, qlens, ts, tlens, mat, ws, h0s = p
+    qlens[:] = q - np.arange(5)  # long queries, so w is not clamped below
+    tlens[:] = 300
+    ws[:] = w - np.arange(5) * 7
+    got, P = _entry_vs_plain(card, kind, (qs, qlens, ts, tlens, mat, ws,
+                                          h0s), zdrop=-1)
+    if kind == "band":
+        assert P == width
+    else:
+        assert -(-(q + 1) // 128) * 128 == width
+    assert int(got[:, 0].max()) > 100 and int(got[:, 6].max()) == 300
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("zdrop", [100, -1])
+def test_k5_mixed_windows_match_plain(card, zdrop):
+    """One K5 launch whose bands run from 1 to 1,200, so every window
+    class (128 to 1,024 slots on the warp path, wider on the wide path)
+    holds problems, some of them empty (qlen or tlen 0)."""
+    from bwa_tpu_torch.bench_kernel import ragged_problems
+    from bwa_tpu_torch.ops.ext_gather import band_clamp
+    from bwa_tpu_torch.ops.ksw_band import _band_for
+
+    qs, qlens, ts, tlens, mat, ws, h0s = ragged_problems(17, 96, 1400, 700)
+    ws[:] = np.linspace(1, 1200, 96).astype(np.int32)
+    qlens[::11] = 0
+    tlens[5::13] = 0
+    got, _ = _entry_vs_plain(card, "full", (qs, qlens, ts, tlens, mat, ws,
+                                            h0s), zdrop)
+    wc = band_clamp(qlens, ws, 1, 6, 1, 6, 1, 5)
+    assert len(set(np.minimum(_band_for(wc), 1152).tolist())) == 9
+    assert bool((got[:, 6] == 0).any())

@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from datagen import random_genome, write_fasta
+from test_torch_jax_native import jax_native
 
 # small tensors, several test workers per host: one torch thread each
 torch.set_num_threads(1)
@@ -19,6 +20,7 @@ torch.set_num_threads(1)
 def prefix(tmp_path_factory):
     from bwa_tpu.index.build import index_build
 
+    jax_native()  # built once, under a lock, before index_build
     d = tmp_path_factory.mktemp("torch_fm")
     fa = d / "g.fa"
     write_fasta(fa, random_genome(120_000, seed=31, n_contigs=2))

@@ -140,13 +140,13 @@ def test_warp_sweep_matches_band_rows(P, zdrop):
 
 
 @pytest.mark.parametrize("P,ok", [(16, False), (32, True), (100, False),
-                                  (1024, True), (1056, False), (1088, True),
-                                  (2112, False), (2176, True), (4096, True),
-                                  (4224, False)])
+                                  (1024, True), (1056, True), (1088, True),
+                                  (2112, True), (4224, True), (4480, True),
+                                  (26624, True), (0, False), (4100, False)])
 def test_check_band(P, ok):
-    """The bands K2 takes: multiples of 32 on the warp path (P <= 1024),
-    of 64 then 128 on the block path, up to K2_MAX_BAND; anything else
-    raises before a launch."""
+    """The bands K2 takes: every multiple of 32 from 32 on (the warp path
+    up to 1024 slots, the wide path above, with no upper limit); anything
+    else raises before a launch."""
     from bwa_tpu_torch.ops.ksw_band import check_band
 
     if ok:

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from datagen import random_genome, simulate_reads, write_fasta, write_fastq
+from test_torch_jax_native import jax_native
 
 # small tensors, several test workers per host: one torch thread each
 torch.set_num_threads(1)
@@ -16,13 +17,14 @@ torch.set_num_threads(1)
 def world(tmp_path_factory):
     from bwa_tpu.index.build import index_build
 
+    jax_native()  # built once, under a lock, before index_build
     d = tmp_path_factory.mktemp("torch_mem")
     g = random_genome(150_000, seed=7, n_contigs=2)
     write_fasta(d / "g.fa", g)
     return dict(prefix=index_build(str(d / "g.fa")), genome=g, dir=d)
 
 
-def _jax_sam(prefix, rs, mode):
+def _jax_sam(prefix, rs, mode, w=None):
     from bwa_tpu.engine import make_engine
     from bwa_tpu.index.fmindex import FMIndex
     from bwa_tpu.mem.pipeline import process_seqs
@@ -32,12 +34,14 @@ def _jax_sam(prefix, rs, mode):
     fm = FMIndex.load(prefix)
     opt = MemOptions()
     opt.apply_mode(mode)
+    if w is not None:
+        opt.w = w
     reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
     process_seqs(opt, make_engine(fm, "tpu"), fm, reads, 0, None, None)
     return "".join(r.sam for r in reads)
 
 
-def _torch_sam(prefix, rs, mode, device_ext=None):
+def _torch_sam(prefix, rs, mode, device_ext=None, w=None):
     from bwa_tpu_torch.engine import make_engine
     from bwa_tpu_torch.index.fmindex import FMIndex
     from bwa_tpu_torch.mem.pipeline import process_seqs
@@ -47,6 +51,8 @@ def _torch_sam(prefix, rs, mode, device_ext=None):
     fm = FMIndex.load(prefix)
     opt = MemOptions()
     opt.apply_mode(mode)
+    if w is not None:
+        opt.w = w
     reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
     process_seqs(opt, make_engine(fm, "cpu"), fm, reads, 0, None, None,
                  device_ext=device_ext)
@@ -164,7 +170,7 @@ def test_cli_mem_on_cpu(world):
 
 def test_device_extension_gate():
     """Auto sends a batch to the band kernel only from a CUDA engine, for
-    reads of 512 bp or more; a doubled band wider than K2 takes raises."""
+    reads of 512 bp or more, at every band width (K2 takes any band)."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -182,13 +188,61 @@ def test_device_extension_gate():
     assert not use_device_ext(opt, gpu, short)
     assert use_device_ext(opt, cpu, short, device_ext=True)
     assert not use_device_ext(opt, gpu, long_, device_ext=False)
-    opt.w = 1000  # the 2w retry band, P = 4096, is the widest K2 takes
+    opt.w = 1000  # the 2w retry band: P = 4096
     assert use_device_ext(opt, gpu, long_)
-    opt.w = 1100  # P = 4480
-    with pytest.raises(ValueError):
-        use_device_ext(opt, gpu, long_)
+    opt.w = 1100  # P = 2304, retry P = 4480
+    assert use_device_ext(opt, gpu, long_)
     assert not use_device_ext(opt, gpu, short)
     assert use_device_ext(opt, cpu, long_, device_ext=True)
+
+
+def _deletion_read(genome, name, seed, pre=1100, gap=860, post=1100):
+    """A read of `pre` bases, then the `post` bases that start `gap` bases
+    further on (a deletion of `gap` bases), 2% substitutions: a seed
+    extension crosses the deletion, so its best cell lies about `gap`
+    columns off the diagonal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(genome[0][1], np.uint8)
+    while True:
+        s = int(rng.integers(0, len(seq) - pre - gap - post))
+        r = np.concatenate([seq[s:s + pre], seq[s + pre + gap:
+                                                s + pre + gap + post]])
+        if not (r == ord("N")).any():
+            break
+    m = rng.random(len(r)) < 0.02
+    r[m] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(m.sum()))]
+    return name, r.tobytes(), b"I" * len(r)
+
+
+def test_mem_pacbio_w1100_device_extension_matches_jax(world):
+    """-x pacbio -w 1100 with the seed extensions on the device path: the
+    port's plain band DP at P = 2304 and, for the band-doubling retry of
+    the extensions that cross an 860-base deletion (max_off >= 825), at
+    P = 4480, past the 4,096 slots the first K2 took; 700 bp reads and two
+    2,200 bp reads with the deletion give bwa_tpu's SAM bytes."""
+    from bwa_tpu_torch.ops import ext_gather
+
+    rs = simulate_reads(world["genome"], 2, read_len=700, seed=43,
+                        err_rate=0.05, indel_rate=0.03) \
+        + [_deletion_read(world["genome"], f"del{k}", 47 + k)
+           for k in range(2)]
+    live = {}
+    real = ext_gather.ksw_band_side
+
+    def side(*a):
+        live[a[-1]] = live.get(a[-1], 0) + int((a[8] > 0).sum())
+        return real(*a)
+
+    ext_gather.ksw_band_side = side
+    try:
+        got = _torch_sam(world["prefix"], rs, "pacbio", device_ext=True,
+                         w=1100)
+    finally:
+        ext_gather.ksw_band_side = real
+    assert live.get(2304) and live.get(4480)  # live jobs at both bands
+    assert got == _jax_sam(world["prefix"], rs, "pacbio", w=1100)
 
 
 def test_unported_modes_raise(world):

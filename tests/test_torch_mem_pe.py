@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from datagen import random_genome, simulate_reads, write_fasta, write_fastq
+from test_torch_jax_native import jax_native
 
 # small tensors, several test workers per host: one torch thread each
 torch.set_num_threads(1)
@@ -18,6 +19,7 @@ torch.set_num_threads(1)
 def world(tmp_path_factory):
     from bwa_tpu.index.build import index_build
 
+    jax_native()  # built once, under a lock, before index_build
     d = tmp_path_factory.mktemp("torch_mem_pe")
     g = random_genome(150_000, seed=7, n_contigs=2)
     write_fasta(d / "g.fa", g)

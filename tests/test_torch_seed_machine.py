@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from datagen import random_genome, simulate_reads, write_fasta
+from test_torch_jax_native import jax_native
 
 # small tensors, several test workers per host: one torch thread each
 torch.set_num_threads(1)
@@ -23,6 +24,7 @@ def world(tmp_path_factory):
     from bwa_tpu_torch.index.fmindex import FMIndex, DeviceFMIndex
     from bwa_tpu_torch.index.pack import NT4_TABLE
 
+    jax_native()  # built once, under a lock, before index_build
     d = tmp_path_factory.mktemp("torch_seed")
     g = random_genome(150_000, seed=41, n_contigs=2)
     write_fasta(d / "g.fa", g)
