@@ -2,9 +2,16 @@
 
     python -m bwa_tpu_torch.cli index [-p prefix] <in.fasta>
     python -m bwa_tpu_torch.cli mem [options] [--device cuda|cpu] <idx> <in.fq> [in2.fq]
+    python -m bwa_tpu_torch.cli aln [options] [--device cuda|cpu] <idx> <in.fq>
+    python -m bwa_tpu_torch.cli samse [options] <idx> <in.sai> <in.fq>
+    python -m bwa_tpu_torch.cli sampe [options] <idx> <1.sai> <2.sai>
+                                      <1.fq> <2.fq>
 
 mem runs single-end reads, paired-end reads from two files, or (-p)
-interleaved pairs; the device defaults to the CUDA card.
+interleaved pairs; the device defaults to the CUDA card.  aln searches
+with the native C++ search by default; BWA_TPU_ALN=device runs the gap
+machine on the device (kernel K7 on the card, its plain version under
+--device cpu).
 """
 
 from __future__ import annotations
@@ -241,6 +248,135 @@ def main_index(argv: list[str]) -> int:
     return 0
 
 
+def main_aln(argv: list[str], out_fp_override=None) -> int:
+    import getopt as getopt_mod
+
+    from bwa_tpu_torch.aln.driver import aln_core
+    from bwa_tpu_torch.aln.opts import (BWA_MODE_BAM, BWA_MODE_BAM_READ1,
+                                        BWA_MODE_BAM_READ2, BWA_MODE_BAM_SE,
+                                        BWA_MODE_CFY, BWA_MODE_GAPE,
+                                        BWA_MODE_IL13, BWA_MODE_LOGGAP,
+                                        BWA_MODE_NONSTOP, GapOpt)
+
+    argv, device = _pop_device(argv)
+    opt = GapOpt()
+    opte = -1
+    out_fp = sys.stdout.buffer
+    opts, args = getopt_mod.getopt(argv, "n:o:e:i:d:l:k:LR:m:t:NM:O:E:q:f:b012IYB:")
+    for c, a in opts:
+        c = c[1:]
+        if c == "n":
+            if "." in a:
+                opt.fnr = float(a)
+                opt.max_diff = -1
+            else:
+                opt.max_diff = int(a)
+                opt.fnr = -1.0
+        elif c == "o": opt.max_gapo = int(a)
+        elif c == "e": opte = int(a)
+        elif c == "M": opt.s_mm = int(a)
+        elif c == "O": opt.s_gapo = int(a)
+        elif c == "E": opt.s_gape = int(a)
+        elif c == "d": opt.max_del_occ = int(a)
+        elif c == "i": opt.indel_end_skip = int(a)
+        elif c == "l": opt.seed_len = int(a)
+        elif c == "k": opt.max_seed_diff = int(a)
+        elif c == "m": opt.max_entries = int(a)
+        elif c == "t": opt.n_threads = int(a)
+        elif c == "L": opt.mode |= BWA_MODE_LOGGAP
+        elif c == "R": opt.max_top2 = int(a)
+        elif c == "q": opt.trim_qual = int(a)
+        elif c == "N":
+            opt.mode |= BWA_MODE_NONSTOP
+            opt.max_top2 = 0x7FFFFFFF
+        elif c == "f": out_fp = open(a, "wb")
+        elif c == "b": opt.mode |= BWA_MODE_BAM
+        elif c == "0": opt.mode |= BWA_MODE_BAM_SE
+        elif c == "1": opt.mode |= BWA_MODE_BAM_READ1
+        elif c == "2": opt.mode |= BWA_MODE_BAM_READ2
+        elif c == "I": opt.mode |= BWA_MODE_IL13
+        elif c == "Y": opt.mode |= BWA_MODE_CFY
+        elif c == "B": opt.mode |= int(a) << 24
+    if opte > 0:
+        opt.max_gape = opte
+        opt.mode &= ~BWA_MODE_GAPE
+    if len(args) < 2:
+        print("Usage: python -m bwa_tpu_torch.cli aln [options] "
+              "[--device cuda|cpu] <prefix> <in.fq>", file=sys.stderr)
+        return 1
+    opened_out = out_fp is not sys.stdout.buffer
+    if out_fp_override is not None and not opened_out:
+        out_fp = getattr(out_fp_override, "buffer", out_fp_override)
+    aln_core(args[0], args[1], opt, out_fp, device=device)
+    if opened_out:
+        out_fp.close()
+    return 0
+
+
+def main_samse(argv: list[str], out_fp_override=None) -> int:
+    import getopt as getopt_mod
+
+    from bwa_tpu_torch.aln.driver import samse_core
+
+    n_occ = 3
+    rg_id = rg_line = None
+    out = sys.stdout
+    opts, args = getopt_mod.getopt(argv, "hn:f:r:")
+    for c, a in opts:
+        if c == "-n": n_occ = int(a)
+        elif c == "-f": out = open(a, "w")
+        elif c == "-r":
+            rg_line = _escape(a)
+            rg_id = rg_line.split("\tID:")[1].split("\t")[0].split("\n")[0]
+    if len(args) < 3:
+        print("Usage: python -m bwa_tpu_torch.cli samse [-n max_occ] "
+              "<prefix> <in.sai> <in.fq>", file=sys.stderr)
+        return 1
+    opened_out = out is not sys.stdout
+    if out_fp_override is not None and not opened_out:
+        out = out_fp_override
+    samse_core(args[0], args[1], args[2], n_occ, rg_id, rg_line, out)
+    if opened_out:
+        out.close()
+    return 0
+
+
+def main_sampe(argv: list[str], out_fp_override=None) -> int:
+    import getopt as getopt_mod
+
+    from bwa_tpu_torch.aln.opts import PEOpt
+    from bwa_tpu_torch.aln.sampe import sampe_core
+
+    popt = PEOpt()
+    rg_id = rg_line = None
+    out = sys.stdout
+    opts, args = getopt_mod.getopt(argv, "a:o:sPn:N:c:f:Ar:")
+    for c, a in opts:
+        if c == "-a": popt.max_isize = int(a)
+        elif c == "-o": popt.max_occ = int(a)
+        elif c == "-s": popt.is_sw = 0
+        elif c == "-P": popt.is_preload = 1
+        elif c == "-n": popt.n_multi = int(a)
+        elif c == "-N": popt.N_multi = int(a)
+        elif c == "-c": popt.ap_prior = float(a)
+        elif c == "-f": out = open(a, "w")
+        elif c == "-A": popt.force_isize = 1
+        elif c == "-r":
+            rg_line = _escape(a)
+            rg_id = rg_line.split("\tID:")[1].split("\t")[0].split("\n")[0]
+    if len(args) < 5:
+        print("Usage: python -m bwa_tpu_torch.cli sampe [options] <prefix> "
+              "<in1.sai> <in2.sai> <in1.fq> <in2.fq>", file=sys.stderr)
+        return 1
+    opened_out = out is not sys.stdout
+    if out_fp_override is not None and not opened_out:
+        out = out_fp_override
+    sampe_core(args[0], args[1:3], args[3:5], popt, rg_id, rg_line, out)
+    if opened_out:
+        out.close()
+    return 0
+
+
 def main(argv=None, out_fp=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
@@ -249,7 +385,10 @@ def main(argv=None, out_fp=None) -> int:
               f"Usage:   python -m bwa_tpu_torch.cli <command> [options]\n\n"
               f"Command: index     index sequences in the FASTA format\n"
               f"         mem       BWA-MEM algorithm (single-end, "
-              f"paired-end, -p interleaved)\n",
+              f"paired-end, -p interleaved)\n"
+              f"         aln       gapped/ungapped alignment\n"
+              f"         samse     generate alignment (single ended)\n"
+              f"         sampe     generate alignment (paired ended)\n",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
@@ -257,6 +396,12 @@ def main(argv=None, out_fp=None) -> int:
         return main_mem(rest, out_fp=out_fp)
     if cmd == "index":
         return main_index(rest)
+    if cmd == "aln":
+        return main_aln(rest, out_fp_override=out_fp)
+    if cmd == "samse":
+        return main_samse(rest, out_fp_override=out_fp)
+    if cmd == "sampe":
+        return main_sampe(rest, out_fp_override=out_fp)
     print(f"[main] unrecognized command '{cmd}'", file=sys.stderr)
     return 1
 

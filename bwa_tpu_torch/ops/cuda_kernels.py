@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("seed_machine.cu", "ksw_band.cu", "ksw_full.cu")
+SOURCES = ("seed_machine.cu", "ksw_band.cu", "ksw_full.cu", "gap_machine.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -99,6 +99,14 @@ def _bind(libs) -> None:
     f.argtypes = [vp, i32, vp, i64, vp, vp, vp, vp, vp,
                   i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, vp, i64,
                   vp, vp]
+    f = libs["gap_machine.cu"].bwa_cal_width
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp]
+    f = libs["gap_machine.cu"].bwa_gap_machine
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp,
+                  vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp,
+                  vp, vp, vp, vp, vp, vp, vp, vp]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -187,3 +195,38 @@ def ksw_full(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins, e_ins,
         int(zdrop), n, _ptr(perm), _ptr(pw), ctypes.cast(cnt, ctypes.c_void_p),
         int(p_wide), *_scratch(scratch), _ptr(out), _stream(qs))
     _check(rc, "ksw_full")
+
+
+def cal_width(occtab, L2, primary, seq_len, q, out) -> None:
+    """Launch K7w (csrc/gap_machine.cu, q [B, L] uint8 codes, out [B, L, 2]
+    coordinates) on the current stream."""
+    lib = build_all()["gap_machine.cu"]
+    B, L = q.shape
+    rc = lib.bwa_cal_width(
+        int(out.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
+        _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(out),
+        _stream(q))
+    _check(rc, "cal_width")
+
+
+def gap_machine(occtab, L2, primary, seq_len, q, qlen, md, mg, seed_en, sb,
+                wb, active, scal, max_steps, cap, cap_a, use_seed, f_gape,
+                f_nonstop, f_loggap, heads, pool, aln_m, aln_kl, n_aln, n_stk,
+                done_step, n_occ, ovf, steps) -> None:
+    """Launch K7 (csrc/gap_machine.cu) on the current stream; scal: the
+    ten integer options (host ints); the stack scratch: heads [B, nb] (one
+    list a score) and pool [B, cap, 12 or 16] int32 (a record a slot)."""
+    lib = build_all()["gap_machine.cu"]
+    B, L = q.shape
+    sc = (ctypes.c_int32 * 10)(*scal)
+    flags = int(f_gape) | int(f_nonstop) << 1 | int(f_loggap) << 2 \
+        | int(use_seed) << 3
+    rc = lib.bwa_gap_machine(
+        int(wb.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
+        _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(qlen),
+        _ptr(md), _ptr(mg), _ptr(seed_en), _ptr(sb), sb.shape[1], _ptr(wb),
+        _ptr(active), ctypes.cast(sc, ctypes.c_void_p), int(max_steps),
+        int(cap), int(cap_a), heads.shape[1], flags, _ptr(heads), _ptr(pool),
+        _ptr(aln_m), _ptr(aln_kl), _ptr(n_aln), _ptr(n_stk), _ptr(done_step),
+        _ptr(n_occ), _ptr(ovf), _ptr(steps), _stream(q))
+    _check(rc, "gap_machine")

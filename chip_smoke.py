@@ -2,8 +2,11 @@
 """Quickest proof that bwa_tpu_torch runs on a CUDA card.
 
     python3 chip_smoke.py [--log DIR]
+    python3 chip_smoke.py --aln-chunk
 
-Run from the repository root on a machine with one CUDA card.  In order:
+Run from the repository root on a machine with one CUDA card.  With
+--aln-chunk it only runs one whole `aln` chunk on the card (aln_chunk_main).
+Without, in order:
   1. builds the hand-written kernels (csrc/*.cu, nvcc sm_90a, in parallel)
      and the native library;
   2. makes a 4,641,652 bp genome (the size of E. coli K-12 MG1655) from a
@@ -31,6 +34,15 @@ Run from the repository root on a machine with one CUDA card.  In order:
      band-doubling retry) with -x pacbio -w 1100 (K2's wide path, P = 2304
      and 4480), whose SAM must equal the same reads' SAM with host
      extension on the card;
+  4b. makes 65,536 x 100 bp SE reads (2% substitutions, 0.1% indels) and
+     16,384 pairs of 100 bp reads (insert 350 +- 40) and runs `aln` on
+     each FASTQ through the CLI with the default native search and with
+     BWA_TPU_ALN=device (K7w and K7 on the card; the two .sai files must
+     be equal byte for byte), then samse (90% of the reads mapped) and
+     sampe (90% of the pairs properly paired) on the device .sai files;
+     meanwhile a subprocess runs 256 of the SE reads with caps 8, 16,
+     cap_a 2 and 120 steps (every rung and the host-spec fallback), whose
+     .sai must equal the native search's;
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
      its three shapes (K2 host-array mode and K5, launches counted), and
      past the widths the first kernels refused (K5 at QP = 6016 with
@@ -41,12 +53,20 @@ Run from the repository root on a machine with one CUDA card.  In order:
      all their rows (and times both; K1 on seeds, seed_n, ovf, done_step and
      steps), every other call on a subset of its lanes or jobs (rows are
      independent, so the subset keeps the call's width, caps and band), and
-     K5 and K2's host-array mode at each of bench_kernel's shapes; prints
-     each K1 launch's event time with its longest lane's steps and ns a
-     step, each K2 launch's event time with its P, n, the longest
-     problem's rows and ns a row (and the same for K2's host-array mode at
-     bench_kernel's shapes), the kernel table, the card's name and power
-     limit, and finally {"ok": true, "device": {...}}.
+     K5 and K2's host-array mode at each of bench_kernel's shapes; holds
+     K7's first launch (on 256 of its lanes and its longest) and every K7w
+     launch (256 lanes and the last) to the plain versions on the card,
+     and the first launch of K7's second rung (cap 8192; 32 of its lanes
+     and its longest) to the plain version on the host meanwhile;
+     prints each K7 launch's event ms, cap, lanes, longest lane's steps
+     and ns a step, the device and native search seconds, the kernels'
+     share of the device search's wall and the reads that fell back to
+     the host spec; prints each K1 launch's event time with its longest
+     lane's steps and ns a step, each K2 launch's event time with its P,
+     n, the longest problem's rows and ns a row (and the same for K2's
+     host-array mode at bench_kernel's shapes), the kernel table, the
+     card's name and power limit, and finally {"ok": true, "device":
+     {...}}.
 Any failure exits non-zero before the last line.
 """
 
@@ -62,6 +82,9 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+# reads of the aln_ladder phase: each falls back to the Python spec (about
+# 27 ms a read); 256 drive both rungs and the fallback
+LADDER_READS = 256
 GENOME_LEN = 4_641_652
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate (data sheet)
@@ -582,18 +605,20 @@ def check_pe_sam(sam: str, n_pairs: int) -> float:
 
 
 def zero_launches():
-    from bwa_tpu_torch.ops import fm_machine, ksw_band, ksw_full
+    from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
 
     fm_machine.launches = ksw_band.launches = 0
     ksw_band.array_launches = ksw_full.launches = 0
+    gap_machine.launches = gap_machine.width_launches = 0
 
 
 def read_launches() -> dict:
-    from bwa_tpu_torch.ops import fm_machine, ksw_band, ksw_full
+    from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
 
     return {"K1": fm_machine.launches, "K2": ksw_band.launches,
             "K2 host-array": ksw_band.array_launches,
-            "K5": ksw_full.launches}
+            "K5": ksw_full.launches, "K7": gap_machine.launches,
+            "K7w": gap_machine.width_launches}
 
 
 def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
@@ -738,6 +763,463 @@ def entry_wide():
     if [r["P"] for r in out[2:]] != [4480, 8192]:
         fail(f"kernel entry past 4096: bands {[r['P'] for r in out]}")
     return out
+
+
+# --------------------------------------------------------------------------
+# aln (BWA-backtrack)
+# --------------------------------------------------------------------------
+
+class Counter:
+    """Stands in for a function the aln path calls and counts the calls."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.real = mod, name, getattr(mod, name)
+        self.n = 0
+        setattr(mod, name, self)
+
+    def __call__(self, *args, **kw):
+        self.n += 1
+        return self.real(*args, **kw)
+
+    def restore(self):
+        setattr(self.mod, self.name, self.real)
+
+
+def run_aln(prefix, fq, device: bool):
+    """`aln` through the CLI on the card: the default native search, or
+    with device=True the device search (BWA_TPU_ALN=device: K7w and K7).
+    Returns (.sai bytes, seconds)."""
+    import torch
+
+    from bwa_tpu_torch.cli import main as cli_main
+
+    os.environ.pop("BWA_TPU_ALN", None)
+    if device:
+        os.environ["BWA_TPU_ALN"] = "device"
+    out = io.BytesIO()
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(["aln", "--device", "cuda", str(prefix), str(fq)],
+                      out_fp=out)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        os.environ.pop("BWA_TPU_ALN", None)
+    if rc != 0:
+        fail(f"aln {'device' if device else 'native'} exited {rc}")
+    return out.getvalue(), dt
+
+
+def run_sam(args) -> tuple[str, float]:
+    """samse or sampe through the CLI: (SAM text, seconds)."""
+    from bwa_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli_main([str(a) for a in args], out_fp=out)
+    if rc != 0:
+        fail(f"{args[0]} exited {rc}")
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def aln_phase(d, prefix, phase, fqs, recs, fallback):
+    """Each FASTQ through `aln` with the native search and with the device
+    search (kernel launches counted and timed; .sai bytes must be equal),
+    then samse (one FASTQ: 90% of the reads mapped) or sampe (two: 90% of
+    the pairs properly paired) on the device .sai files."""
+    n_reads = 0
+    info = dict(phase=phase, native_s=0.0, device_s=0.0, fallback_reads=0,
+                launches={}, kernel_event_ms={})
+    for r in recs.values():
+        r.events = []
+        r.phase = phase
+    sais = []
+    for fq in fqs:
+        n_reads += sum(1 for _ in open(fq)) // 4
+        nat, t_nat = run_aln(prefix, fq, False)
+        zero_launches()
+        fb0 = fallback.n
+        dev, t_dev = run_aln(prefix, fq, True)
+        for k, v in read_launches().items():
+            info["launches"][k] = info["launches"].get(k, 0) + v
+        info["fallback_reads"] += fallback.n - fb0
+        info["native_s"] += t_nat
+        info["device_s"] += t_dev
+        if dev != nat:
+            fail(f"{phase}: the device search's .sai of {fq.name} differs "
+                 f"from the native search's")
+        sai = d / f"{fq.stem}.sai"
+        sai.write_bytes(dev)
+        sais.append(sai)
+    info["kernel_event_ms"] = {k: r.take_ms() for k, r in recs.items()}
+    info["kernel_share_of_device_wall"] = (
+        sum(info["kernel_event_ms"].values()) / 1e3 / info["device_s"])
+    info.update(reads=n_reads, sai_equal_native=True,
+                device_reads_per_s=n_reads / info["device_s"],
+                native_reads_per_s=n_reads / info["native_s"])
+    if len(fqs) == 1:
+        sam, info["samse_s"] = run_sam(["samse", prefix, sais[0], fqs[0]])
+        check_sam(sam, n_reads)
+    else:
+        sam, info["sampe_s"] = run_sam(["sampe", prefix, *sais, *fqs])
+        info["proper_pair_share"] = check_pe_sam(sam, n_reads // 2)
+    for name in ("K7", "K7w"):
+        if info["launches"].get(name, 0) < 1:
+            fail(f"{phase}: kernel {name} was not launched")
+    log(f"aln phase {info}")
+    return info
+
+
+def start_aln_ladder(d: Path, prefix, reads):
+    """The ladder phase in a subprocess (its host-spec fallback is Python,
+    about 27 ms a read): `aln` with BWA_TPU_ALN=device and caps 8, 16, cap_a
+    2 and 120 steps, so that every rung and the fallback run.  Returns the
+    job for wait_aln_ladder."""
+    fq = d / "aln_ladder.fq"
+    write_fastq(fq, reads)
+    out = d / "aln_ladder.json"
+    err = open(d / "aln_ladder.log", "w")
+    env = dict(os.environ, OMP_NUM_THREADS="1", BWA_TPU_ALN="device",
+               BWA_TPU_ALN_CAPS="8,16", BWA_TPU_ALN_CAPA="2",
+               BWA_TPU_ALN_MAX_STEPS="120")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--aln-ladder",
+         str(prefix), str(fq), str(out)], cwd=REPO, env=env, stdout=err,
+        stderr=subprocess.STDOUT)
+    took = {}
+    threading.Thread(target=lambda: took.setdefault(
+        "s", (proc.wait(), time.perf_counter() - t0)[1]), daemon=True).start()
+    return proc, err, fq, out, took
+
+
+def aln_ladder_main(prefix: str, fq: str, out: str) -> int:
+    """Subprocess of start_aln_ladder: the device search with each rung's
+    lanes and overflows and the fallback counted; writes the .sai and the
+    counts."""
+    import torch
+
+    from bwa_tpu_torch.aln import batch_search
+    from bwa_tpu_torch.ops import gap_machine
+
+    rungs = []
+    real = batch_search._run_lanes
+
+    def run_lanes(*a, **k):
+        res = real(*a, **k)
+        rungs.append(dict(cap=a[7], cap_a=a[8], lanes=len(a[2]),
+                          overflow=int(res[2].sum())))
+        return res
+
+    batch_search._run_lanes = run_lanes
+    fallback = Counter(batch_search, "_host_fallback")
+    sai, secs = run_aln(prefix, fq, True)
+    Path(out).with_suffix(".sai").write_bytes(sai)
+    Path(out).write_text(json.dumps(dict(
+        rungs=rungs, fallback_reads=fallback.n, seconds=secs,
+        k7_launches=gap_machine.launches,
+        k7w_launches=gap_machine.width_launches,
+        device=torch.cuda.get_device_name(0))))
+    return 0
+
+
+def wait_aln_ladder(job, prefix):
+    """The ladder subprocess's counts, its .sai held to the native search's
+    of the same reads."""
+    proc, err, fq, out, took = job
+    if proc.wait() != 0:
+        fail(f"aln_ladder exited {proc.returncode} (see {err.name})")
+    while "s" not in took:
+        time.sleep(0.01)
+    res = json.loads(out.read_text())
+    nat, _ = run_aln(prefix, fq, False)
+    if out.with_suffix(".sai").read_bytes() != nat:
+        fail("aln_ladder: the .sai differs from the native search's")
+    if len(res["rungs"]) != 2 or not res["fallback_reads"] \
+            or not res["rungs"][1]["overflow"]:
+        fail(f"aln_ladder did not drive both rungs and the fallback: {res}")
+    res.update(phase="aln_ladder", sai_equal_native=True,
+               wall_s=took["s"])
+    log(f"aln phase {res}")
+    return res
+
+
+def aln_chunk_main() -> int:
+    """One whole `aln` chunk (0x40000 = 262,144 reads of 100 bp, made as
+    aln_se_100bp's) through the CLI with the device search and then the
+    native one: the .sai files must be equal.  Prints one JSON line: both
+    walls, each K7 launch's cap, lanes, event ms and longest lane's steps,
+    and the peak of the card's memory that PyTorch's allocator held
+    during the device run (allocated and reserved), beside the card's
+    name and power limit."""
+    import torch
+
+    from bwa_tpu_torch.native.build import get_lib
+    from bwa_tpu_torch.ops import cuda_kernels, gap_machine
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    get_lib()
+    cuda_kernels.build_all()
+    d = REPO / "build" / "smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    fa, codes = make_genome(d)
+    reads, _ = simulate(codes, 0x40000, 100, SEED + 12, 0.02, 0.001, "c")
+    fq = d / "aln_chunk.fq"
+    write_fastq(fq, reads)
+    real, calls = gap_machine.gap_machine, []
+
+    def timed(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **k)
+        e1.record()
+        calls.append((k["cap"], int(a[1].shape[0]), e0, e1, out["steps"]))
+        return out
+
+    gap_machine.gap_machine = timed
+    torch.cuda.reset_peak_memory_stats()
+    dev, t_dev = run_aln(str(fa), fq, True)
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    gap_machine.gap_machine = real
+    nat, t_nat = run_aln(str(fa), fq, False)
+    if dev != nat:
+        fail("aln_chunk: the device search's .sai differs from the native "
+             "search's")
+    print(json.dumps(dict(
+        phase="aln_chunk", reads=len(reads), device_s=t_dev, native_s=t_nat,
+        sai_equal_native=True, peak_allocated_bytes=peak[0],
+        peak_reserved_bytes=peak[1],
+        k7_launches=[dict(cap=c, lanes=n, event_ms=e0.elapsed_time(e1),
+                          longest_lane_steps=int(st))
+                     for c, n, e0, e1, st in calls],
+        card=card.strip())), flush=True)
+    return 0
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k7_lanes(n, longest, count=256):
+    """count lanes spread over a launch of n, and the longest lane."""
+    import numpy as np
+
+    return sorted(set(np.linspace(0, n - 1, min(n, count)).astype(int)
+                      .tolist()) | {int(longest)})
+
+
+def k7_steps(out, max_steps):
+    """Per-lane steps of a K7 launch (a lane not done ran max_steps)."""
+    import torch
+
+    ds = out["done_step"].to(torch.int64)
+    return torch.where(ds > 0, ds, torch.full_like(ds, max_steps))
+
+
+K7_KEYS = ("aln_m", "aln_kl", "n_aln", "n_stk", "ovf", "done_step", "n_occ",
+           "steps")
+
+
+def plain_kw(kw):
+    """A recorded K7 call's keywords less the kernel's own (n_lists)."""
+    return {k: v for k, v in kw.items() if k != "n_lists"}
+
+
+def k7_subset(args, kw, count):
+    """Recorded K7 call (args, kw) on the card on all its lanes, and on
+    count lanes spread over it plus its longest: (full outputs, lanes,
+    the subset's arguments, the kernel's outputs on the subset alone)."""
+    import torch
+
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    full = gm.gap_machine(*args, **kw)
+    steps = k7_steps(full, kw["max_steps"])
+    rows = k7_lanes(steps.numel(), int(steps.argmax()), count)
+    r = torch.as_tensor(rows, device=args[1].device)
+    sub = [args[0]] + [a[r] for a in args[1:9]] + [args[9]]
+    return full, r, sub, gm.gap_machine(*sub, **kw)
+
+
+def k7_equal(got, want, full, r):
+    """Every K7 output of the subset launch equal to the plain version's
+    and (per lane) to the full launch's: (equal, max abs difference)."""
+    import torch
+
+    equal = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in K7_KEYS) \
+        and all(torch.equal(got[k], full[k][r]) for k in K7_KEYS[:-1])
+    err = max(int((got[k].cpu().to(torch.int64)
+                   - want[k].cpu().to(torch.int64)).abs().max())
+              for k in K7_KEYS)
+    return equal, err
+
+
+def start_k7_host_plain(d: Path, rec):
+    """The first launch of the second rung (the lanes that overflowed cap
+    1024, at cap 8192) on 32 of its lanes plus its longest, held to the
+    plain version on the host in a subprocess that sees no card (it takes
+    as many steps as that lane) while the other checks run.  Returns the
+    job for wait_k7_host_plain."""
+    import torch
+
+    i = next((i for i, (_, _, k) in enumerate(rec.calls)
+              if k["cap"] != rec.calls[0][2]["cap"]), None)
+    if i is None:
+        fail("no K7 launch of the second rung on the main path")
+    ph, args, kw = rec.calls[i]
+    full, r, sub, got = k7_subset(args, kw, 32)
+    idx = {k: (v.cpu() if torch.is_tensor(v) else v)
+           for k, v in args[0].items()}
+    inp, out = d / "k7_host.pt", d / "k7_host_plain.pt"
+    torch.save(dict(idx=idx, args=[a.cpu() for a in sub[1:9]],
+                    scal=sub[9], kw=plain_kw(kw)), inp)
+    err = open(d / "k7_host.log", "w")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--k7-plain",
+         str(inp), str(out)], cwd=REPO, env=env, stdout=err,
+        stderr=subprocess.STDOUT)
+    took = {}
+    threading.Thread(target=lambda: took.setdefault(
+        "s", (proc.wait(), time.perf_counter() - t0)[1]), daemon=True).start()
+    info = dict(phase=ph, call=i, cap=kw["cap"], cap_a=kw["cap_a"],
+                launch_lanes=int(args[1].shape[0]), lanes=len(r),
+                longest_lane_steps=int(full["steps"][0]),
+                checked_lanes_steps=int(got["steps"][0]))
+    return proc, err, out, took, (got, full, r), info
+
+
+def k7_plain_host(inp: str, out: str) -> int:
+    """Subprocess of start_k7_host_plain: the plain version on the host."""
+    import torch
+
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    torch.set_num_threads(1)
+    a = torch.load(inp, weights_only=False)
+    res = gm.gap_machine_plain(a["idx"], *a["args"], a["scal"], **a["kw"])
+    torch.save(res, out)
+    return 0
+
+
+def wait_k7_host_plain(job):
+    """The host plain version's outputs held to the kernel's."""
+    import torch
+
+    proc, err, out, took, (got, full, r), info = job
+    if proc.wait() != 0:
+        fail(f"K7 host plain version exited {proc.returncode} (see "
+             f"{err.name})")
+    while "s" not in took:
+        time.sleep(0.01)
+    want = torch.load(out)
+    equal, e = k7_equal(got, want, full, r)
+    info.update(equal=equal, err=e, plain_host_s=took["s"])
+    log(f"K7 second rung {info}")
+    if not equal:
+        fail(f"K7 disagrees with its plain version at the second rung: "
+             f"{info}")
+    return info
+
+
+def time_k7(rec, reps=3):
+    """K7 at the main path's first launch (aln_se_100bp, the first rung):
+    its time over reps launches on all lanes, and 256 lanes plus the
+    longest held to the plain version (on the card) with the launch's
+    caps and flags, and to the full launch's own outputs on those lanes;
+    with the work a bound counts; and every launch's event ms."""
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    ph, args, kw = rec.calls[0]
+    full, r, sub, got = k7_subset(args, kw, 256)
+    ms = cuda_time(lambda: gm.gap_machine(*args, **kw), reps)
+    want, plain_ms = timed_once(
+        lambda: gm.gap_machine_plain(*sub, **plain_kw(kw)))
+    equal, err = k7_equal(got, want, full, r)
+    occ = args[0]["occtab"]
+    nw = occ.shape[1] - 4
+    lane_steps = int(k7_steps(full, kw["max_steps"]).sum())
+    occ_pairs = int(full["n_occ"].sum())
+    longest = int(full["steps"][0])
+    # each input read once (the occtab whole) and each output written
+    # once; a step pops and tests an entry (about 40 integer ops), and a
+    # walk or expansion step (n_occ) also looks up an occ4 pair (about 12
+    # ops a text word over nw/2 + 1 words each) and pushes or walks
+    # (about 80 more)
+    nbytes = tensor_bytes(occ, *args[1:9], *full.values())
+    ops = lane_steps * 40 + occ_pairs * (2 * 12 * (nw / 2 + 1) + 80)
+    res = dict(phase=ph, ms=ms, plain_ms=plain_ms, equal=bool(equal),
+               err=err, shape=f"B={args[1].shape[0]} L={args[1].shape[1]} "
+                              f"cap={kw['cap']} cap_a={kw['cap_a']}",
+               plain_shape=f"{len(r)} of the launch's lanes",
+               lane_steps=lane_steps, occ_pair_steps=occ_pairs,
+               longest_lane_steps=longest,
+               checked_lanes_steps=int(got["steps"][0]),
+               ns_per_step=per_unit(ms, longest), bytes=int(nbytes),
+               ops=float(ops),
+               overflow_lanes=int(full["ovf"].sum()))
+    launches = []
+    for i, (ph_i, a, k) in enumerate(rec.calls):
+        ms_i, top = rec.call_ms[i], int(rec.kept[i])
+        launches.append(dict(phase=ph_i, call=i, cap=k["cap"],
+                             cap_a=k["cap_a"], lanes=int(a[1].shape[0]),
+                             event_ms=ms_i, longest_lane_steps=top,
+                             ns_per_step=per_unit(ms_i, top)))
+        log(f"K7 launch {launches[-1]}")
+    res["launches_on_main_path"] = launches
+    log(f"K7 timed {res}")
+    if not equal:
+        fail(f"K7 disagrees with its plain version: {res['shape']}")
+    return res
+
+
+def time_k7w(rec, reps=5):
+    """K7w: every recorded launch on 256 of its lanes plus its last held
+    to the plain version; the first launch timed on all its lanes."""
+    import torch
+
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    checked, err = [], 0
+    for i, (ph, args, kw) in enumerate(rec.calls):
+        idx, q = args
+        r = torch.as_tensor(k7_lanes(q.shape[0], q.shape[0] - 1),
+                            device=q.device)
+        got = gm.cal_width(idx, q[r])
+        want = gm.cal_width_plain(idx, q[r])
+        ok = torch.equal(got, want)
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()))
+        checked.append(dict(phase=ph, call=i, lanes=len(r), equal=ok,
+                            event_ms=rec.call_ms[i]))
+        if not ok:
+            fail(f"K7w disagrees with its plain version at call {i}")
+    _, args, _ = rec.calls[0]
+    idx, q = args
+    ms = cuda_time(lambda: gm.cal_width(idx, q), reps)
+    _, plain_ms = timed_once(lambda: gm.cal_width_plain(idx, q))
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    pos = q.numel()
+    good = int((q < 4).sum())
+    # the occtab, the codes and the table, each once; a position: about
+    # 12 ops, and a base (code < 4; padding and N reset the interval) an
+    # occ4 pair as well (about 12 ops a text word over nw/2 + 1 words each)
+    nbytes = tensor_bytes(occ, q) + pos * 2 * \
+        (8 if idx["cdt"] == torch.int64 else 4)
+    ops = pos * 12 + good * 2 * 12 * (nw / 2 + 1)
+    res = dict(ms=ms, plain_ms=plain_ms, equal=True, err=err,
+               shape=f"B={q.shape[0]} L={q.shape[1]}", bytes=int(nbytes),
+               ops=float(ops), occ_pair_positions=good, calls=checked)
+    log(f"K7w timed {res}")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1103,6 +1585,12 @@ def bound(nbytes, ops):
 def main(argv) -> int:
     if argv[:1] == ["--k1-plain"]:  # a subprocess of start_k1_host_plain
         return k1_plain_host(*argv[1:3])
+    if argv[:1] == ["--aln-ladder"]:  # a subprocess of start_aln_ladder
+        return aln_ladder_main(*argv[1:4])
+    if argv[:1] == ["--k7-plain"]:  # a subprocess of start_k7_host_plain
+        return k7_plain_host(*argv[1:3])
+    if argv[:1] == ["--aln-chunk"]:
+        return aln_chunk_main()
     log_dir = None
     if "--log" in argv:
         log_dir = Path(argv[argv.index("--log") + 1])
@@ -1170,11 +1658,14 @@ def main(argv) -> int:
     # four 10 kb reads lead, so the CPU run of the first 64 takes the same
     # 10,048-base lanes and cap ladder as the card
     pacbio = pb10k[:4] + pb2k + pb10k[4:]
+    aln_se, _ = simulate(codes, 65536, 100, SEED + 10, 0.02, 0.001, "a")
+    aln_pe = simulate_pairs(codes, 16384, 100, SEED + 11, 0.02, "b")
     phases = (("mem_se_150bp", reads150, None, []),
               ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
               ("mem_pe_150bp", pe1, pe2, []))
-    cpu, host = {}, []
+    cpu, host, ladder, k7_host = {}, [], [], []
     try:
+        ladder.append(start_aln_ladder(d, str(fa), aln_se[:LADDER_READS]))
         for ph, reads, _, extra in phases[:2]:
             fq = d / f"{ph}_first64.fq"
             write_fastq(fq, reads[:64])
@@ -1234,6 +1725,30 @@ def main(argv) -> int:
         pe_info = check_pe256(d, str(fa), fm, pe256,
                               cpu["mem_pe_first256"])
 
+        # 4b. aln: native and device search, samse and sampe; K7 and K7w
+        # calls recorded
+        from bwa_tpu_torch.aln import batch_search
+        from bwa_tpu_torch.ops import gap_machine
+
+        arecs = {"K7": Recorder(gap_machine, "gap_machine",
+                                keep=lambda out: out["steps"]),
+                 "K7w": Recorder(gap_machine, "cal_width")}
+        fallback = Counter(batch_search, "_host_fallback")
+        t0 = time.perf_counter()
+        fq_se = d / "aln_se_100bp.fq"
+        write_fastq(fq_se, aln_se)
+        fq_pe = [d / "aln_pe_100bp_1.fq", d / "aln_pe_100bp_2.fq"]
+        write_fastq(fq_pe[0], aln_pe[0])
+        write_fastq(fq_pe[1], aln_pe[1])
+        phase_aln_se = aln_phase(d, str(fa), "aln_se_100bp", [fq_se], arecs,
+                                 fallback)
+        phase_aln_pe = aln_phase(d, str(fa), "aln_pe_100bp", fq_pe, arecs,
+                                 fallback)
+        for r in (*arecs.values(), fallback):
+            r.restore()
+        log(f"aln phases done in {time.perf_counter() - t0:.1f} s")
+        k7_host.append(start_k7_host_plain(d, arecs["K7"]))
+
         # 5. the kernel entry point (K2 host-array mode and K5) through
         # bench_kernel at its three shapes
         from bwa_tpu_torch import bench_kernel
@@ -1271,6 +1786,13 @@ def main(argv) -> int:
         calls = {"K1": check_calls(recs["K1"], "K1", skip=(0, lane_wide)),
                  "K2": check_calls(recs["K2"], "K2", skip=(0, wide_i))}
         k1 = time_k1(recs["K1"], host)
+        t0 = time.perf_counter()
+        k7 = time_k7(arecs["K7"])
+        k7["second_rung"] = wait_k7_host_plain(k7_host[0])
+        k7w = time_k7w(arecs["K7w"])
+        phase_ladder = wait_aln_ladder(ladder[0], str(fa))
+        log(f"K7, K7w and the ladder checked in "
+            f"{time.perf_counter() - t0:.1f} s")
         for name, k in (("K1", k1), ("K2", k2), ("K2 wide path", k2w),
                         ("K2 host-array", k2h), ("K5", k5)):
             if not k["equal"]:
@@ -1283,8 +1805,10 @@ def main(argv) -> int:
                           {n for n, _ in reads[:64]})
         print(json.dumps(phase_pe), flush=True)
         print(json.dumps(phase_w), flush=True)
+        for ph in (phase_aln_se, phase_aln_pe, phase_ladder):
+            print(json.dumps(ph), flush=True)
     finally:
-        for proc, err, *_ in [*cpu.values(), *host]:
+        for proc, err, *_ in [*cpu.values(), *host, *ladder, *k7_host]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -1309,7 +1833,15 @@ def main(argv) -> int:
              phase_entry["launches"]["K2 host-array"], None),
             ("K5 ksw_full", "bwa_tpu_torch/csrc/ksw_full.cu",
              "bwa_tpu/ops/ksw_pallas.py:273", k5, entry_par,
-             phase_entry["launches"]["K5"], None)):
+             phase_entry["launches"]["K5"], None),
+            ("K7 gap_machine", "bwa_tpu_torch/csrc/gap_machine.cu",
+             "bwa_tpu/ops/gap_machine.py:162", k7, None,
+             sum(p["launches"]["K7"] for p in (phase_aln_se, phase_aln_pe)),
+             None),
+            ("K7w cal_width", "bwa_tpu_torch/csrc/gap_machine.cu",
+             "bwa_tpu/ops/gap_machine.py:99", k7w, None,
+             sum(p["launches"]["K7w"] for p in (phase_aln_se, phase_aln_pe)),
+             k7w["calls"])):
         b_ms, b_by = bound(k["bytes"], k["ops"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
@@ -1317,8 +1849,10 @@ def main(argv) -> int:
             plain_ms=k["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, timed_shape=k["shape"], parity=par,
             parity_at_main_shape=k["equal"], main_path_calls=checked,
+            plain_shape=k.get("plain_shape"),
             entry_shapes=k.get("shapes"),
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
+                                       "overflow_lanes",
                                        "longest_lane_steps", "ns_per_step",
                                        "rows", "cells", "full_width_cells",
                                        "longest_rows", "ns_per_row")
@@ -1333,7 +1867,8 @@ def main(argv) -> int:
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
                             for p in (phase_se, phase_pb, phase_pe,
-                                      phase_w, phase_entry)},
+                                      phase_w, phase_entry, phase_aln_se,
+                                      phase_aln_pe)},
         pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain PyTorch versions on a CUDA
 card: K1 (csrc/seed_machine.cu), K2 (csrc/ksw_band.cu, gather and
-host-array modes) and K5 (csrc/ksw_full.cu), exactly.  This file imports no
+host-array modes), K5 (csrc/ksw_full.cu) and K7/K7w (csrc/gap_machine.cu),
+exactly.  This file imports no
 JAX, so it runs on a card machine without it:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
@@ -555,3 +556,125 @@ def test_k5_mixed_windows_match_plain(card, zdrop):
     wc = band_clamp(qlens, ws, 1, 6, 1, 6, 1, 5)
     assert len(set(np.minimum(_band_for(wc), 1152).tolist())) == 9
     assert bool((got[:, 6] == 0).any())
+
+
+# ---------------------------------------------------------------- K7, K7w
+
+@pytest.fixture(scope="module")
+def aln_reads(world):
+    """60 bp reads (3% substitutions, 1% indels), an all-N read and an
+    empty one, all as live lanes."""
+    from bwa_tpu_torch.index.pack import NT4_TABLE
+
+    fm = world["fm"]
+    g = random_genome(150_000, seed=41, n_contigs=2)
+    rs = simulate_reads(g, 94, read_len=60, seed=9, err_rate=0.03,
+                        indel_rate=0.01)
+    codes = [NT4_TABLE[np.frombuffer(s, np.uint8)] for _, s, _ in rs]
+    return fm, codes + [np.full(60, 4, np.uint8), np.zeros(0, np.uint8)]
+
+
+def _k7_vs_plain(tt, codes, cap, cap_a, max_steps, flags, **opt_kw):
+    """K7w and K7 against cal_width_plain and gap_machine_plain on the same
+    device tensors (every lane live), every output equal; returns K7's."""
+    import types
+
+    from bwa_tpu_torch.aln.batch_search import _prep_chunk
+    from bwa_tpu_torch.aln.opts import GapOpt
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    opt = GapOpt(**opt_kw)
+    lens = np.array([len(c) for c in codes], np.int32)
+    off = np.zeros(len(codes) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    pk = types.SimpleNamespace(n=len(codes), lens=lens, codes_off=off,
+                               codes_flat=np.concatenate(codes))
+    _, md, mg, orig, qc, seed_en, use_seed, swin, _ = _prep_chunk(pk, opt)
+    f_gape, f_nonstop, f_loggap, seed = (bool(flags >> i & 1)
+                                         for i in range(4))
+    assert use_seed
+    d = {k: torch.from_numpy(v).cuda() for k, v in dict(
+        qc=qc, orig=orig, lens=lens, md=md, mg=mg, seed_en=seed_en,
+        swin=swin).items()}
+    n = len(codes)
+    k0, w0 = gm.launches, gm.width_launches
+    wb = gm.cal_width(tt, d["orig"])
+    sb = gm.cal_width(tt, d["swin"])
+    assert torch.equal(wb, gm.cal_width_plain(tt, d["orig"]))
+    assert torch.equal(sb, gm.cal_width_plain(tt, d["swin"]))
+    if not seed:
+        sb = torch.zeros((n, 1, 2), dtype=tt["cdt"], device="cuda")
+    live = torch.ones(n, dtype=torch.bool, device="cuda")
+    scal = tuple(getattr(opt, k) for k in gm.SCALARS)
+    args = (tt, d["qc"], d["lens"], d["md"], d["mg"], d["seed_en"], sb, wb,
+            live, scal)
+    kw = dict(cap=cap, cap_a=cap_a, use_seed=seed, f_gape=f_gape,
+              f_nonstop=f_nonstop, f_loggap=f_loggap, max_steps=max_steps)
+    got = gm.gap_machine(*args, **kw)
+    torch.cuda.synchronize()
+    assert (gm.launches, gm.width_launches) == (k0 + 1, w0 + 2)
+    want = gm.gap_machine_plain(*args, **kw)
+    for k in ("aln_m", "aln_kl", "n_aln", "n_stk", "ovf", "done_step",
+              "n_occ", "steps"):
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+    return {k: v.cpu() for k, v in got.items()}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("flags", range(16))
+def test_k7_flags_match_plain(aln_reads, flags):
+    """Every instantiation: GAPE | NONSTOP << 1 | LOGGAP << 2 |
+    use_seed << 3 (occtab R = 1, int32 coordinates, the first rung's
+    caps)."""
+    fm, codes = aln_reads
+    got = _k7_vs_plain(_tree(fm, "int32"), codes, 64, 32, 200000, flags,
+                       max_diff=2, fnr=0.0)
+    assert int(got["n_aln"].sum()) > 0
+    assert int(got["n_aln"][-1]) == 1  # the empty read is a hit at once
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap,cap_a,max_steps", [(64, 32, 200000),
+                                                 (8, 2, 120)])
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k7_caps_coords_occtab_match_plain(aln_reads, cap, cap_a, max_steps,
+                                           occ_r, coords):
+    """Default options; at cap 8 (cap_a 2, 120 steps) most lanes overflow
+    their stack, their hits or the step limit."""
+    fm, codes = aln_reads
+    got = _k7_vs_plain(_tree(fm, coords, occ_r), codes, cap, cap_a,
+                       max_steps, 0x9)
+    assert got["aln_kl"].dtype == (torch.int64 if coords == "int64"
+                                   else torch.int32)
+    assert bool(got["ovf"].any())
+    if cap == 8:
+        assert int(got["ovf"].sum()) > len(codes) // 2
+
+
+@pytest.mark.requires_cuda
+def test_k7_refused_launch_raises(aln_reads):
+    """An occtab layout K7 does not take (R = 2) raises in the wrapper; a
+    launch the library refuses (cap 0) raises; neither counts a launch or
+    falls back to the plain version, and a launch after them runs."""
+    from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    fm, codes = aln_reads
+    n0 = gm.launches
+    tt2 = _tree(fm, "int32", occ_r=2)
+    q = torch.zeros((4, 64), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):
+        gm.cal_width(tt2, q)
+    tt = _tree(fm, "int32")
+    z = torch.zeros(4, dtype=torch.int32, device="cuda")
+    u = torch.zeros(4, dtype=torch.uint8, device="cuda")
+    wb = torch.zeros((4, 64, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError):
+        cuda_kernels.gap_machine(
+            tt["occtab"], tt["L2"].long(), tt["primary"], tt["seq_len"], q,
+            z, z, z, u, wb, wb.clone(), u, [1] * 10, 10, 0, 1, False, False,
+            False, False, z[None], z, z, wb, z, z, z, z, u, z)
+    assert gm.launches == n0
+    _k7_vs_plain(tt, codes[:8], 64, 32, 200000, 0x9)
