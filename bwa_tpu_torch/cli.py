@@ -2,16 +2,18 @@
 
     python -m bwa_tpu_torch.cli index [-p prefix] <in.fasta>
     python -m bwa_tpu_torch.cli mem [options] [--device cuda|cpu] <idx> <in.fq> [in2.fq]
+    python -m bwa_tpu_torch.cli fastmap [-w -l -p -i -I] [--device cuda|cpu] <idx> <in.fq>
     python -m bwa_tpu_torch.cli aln [options] [--device cuda|cpu] <idx> <in.fq>
     python -m bwa_tpu_torch.cli samse [options] <idx> <in.sai> <in.fq>
     python -m bwa_tpu_torch.cli sampe [options] <idx> <1.sai> <2.sai>
                                       <1.fq> <2.fq>
 
 mem runs single-end reads, paired-end reads from two files, or (-p)
-interleaved pairs; the device defaults to the CUDA card.  aln searches
-with the native C++ search by default; BWA_TPU_ALN=device runs the gap
-machine on the device (kernel K7 on the card, its plain version under
---device cpu).
+interleaved pairs; the device defaults to the CUDA card.  mem -5 and
+BWA_TPU_FINALIZE=python run the Python finalize after the device seeding;
+fastmap seeds on the device too.  aln searches with the native C++ search
+by default; BWA_TPU_ALN=device runs the gap machine on the device (kernel
+K7 on the card, its plain version under --device cpu).
 """
 
 from __future__ import annotations
@@ -248,6 +250,44 @@ def main_index(argv: list[str]) -> int:
     return 0
 
 
+def main_fastmap(argv: list[str], out_fp=None) -> int:
+    """main_fastmap (fastmap.c:408-483): SMEMs of every read with their
+    positions; reads in chunks of 10 Mbp, as the reference's bseq_read
+    loop."""
+    import getopt as getopt_mod
+
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
+    from bwa_tpu_torch.mem.fastmap import fastmap_batch
+
+    argv, device = _pop_device(argv)
+    out_fp = out_fp if out_fp is not None else sys.stdout
+    min_iwidth, min_len, print_seq, min_intv, max_intv = 20, 17, False, 1, 0
+    opts, args = getopt_mod.getopt(argv, "w:l:pi:I:L:")
+    for c, a in opts:
+        if c == "-p": print_seq = True
+        elif c == "-w": min_iwidth = int(a)
+        elif c == "-l": min_len = int(a)
+        elif c == "-i": min_intv = int(a)
+        elif c == "-I": max_intv = int(a)
+    if len(args) < 2:
+        print("Usage: python -m bwa_tpu_torch.cli fastmap [options] "
+              "[--device cuda|cpu] <idxbase> <in.fq>", file=sys.stderr)
+        return 1
+    fm = FMIndex.load(args[0])
+    engine = make_engine(fm, device)
+    ks = SeqReader(args[1])
+    while True:
+        reads = read_batch(ks, None, 10_000_000)
+        if not reads:
+            break
+        for line in fastmap_batch(fm, engine, reads, min_iwidth, min_len,
+                                  print_seq, min_intv, max_intv):
+            out_fp.write(line + "\n")
+    return 0
+
+
 def main_aln(argv: list[str], out_fp_override=None) -> int:
     import getopt as getopt_mod
 
@@ -386,6 +426,7 @@ def main(argv=None, out_fp=None) -> int:
               f"Command: index     index sequences in the FASTA format\n"
               f"         mem       BWA-MEM algorithm (single-end, "
               f"paired-end, -p interleaved)\n"
+              f"         fastmap   identify super-maximal exact matches\n"
               f"         aln       gapped/ungapped alignment\n"
               f"         samse     generate alignment (single ended)\n"
               f"         sampe     generate alignment (paired ended)\n",
@@ -396,6 +437,8 @@ def main(argv=None, out_fp=None) -> int:
         return main_mem(rest, out_fp=out_fp)
     if cmd == "index":
         return main_index(rest)
+    if cmd == "fastmap":
+        return main_fastmap(rest, out_fp=out_fp)
     if cmd == "aln":
         return main_aln(rest, out_fp_override=out_fp)
     if cmd == "samse":

@@ -5,21 +5,13 @@ The host packs reads into machine lanes (pack_k=2 N-separated short reads
 per lane, or one long read sharded over several lanes with provenance),
 climbs a device cap ladder when a bucket overflows, demuxes the lanes back
 to per-read flat seed arrays, and batches the occurrence SA lookups.
+collect_intv_batch is the per-read form of the same seeding, one read a
+lane, for the Python mem path (-5, BWA_TPU_FINALIZE=python).
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-
-def _pad_reads(codes_list, L: int) -> tuple[np.ndarray, np.ndarray]:
-    B = len(codes_list)
-    q = np.full((B, L), 4, dtype=np.uint8)
-    lens = np.zeros(B, dtype=np.int32)
-    for i, c in enumerate(codes_list):
-        q[i, : len(c)] = c
-        lens[i] = len(c)
-    return q, lens
 
 
 # Lanes per machine call.  The sizes are the JAX package's, where every
@@ -49,6 +41,87 @@ def _lane_bucket(L: int, nb: int | None = None) -> int:
 
 def _len_bucket(L: int) -> int:
     return max(64, -(-L // 64) * 64)
+
+
+def _pad_reads(chunk) -> tuple[np.ndarray, np.ndarray, int]:
+    """One read a lane (the layout of collect_intv_batch and fastmap),
+    rows as wide as the 64-multiple of the longest read.  (The JAX
+    package pads the lanes to a power of two, for its compiled shapes; K1
+    takes any.)  Returns (q, lens, L)."""
+    L = _len_bucket(max(len(c) for c in chunk))
+    q = np.full((len(chunk), L), 4, dtype=np.uint8)
+    lens = np.zeros(len(chunk), dtype=np.int32)
+    for i, c in enumerate(chunk):
+        q[i, : len(c)] = c
+        lens[i] = len(c)
+    return q, lens, L
+
+
+def _cap_ladder(pack_k: int, width: int) -> list[tuple[int, int]]:
+    """The device rungs (seed cap, stack cap) an overflowing lane climbs
+    before any host fallback -- on a GRCh38-scale repeat genome the
+    host-spec redo was 90% of the whole alignment wall time.  A long-read
+    lane can hold more seeds than the reference's top rung (a 10 kb pacbio
+    read sharded over two lanes finds ~800), and the host fallback
+    re-seeds one read at a time: one more rung, as wide as the lane
+    (`width` columns), comes first."""
+    ladder = [(96 * pack_k, 32), (256 * pack_k, 64)]
+    lane_cap = -(-width // 64) * 64
+    if lane_cap > ladder[-1][0]:
+        ladder.append((lane_cap, 64))
+    return ladder
+
+
+def _mems_of(out, b: int) -> list[tuple]:
+    """Lane b's seeds of a collect_seeds result as (x0, x1, x2, info)."""
+    s0, s1, s2, ss, se, sn = out[:6]
+    return [(int(s0[b, j]), int(s1[b, j]), int(s2[b, j]),
+             (int(ss[b, j]) << 32) | int(se[b, j]))
+            for j in range(int(sn[b]))]
+
+
+def host_reseed(opt, engine, codes) -> list[tuple]:
+    """The scalar host spec's seeds of one read (mem/seeding.py), for a
+    read that overflows every device rung."""
+    from bwa_tpu_torch.mem.seeding import collect_intv
+
+    return collect_intv(opt, engine.host, codes)
+
+
+def collect_intv_batch(opt, engine, codes_list, cap_s: int = 96):
+    """mem_collect_intv (bwamem.c:140-188) over a batch, one read a lane:
+    the seeding machine runs on the engine's device (kernel K1 on a CUDA
+    engine).  A read whose seeds overflow cap_s climbs the rungs of the
+    device cap ladder (_cap_ladder) wider than cap_s on its own lane; one
+    that overflows every rung is re-seeded by the host spec (host_reseed).
+    The seeds are exact either way.  Returns per-read [(x0, x1, x2, info)] sorted by info."""
+    B = len(codes_list)
+    if B == 0:
+        return []
+    mems: list[list[tuple]] = []
+    bucket0 = _lane_bucket(_len_bucket(max(len(c) for c in codes_list)))
+    for lo in range(0, B, bucket0):
+        chunk = codes_list[lo:lo + bucket0]
+        q, lens, L = _pad_reads(chunk)
+        out = engine.collect_seeds(q, lens, opt, cap_s)
+        got = {b: _mems_of(out, b) for b in range(len(chunk))
+               if out[5][b] <= cap_s}
+        over = np.nonzero(out[5] > cap_s)[0]
+        for cs2, sc2 in _cap_ladder(1, L):
+            if not over.size:
+                break
+            if cs2 <= cap_s:  # no wider than the launch that overflowed
+                continue
+            out = engine.collect_seeds(q[over], lens[over], opt, cs2,
+                                       stack_cap=sc2)
+            ok = out[5] <= cs2
+            got.update((int(b), _mems_of(out, i))
+                       for i, b in enumerate(over) if ok[i])
+            over = over[~ok]
+        got.update((int(b), host_reseed(opt, engine, chunk[b]))
+                   for b in over)
+        mems += [got[b] for b in range(len(chunk))]
+    return mems
 
 
 def _pack_bucket(opt, chunk, cap_s: int):
@@ -206,19 +279,9 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24):
         q, lens, L, B2, pack_k, cs, shard, ns, h, nb = packed.pop(idx)
         out = engine.collect_seeds_wait(h)
         if (out[5] > cs).any():
-            # seed-rich / deep-stack bucket (repeat regions): climb a
-            # cap ladder on DEVICE before any host fallback — on a
-            # GRCh38-scale repeat genome the host-spec redo was 90% of
-            # the whole alignment wall time
-            ladder = [(96 * pack_k, 32), (256 * pack_k, 64)]
-            # a long-read lane can hold more seeds than the top rung (a
-            # 10 kb pacbio read sharded over two lanes finds ~800), and the
-            # host fallback re-seeds the whole bucket one read at a time:
-            # one more rung, as wide as the lane, comes first
-            lane_cap = -(-q.shape[1] // 64) * 64
-            if lane_cap > ladder[-1][0]:
-                ladder.append((lane_cap, 64))
-            for cs2, sc2 in ladder:
+            # seed-rich / deep-stack bucket (repeat regions): the whole
+            # bucket climbs the device cap ladder
+            for cs2, sc2 in _cap_ladder(pack_k, q.shape[1]):
                 cs = cs2
                 out = engine.collect_seeds(q, lens, opt, cs2,
                                            stack_cap=sc2, shard=shard)
@@ -280,3 +343,18 @@ def collect_se_flat(opt, engine, fm, codes_list, cap_s: int = 24):
     return (np.concatenate(iv_off),
             *(np.concatenate([p[k] for p in parts]) for k in range(1, 5)),
             np.concatenate(rb_off))
+
+
+class CachedSeedEngine:
+    """Per-read view consumed by the (host) chain stage: precomputed
+    SA lookups + pass-through reference fetch."""
+
+    def __init__(self, fm, sa_cache: dict):
+        self.fm = fm
+        self._sa = sa_cache
+
+    def sa(self, k: int) -> int:
+        return self._sa[int(k)]
+
+    def fetch_seq(self, beg, mid, end):
+        return self.fm.fetch_seq(beg, mid, end)

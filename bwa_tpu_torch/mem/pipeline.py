@@ -1,24 +1,59 @@
-"""The mem pipeline: mem_process_seqs (bwamem.c:1235-1264) through the
-batched seeding engine and the C++ finalize (native/memfin.cpp).
+"""The mem pipeline: mem_align1_core / mem_process_seqs
+(bwamem.c:1081-1117, 1235-1264) through the batched seeding engine.
 
-Single-end seeding runs on the engine's device bucket by bucket; bucket
-k's host finalize runs while bucket k+1 seeds (the kt_pipeline overlap,
-kthread.c:119-147).  Paired-end seeds the whole batch, then runs one
-finalize over it (insert-size estimate, mate rescue, pairing).
-Single-end -5 (primary5) is not ported yet and raises
-NotImplementedError.
+The default route hands the seeds to the C++ finalize
+(native/memfin.cpp).  Single-end seeding runs on the engine's device
+bucket by bucket; bucket k's host finalize runs while bucket k+1 seeds
+(the kt_pipeline overlap, kthread.c:119-147).  Paired-end seeds the whole
+batch, then runs one finalize over it (insert-size estimate, mate rescue,
+pairing).  Single-end -5 (primary5), and every read under
+BWA_TPU_FINALIZE other than "native", take the Python route: the batch
+seeds on the device one read a lane (batch_seed.collect_intv_batch), then
+chaining, extension, primary marking and SAM run per read in Python
+(chain.py, extend.py, primary.py, sam.py, pairing.py).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 
 from bwa_tpu_torch.index.pack import NT4_TABLE
+from bwa_tpu_torch.mem import chain as chain_mod
+from bwa_tpu_torch.mem.extend import chain2aln
+from bwa_tpu_torch.mem.primary import (mark_primary_se, reorder_primary5,
+                                       sort_dedup_patch)
+from bwa_tpu_torch.mem.sam import reg2sam
 from bwa_tpu_torch.mem.seeding import collect_intv
-from bwa_tpu_torch.mem.types import Read
+from bwa_tpu_torch.mem.types import MemAlnReg, Read
 from bwa_tpu_torch.options import MEM_F_PE, MEM_F_PRIMARY5
+
+
+def align1_core(opt, engine, fm, seq_codes: np.ndarray,
+                mems=None) -> list[MemAlnReg]:
+    """mem_align1_core (bwamem.c:1081-1117): one read -> alignment regions.
+    mems may be precomputed by the batch seeder; engine provides .sa and
+    .fetch_seq (and, when mems is None, the scalar seeding API)."""
+    q = seq_codes
+    if mems is None:
+        mems = collect_intv(opt, engine, q)
+    chains = chain_mod.chain(opt, engine, fm.bnt, q, mems)
+    chains = chain_mod.chain_flt(opt, chains)
+    chain_mod.flt_chained_seeds(opt, fm, q, chains)
+    regs: list[MemAlnReg] = []
+    for c in chains:
+        chain2aln(opt, fm, q, c, regs)
+    regs = sort_dedup_patch(opt, fm, q, regs)
+    for p in regs:
+        if p.rid >= 0 and fm.bnt.contigs[p.rid].is_alt:
+            p.is_alt = 1
+    return regs
+
+
+def to_codes(seq: bytes) -> np.ndarray:
+    return NT4_TABLE[np.frombuffer(seq, dtype=np.uint8)]
 
 
 def to_codes_batch(reads) -> list[np.ndarray]:
@@ -34,6 +69,23 @@ def to_codes_batch(reads) -> list[np.ndarray]:
         out.append(flat[pos:pos + ln])
         pos += ln
     return out
+
+
+def _batch_align(opt, engine, fm, codes):
+    """worker1 over the batch: seeds (on the engine's device, batched),
+    then per-read chaining and extension on the host.  An engine without
+    collect_seeds seeds each read through its scalar API."""
+    if not hasattr(engine, "collect_seeds"):
+        return [align1_core(opt, engine, fm, c) for c in codes]
+    from bwa_tpu_torch.mem.batch_seed import (CachedSeedEngine,
+                                              collect_intv_batch,
+                                              occurrence_positions)
+
+    mems_list = collect_intv_batch(opt, engine, codes)
+    caches = occurrence_positions(opt, engine, mems_list)
+    return [align1_core(opt, CachedSeedEngine(fm, caches[i]), fm, codes[i],
+                        mems=mems_list[i])
+            for i in range(len(codes))]
 
 
 def use_device_ext(opt, engine, codes,
@@ -93,12 +145,16 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
     Paired-end (MEM_F_PE) takes reads interleaved r1, r2 and runs one
     finalize over the whole batch (pes0: the -I insert-size statistics, or
     None to estimate them from the batch).  device_ext: True/False forces
-    device/host seed extension; None chooses by use_device_ext."""
+    device/host seed extension on the C++ route; None chooses by
+    use_device_ext.  The Python route (SE -5, BWA_TPU_FINALIZE other than
+    "native") extends on the host, as bwa_tpu's does."""
     if not reads:
         return
-    if opt.flag & MEM_F_PRIMARY5 and not opt.flag & MEM_F_PE:
-        raise NotImplementedError("single-end mem -5 is not ported yet")
-    from bwa_tpu_torch.mem.batch_seed import (collect_se_flat,
+    if os.environ.get("BWA_TPU_FINALIZE", "native") != "native" or (
+            opt.flag & MEM_F_PRIMARY5 and not opt.flag & MEM_F_PE):
+        _process_python(opt, engine, fm, reads, n_processed, pes0, rg_id)
+        return
+    from bwa_tpu_torch.mem.batch_seed import (collect_se_flat, host_reseed,
                                               occurrence_positions,
                                               se_flat_buckets)
     from bwa_tpu_torch.mem.native_fin import (RefBlob, finalize_pe_arrays,
@@ -108,7 +164,7 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
     def host_seeds(cd):
         """Exactness fallback for seed-cap overflow at every device cap:
         per-read seeding, flattened as the finalize takes it."""
-        mems_list = [collect_intv(opt, engine, c) for c in cd]
+        mems_list = [host_reseed(opt, engine, c) for c in cd]
         return flatten_tuple_seeds(
             opt, mems_list, occurrence_positions(opt, engine, mems_list))
 
@@ -135,3 +191,25 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
                                   device_ext=ext, ids=ids)
         for r, s in zip(rd, sams):
             r.sam = s
+
+
+def _process_python(opt, engine, fm, reads, n_processed, pes0, rg_id):
+    """process_seqs' Python route (bwamem.c:1235-1264 with worker2 in
+    Python): batched device seeding, then per read (per pair under
+    MEM_F_PE) primary marking, the -5 reorder and SAM."""
+    codes = to_codes_batch(reads)
+    regs = _batch_align(opt, engine, fm, codes)
+    if opt.flag & MEM_F_PE:
+        from bwa_tpu_torch.mem.pairing import pestat, sam_pe
+
+        pes = pes0 if pes0 is not None else pestat(opt, fm.l_pac, regs)
+        for i in range(len(reads) >> 1):
+            sam_pe(opt, fm, pes, (n_processed >> 1) + i,
+                   reads[i * 2:i * 2 + 2], codes[i * 2:i * 2 + 2],
+                   regs[i * 2:i * 2 + 2], rg_id)
+        return
+    for i, r in enumerate(reads):
+        mark_primary_se(opt, regs[i], n_processed + i)
+        if opt.flag & MEM_F_PRIMARY5:
+            reorder_primary5(opt.T, regs[i])
+        r.sam = reg2sam(opt, fm, r, codes[i], regs[i], 0, None, rg_id)

@@ -186,8 +186,6 @@ class BatchedFMEngine:
         self.dev = DeviceFMIndex(fm, light=light, device=self.device)
         self.idx = self.dev.tree()
         self._host = None
-        self.last_steps = (0,)
-        self.last_done = (np.zeros(0, np.int32),)
 
     @property
     def host(self):
@@ -265,8 +263,6 @@ class BatchedFMEngine:
         if ev is not None:
             ev.synchronize()
         meta = meta.cpu().numpy()
-        self.last_done = (meta[2],)
-        self.last_steps = (int(meta[3, 0]),)
         return self._fetch_seeds(seeds, meta[0], meta[1] != 0, cap_s)
 
     def collect_seeds(self, q_pad: np.ndarray, qlen: np.ndarray, opt,

@@ -34,6 +34,17 @@ Without, in order:
      band-doubling retry) with -x pacbio -w 1100 (K2's wide path, P = 2304
      and 4480), whose SAM must equal the same reads' SAM with host
      extension on the card;
+  4a. runs the Python mem route and fastmap through the CLI, K1's calls
+     recorded apart: the 4,096 x 150 bp reads with -5 (the first 64 reads'
+     SAM against the port's CPU run), and through BWA_TPU_FINALIZE=python
+     (SAM equal to the C++ route's, read for read); the first 256 pairs
+     through BWA_TPU_FINALIZE=python (SAM equal to the C++ route's run of
+     them); 64 x 2 kb reads with -x pacbio -5, printing the reads the host
+     spec re-seeds; the 4,096 x 150 bp reads through fastmap (the first 64
+     reads' output against fastmap_lines through HostFM, and the reads on
+     the per-read route); K1 launched in each; K1's first launch of the -5
+     and of the fastmap phase timed and held to the plain version on the
+     card on 257 of its lanes, the longest among them;
   4b. makes 65,536 x 100 bp SE reads (2% substitutions, 0.1% indels) and
      16,384 pairs of 100 bp reads (insert 350 +- 40) and runs `aln` on
      each FASTQ through the CLI with the default native search and with
@@ -72,6 +83,7 @@ Any failure exits non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -552,19 +564,30 @@ def wait_cpu_run(cpu, what) -> tuple[str, float]:
     return sam_path.read_text(), took["s"]
 
 
-def run_mem(prefix, fqs, extra):
+def run_mem(prefix, fqs, extra, cmd="mem"):
+    """`cmd` (mem or fastmap) through the CLI on the card: (text, seconds)."""
     from bwa_tpu_torch.cli import main as cli_main
     import torch
 
     out = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli_main(["mem", *extra, "--device", "cuda", str(prefix),
+    rc = cli_main([cmd, *extra, "--device", "cuda", str(prefix),
                    *map(str, fqs)], out_fp=out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if rc != 0:
-        fail(f"mem {' '.join(extra)} exited {rc}")
+        fail(f"{cmd} {' '.join(extra)} exited {rc}")
     return out.getvalue(), dt
+
+
+@contextlib.contextmanager
+def finalize_python():
+    """BWA_TPU_FINALIZE=python for the calls made inside."""
+    os.environ["BWA_TPU_FINALIZE"] = "python"
+    try:
+        yield
+    finally:
+        os.environ.pop("BWA_TPU_FINALIZE", None)
 
 
 def records_of(sam: str, names: set | None = None) -> str:
@@ -604,6 +627,33 @@ def check_pe_sam(sam: str, n_pairs: int) -> float:
     return proper
 
 
+def check_fastmap(out: str, n_reads: int) -> None:
+    """One SQ line and one // a read, and SMEMs with positions."""
+    lines = out.split("\n")
+    n_sq = sum(ln.startswith("SQ\t") for ln in lines)
+    if n_sq != n_reads or lines.count("//") != n_reads:
+        fail(f"fastmap printed {n_sq} reads, expected {n_reads}")
+    if sum(ln.startswith("EM\t") and not ln.endswith("\t*")
+           for ln in lines) < n_reads:
+        fail("fastmap printed fewer placed SMEMs than reads")
+
+
+def records_differ(sam_a: str, sam_b: str):
+    """A read whose SAM records differ between two runs, with both
+    runs' records of it, or None."""
+    by = []
+    for sam in (sam_a, sam_b):
+        recs = {}
+        for ln in sam.split("\n"):
+            if ln and not ln.startswith("@"):
+                recs.setdefault(ln.split("\t", 1)[0], []).append(ln)
+        by.append(recs)
+    for name in by[0].keys() | by[1].keys():
+        if by[0].get(name) != by[1].get(name):
+            return dict(read=name, a=by[0].get(name), b=by[1].get(name))
+    return None
+
+
 def zero_launches():
     from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
 
@@ -621,7 +671,12 @@ def read_launches() -> dict:
             "K7w": gap_machine.width_launches}
 
 
-def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
+def main_path(d, prefix, phase, reads, extra, recs, reads2=None,
+              cmd="mem", host_spec=None):
+    """One phase of the main path through the CLI on the card, kernel
+    launches counted and each recorded wrapper's event time summed;
+    host_spec: a Counter of batch_seed.host_reseed, whose calls in the
+    phase are the reads re-seeded by the host spec."""
     fqs = [d / f"{phase}.fq"]
     write_fastq(fqs[0], reads)
     if reads2 is not None:
@@ -630,8 +685,9 @@ def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
     for r in recs.values():
         r.events = []
         r.phase = phase
+    n0 = host_spec.n if host_spec else 0
     zero_launches()
-    sam, dt = run_mem(prefix, fqs, extra)
+    sam, dt = run_mem(prefix, fqs, extra, cmd)
     launches = read_launches()
     kernel_ms = {k: r.take_ms() for k, r in recs.items()}
     n = len(reads) * len(fqs)
@@ -639,7 +695,11 @@ def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
                 bases=int(sum(len(r) for _, r in reads)) * len(fqs),
                 seconds=dt, reads_per_s=n / dt, launches=launches,
                 kernel_event_ms=kernel_ms)
-    if reads2 is None:
+    if host_spec:
+        info["host_spec_reads"] = host_spec.n - n0
+    if cmd == "fastmap":
+        check_fastmap(sam, len(reads))
+    elif reads2 is None:
         check_sam(sam, len(reads))
     else:
         info["proper_pair_share"] = check_pe_sam(sam, len(reads))
@@ -647,13 +707,15 @@ def main_path(d, prefix, phase, reads, extra, recs, reads2=None):
 
 
 def check_first64(info, sam, cpu, names):
-    """The phase's first 64 SAM records against the CPU run's."""
+    """The phase's first SAM records (of the reads in names, 64 but for
+    mem_pacbio_primary5's 8) against the CPU run's."""
     cpu_sam, secs = wait_cpu_run(cpu, info["phase"])
     same = records_of(sam, names) == records_of(cpu_sam, names)
+    n = len(names)
     if not same:
-        fail(f"{info['phase']}: SAM of the first 64 reads differs from the "
+        fail(f"{info['phase']}: SAM of the first {n} reads differs from the "
              f"CPU run")
-    info.update(first64_equal_cpu=same, cpu_first64_seconds=secs)
+    info.update({f"first{n}_equal_cpu": same, f"cpu_first{n}_seconds": secs})
     print(json.dumps(info), flush=True)
 
 
@@ -695,7 +757,7 @@ def check_pe256(d, prefix, fm, fqs, cpu):
                 device_ext_k2_launches=k2, device_ext_seconds=ext_s,
                 device_ext_equal_host=True)
     print(json.dumps(info), flush=True)
-    return info
+    return info, card_sam
 
 
 def check_w1100(prefix, fm, fq, info, sam):
@@ -1377,13 +1439,17 @@ def check_calls(rec, kernel, skip=(0,)):
     return res
 
 
-def k1_lane_wide(rec) -> int:
-    """Index of the pacbio phase's longest K1 launch: its widest rung."""
-    pb = [i for i, (ph, _, _) in enumerate(rec.calls) if ph == "mem_pacbio"]
+def k1_lane_wide(rec, phase="mem_pacbio") -> int:
+    """Index of a pacbio phase's K1 launch at the lane-wide rung (a seed
+    cap past the ladder's 256 per read)."""
+    pb = [i for i, (ph, _, kw) in enumerate(rec.calls)
+          if ph == phase and kw["cap_s"] > 256]
+    if not pb:
+        fail(f"{phase}: K1 was not launched at the lane-wide rung")
     return max(pb, key=lambda i: rec.calls[i][2]["cap_s"])
 
 
-def start_k1_host_plain(d: Path, rec, i):
+def start_k1_host_plain(d: Path, rec, i, tag="k1_host"):
     """The plain version of recorded K1 call i on all its lanes, on the
     host, in two subprocesses that see no card: the lanes of the longest
     reads (at least half as long as the longest lane) and the rest, since a
@@ -1407,10 +1473,10 @@ def start_k1_host_plain(d: Path, rec, i):
         if k.get("shard") is not None:
             k["shard"] = tuple(np.asarray(x)[lanes.numpy()]
                                for x in k["shard"])
-        inp, out = d / f"k1_host_{g}.pt", d / f"k1_host_{g}_plain.pt"
+        inp, out = d / f"{tag}_{g}.pt", d / f"{tag}_{g}_plain.pt"
         torch.save(dict(idx=idx, q=q[lanes], qlen=qlen[lanes], nv=nv[lanes],
                         consts=list(args[4:8]), kw=k), inp)
-        err = open(d / f"k1_host_{g}.log", "w")
+        err = open(d / f"{tag}_{g}.log", "w")
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
         t0 = time.perf_counter()
         proc = subprocess.Popen(
@@ -1484,20 +1550,9 @@ def time_k1_call(rec, i, reps, host=None):
         want, plain_host_s = k1_outputs(plain), None
     else:
         (want, plain_host_s), plain_ms = wait_k1_host_plain(host, got), None
-    pairs = list(zip(got, want))
-    equal = all(torch.equal(x, y) for x, y in pairs)
-    err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
-              for x, y in pairs)
-    occ = idx["occtab"]
-    nw = occ.shape[1] - 4
-    steps = int(want[3].to(torch.int64).sum())
+    equal, err = k1_equal(got, want)
     longest = int(want[4][0])
-    nbytes = (occ.numel() * 4 + q.numel() + args[3].numel() * 4
-              + q.shape[0] * 4 * 4 + out[0].numel() * out[0].element_size()
-              + q.shape[0] * 9)
-    # per machine step: two occ4 lookups scanning on average nw/2 + 1 words
-    # at ~12 integer ops a word, plus ~64 ops of state update
-    ops = steps * (2 * 12 * (nw / 2 + 1) + 64)
+    nbytes, ops, steps = k1_work(args, out[0], want[3])
     res = dict(phase=ph, call=i, ms=ms, plain_ms=plain_ms,
                plain_host_s=plain_host_s, equal=bool(equal), err=err,
                shape=f"B={q.shape[0]} L={q.shape[1]} cap={kw['cap']} "
@@ -1508,6 +1563,188 @@ def time_k1_call(rec, i, reps, host=None):
     res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log(f"K1 timed {res}")
     return res
+
+
+def k1_equal(got, want):
+    """(all five outputs equal, largest absolute difference)."""
+    import torch
+
+    pairs = list(zip(got, want))
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                for x, y in pairs))
+
+
+def k1_work(args, seeds, done_step):
+    """(bytes, integer ops, lane steps) a bound counts for a K1 call: each
+    input and output once; per lane step (done_step: each lane's steps, as
+    this run's data took them) two occ4 lookups scanning on average
+    nw/2 + 1 words at ~12 integer ops a word, plus ~64 ops of state
+    update."""
+    import torch
+
+    idx, q, nv = args[0], args[1], args[3]
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    steps = int(done_step.to(torch.int64).sum())
+    nbytes = (occ.numel() * 4 + q.numel() + nv.numel() * 4
+              + q.shape[0] * 4 * 4 + seeds.numel() * seeds.element_size()
+              + q.shape[0] * 9)
+    return nbytes, steps * (2 * 12 * (nw / 2 + 1) + 64), steps
+
+
+def k1_first_launch(rec, phase, count=256):
+    """The phase's first K1 launch: the kernel on all its lanes, timed over
+    5 launches, and held to the plain version on the card on `count` lanes
+    spread over the launch plus its longest lane (the most steps); the
+    bound counts the whole launch's lane steps."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    i = next(j for j, (ph, _, _) in enumerate(rec.calls) if ph == phase)
+    _, args, kw = rec.calls[i]
+    idx, q, qlen, nv = args[:4]
+    out = fmm.seed_machine(*args, **kw)
+    ms = cuda_time(lambda: fmm.seed_machine(*args, **kw), 5)
+    live = (qlen > 0).nonzero().flatten()
+    rows = set(live[::max(1, live.numel() // count)][:count].tolist())
+    rows.add(int(out[4].argmax()))
+    r = torch.as_tensor(sorted(rows), device=q.device)
+    a = [idx, q[r], qlen[r], nv[r], *args[4:]]
+    got = k1_outputs(fmm.seed_machine(*a, **kw))
+    plain, plain_ms = timed_once(lambda: fmm.seed_machine_plain(*a, **kw))
+    equal, err = k1_equal(got, k1_outputs(plain))
+    nbytes, ops, steps = k1_work(args, out[0], out[4])
+    longest = int(out[4].max())
+    res = dict(phase=phase, call=i, ms=ms, plain_ms_checked_lanes=plain_ms,
+               equal=equal, err=err, lanes_checked=len(rows),
+               shape=f"B={q.shape[0]} L={q.shape[1]} cap={kw['cap']} "
+                     f"cap_s={kw['cap_s']}",
+               lane_steps=steps, longest_lane_steps=longest,
+               ns_per_step=per_unit(ms, longest), bytes=int(nbytes),
+               ops=float(ops))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log(f"K1 first launch {res}")
+    if not equal:
+        fail(f"K1 disagrees with its plain version at {phase}'s first "
+             f"launch")
+    return res
+
+
+def aligner_seqs(reads):
+    import numpy as np
+
+    return [np.frombuffer(b"ACGTN", np.uint8)[r].tobytes() for _, r in reads]
+
+
+def aligner_phase(prefix, reads, recs):
+    """A dozen reads through the library's Aligner on the card (its default
+    device): the phase's numbers and each read's hits."""
+    from bwa_tpu_torch.api import Aligner
+
+    seqs = aligner_seqs(reads)
+    for r in recs.values():
+        r.events = []
+        r.phase = "api_aligner"
+    zero_launches()
+    t0 = time.perf_counter()
+    card = Aligner(prefix)
+    got = [[vars(h) for h in card.align(s)] for s in seqs]
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    kernel_ms = {k: r.take_ms() for k, r in recs.items()}
+    return dict(phase="api_aligner", reads=len(reads), seconds=dt,
+                reads_per_s=len(reads) / dt, launches=launches,
+                kernel_event_ms=kernel_ms), got
+
+
+def check_aligner(prefix, reads, info, got):
+    """The card Aligner's hits against Aligner(device="cpu")'s, the plain
+    versions on the host (no recorder in place)."""
+    from bwa_tpu_torch.api import Aligner
+
+    host = Aligner(prefix, device="cpu")
+    for (name, _), s, g in zip(reads, aligner_seqs(reads), got):
+        want = [vars(h) for h in host.align(s)]
+        if g != want:
+            fail(f"api_aligner: read {name}: hits on the card {g} differ "
+                 f"from Aligner(device='cpu')'s {want}")
+    if sum(bool(g) for g in got) < 0.9 * len(reads):
+        fail("api_aligner: fewer than 90% of the reads have a hit")
+    info["hits_equal_cpu"] = True
+
+
+def python_and_fastmap_phases(d, prefix, fm, reads150, sam_se, pb5_reads,
+                              pe, pe_sam, cpu5):
+    """The Python mem route (SE -5, BWA_TPU_FINALIZE=python SE and PE, -x
+    pacbio -5) and fastmap through the CLI on the card, and the library's
+    Aligner, K1's calls recorded apart from the earlier phases'; their
+    checks; K1's first launch of the -5 and fastmap phases against the
+    plain version.  The pacbio -5 phase's SAM is returned for the check
+    of its first 8 reads against a CPU run."""
+    import numpy as np
+
+    from bwa_tpu_torch.mem import batch_seed, fastmap
+    from bwa_tpu_torch.ops import fm_machine
+    from bwa_tpu_torch.ops.fm_host import HostFM
+
+    t0 = time.perf_counter()
+    recs = {"K1": Recorder(fm_machine, "seed_machine",
+                           keep=lambda out: out[2])}
+    host_spec = Counter(batch_seed, "host_reseed")
+    per_read = Counter(fastmap, "fastmap_lines")
+    try:
+        p5, sam5 = main_path(d, prefix, "mem_se_150bp_primary5", reads150,
+                             ["-5"], recs, host_spec=host_spec)
+        with finalize_python():
+            py, sam_py = main_path(d, prefix, "mem_se_150bp_python",
+                                   reads150, [], recs, host_spec=host_spec)
+            pepy, sam_pepy = main_path(d, prefix, "mem_pe_python",
+                                       pe[0][:256], [], recs, pe[1][:256],
+                                       host_spec=host_spec)
+        pb5, sam_pb5 = main_path(d, prefix, "mem_pacbio_primary5",
+                                 pb5_reads, ["-x", "pacbio", "-5"], recs,
+                                 host_spec=host_spec)
+        n_pr = per_read.n
+        fm5, out_fm = main_path(d, prefix, "fastmap_150bp", reads150, [],
+                                recs, cmd="fastmap")
+        fm5["per_read_route_reads"] = per_read.n - n_pr
+        api, hits = aligner_phase(prefix, reads150[:12], recs)
+    finally:
+        for r in (recs["K1"], host_spec, per_read):
+            r.restore()
+    check_aligner(prefix, reads150[:12], api, hits)
+    for ph in (p5, py, pepy, pb5, fm5, api):
+        if ph["launches"]["K1"] < 1:
+            fail(f"{ph['phase']}: kernel K1 was not launched")
+    for ph, a, b, what in (
+            (py, sam_py, sam_se, "mem_se_150bp's C++-route SAM"),
+            (pepy, sam_pepy, pe_sam, "mem_pe_first256's C++-route SAM")):
+        diff = records_differ(a, b)
+        if diff:
+            fail(f"{ph['phase']}: SAM differs from {what}: {diff}")
+        ph["equal_cpp_route"] = True
+    # fastmap's first 64 reads against the host spec, read by read
+    blocks = out_fm.split("//\n")
+    host = HostFM(fm)
+    want = "".join("\n".join(fastmap.fastmap_lines(
+        fm, host, n, np.frombuffer(b"ACGTN", np.uint8)[r].tobytes())) + "\n"
+        for n, r in reads150[:64])
+    if "//\n".join(blocks[:64]) + "//\n" != want:
+        fail("fastmap_150bp: the first 64 reads' output differs from "
+             "fastmap_lines through HostFM")
+    fm5["first64_equal_host_spec"] = True
+    main_s = time.perf_counter() - t0
+    first = {ph: k1_first_launch(recs["K1"], ph)
+             for ph in ("mem_se_150bp_primary5", "fastmap_150bp")}
+    log(f"Python mem route and fastmap: {main_s:.1f} s, their K1 checks "
+        f"{time.perf_counter() - t0 - main_s:.1f} s more")
+    check_first64(p5, sam5, cpu5, {n for n, _ in reads150[:64]})
+    for ph in (py, pepy, fm5, api):
+        print(json.dumps(ph), flush=True)
+    return [p5, py, pepy, pb5, fm5, api], first, recs["K1"], \
+        time.perf_counter() - t0, sam_pb5
 
 
 def time_k1(rec, host):
@@ -1658,12 +1895,15 @@ def main(argv) -> int:
     # four 10 kb reads lead, so the CPU run of the first 64 takes the same
     # 10,048-base lanes and cap ladder as the card
     pacbio = pb10k[:4] + pb2k + pb10k[4:]
+    # -x pacbio -5: two 10 kb reads lead (they climb to the lane-wide rung,
+    # one read a lane); the CPU run takes the first 8
+    pb5_reads = pb10k[:2] + pb2k[:64]
     aln_se, _ = simulate(codes, 65536, 100, SEED + 10, 0.02, 0.001, "a")
     aln_pe = simulate_pairs(codes, 16384, 100, SEED + 11, 0.02, "b")
     phases = (("mem_se_150bp", reads150, None, []),
               ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
               ("mem_pe_150bp", pe1, pe2, []))
-    cpu, host, ladder, k7_host = {}, [], [], []
+    cpu, host, host5, ladder, k7_host = {}, [], [], [], []
     try:
         ladder.append(start_aln_ladder(d, str(fa), aln_se[:LADDER_READS]))
         for ph, reads, _, extra in phases[:2]:
@@ -1671,6 +1911,14 @@ def main(argv) -> int:
             write_fastq(fq, reads[:64])
             cpu[ph] = start_cpu_run(d, str(fa), f"{ph}_first64", [fq],
                                     extra)
+        cpu["mem_se_150bp_primary5"] = start_cpu_run(
+            d, str(fa), "mem_se_150bp_primary5_first64",
+            [d / "mem_se_150bp_first64.fq"], ["-5"])
+        fq = d / "mem_pacbio_primary5_first8.fq"
+        write_fastq(fq, pb5_reads[:8])
+        cpu["mem_pacbio_primary5"] = start_cpu_run(
+            d, str(fa), "mem_pacbio_primary5_first8", [fq],
+            ["-x", "pacbio", "-5"])
         pe256 = [d / "mem_pe_first256_1.fq", d / "mem_pe_first256_2.fq"]
         write_fastq(pe256[0], pe1[:256])
         write_fastq(pe256[1], pe2[:256])
@@ -1722,8 +1970,17 @@ def main(argv) -> int:
         for name, r in recs.items():
             if not r.calls:
                 fail(f"the main path did not reach the {name} wrapper")
-        pe_info = check_pe256(d, str(fa), fm, pe256,
-                              cpu["mem_pe_first256"])
+        pe_info, pe_sam = check_pe256(d, str(fa), fm, pe256,
+                                      cpu["mem_pe_first256"])
+
+        # 4a. the Python mem route (-5, BWA_TPU_FINALIZE=python) and fastmap
+        new_phases, k1_new, rec_new, new_s, sam_pb5 = \
+            python_and_fastmap_phases(d, str(fa), fm, reads150, sam_se,
+                                      pb5_reads, (pe1, pe2), pe_sam,
+                                      cpu["mem_se_150bp_primary5"])
+        # the -5 lane-wide rung's plain version, on the host meanwhile
+        lane_wide5 = k1_lane_wide(rec_new, "mem_pacbio_primary5")
+        host5 += start_k1_host_plain(d, rec_new, lane_wide5, "k1_host_pb5")
 
         # 4b. aln: native and device search, samse and sampe; K7 and K7w
         # calls recorded
@@ -1793,6 +2050,20 @@ def main(argv) -> int:
         phase_ladder = wait_aln_ladder(ladder[0], str(fa))
         log(f"K7, K7w and the ladder checked in "
             f"{time.perf_counter() - t0:.1f} s")
+        k1_wide5 = time_k1_call(rec_new, lane_wide5, 5, host5)
+        if not k1_wide5["equal"]:
+            fail("K1 disagrees with its plain version at "
+                 "mem_pacbio_primary5's lane-wide rung")
+        k1["one_read_lanes"] = dict(
+            first_launches=k1_new, pacbio_primary5_lane_wide=k1_wide5,
+            main_thread_seconds=new_s,
+            launches=[dict(phase=ph, call=i, cap_s=kw["cap_s"],
+                           lanes=int(a[1].shape[0]),
+                           event_ms=rec_new.call_ms[i],
+                           longest_lane_steps=int(rec_new.kept[i]))
+                      for i, (ph, a, kw) in enumerate(rec_new.calls)])
+        k1["err"] = max(k1["err"], k1_wide5["err"],
+                        *(v["err"] for v in k1_new.values()))
         for name, k in (("K1", k1), ("K2", k2), ("K2 wide path", k2w),
                         ("K2 host-array", k2h), ("K5", k5)):
             if not k["equal"]:
@@ -1803,12 +2074,15 @@ def main(argv) -> int:
         for (info, sam), (_, reads, _, _) in zip(ran[:2], phases):
             check_first64(info, sam, cpu[info["phase"]],
                           {n for n, _ in reads[:64]})
+        check_first64(new_phases[3], sam_pb5, cpu["mem_pacbio_primary5"],
+                      {n for n, _ in pb5_reads[:8]})
         print(json.dumps(phase_pe), flush=True)
         print(json.dumps(phase_w), flush=True)
         for ph in (phase_aln_se, phase_aln_pe, phase_ladder):
             print(json.dumps(ph), flush=True)
     finally:
-        for proc, err, *_ in [*cpu.values(), *host, *ladder, *k7_host]:
+        for proc, err, *_ in [*cpu.values(), *host, *host5, *ladder,
+                              *k7_host]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -1819,7 +2093,8 @@ def main(argv) -> int:
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", k1, k1_par,
              sum(p["launches"]["K1"] for p in (phase_se, phase_pb,
-                                                phase_pe, phase_w)),
+                                                phase_pe, phase_w,
+                                                *new_phases)),
              calls["K1"]),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par,
@@ -1858,7 +2133,8 @@ def main(argv) -> int:
                                        "longest_rows", "ns_per_row")
                   if kk in k},
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
-                                    "launches_on_main_path") if kk in k},
+                                    "launches_on_main_path",
+                                    "one_read_lanes") if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
                 if e["kernel"] == ("K5" if k is k5 else "K2 host-array")]}
@@ -1867,8 +2143,8 @@ def main(argv) -> int:
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
                             for p in (phase_se, phase_pb, phase_pe,
-                                      phase_w, phase_entry, phase_aln_se,
-                                      phase_aln_pe)},
+                                      phase_w, *new_phases, phase_entry,
+                                      phase_aln_se, phase_aln_pe)},
         pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

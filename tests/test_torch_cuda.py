@@ -126,6 +126,25 @@ def test_k1_occtab_r4_matches_plain(world, kind, cap, cap_s, coords):
                  cap, cap_s, True)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,cap_s", [("fastmap", 64), ("fastmap", 192),
+                                        ("primary5", 96)])
+@pytest.mark.parametrize("occ_r", [1, 4])
+def test_k1_one_read_lanes_match_plain(world, kind, cap_s, occ_r):
+    """One read a lane (collect_intv_batch's and fastmap's layout,
+    batch_seed._pad_reads) and one empty lane.  fastmap's parameters:
+    min_seed_len 1 keeps every SMEM, split_len int(2^30 + 0.499) =
+    1,073,741,824 reaches K1 as an int32, split_width 0 and max_mem_intv 0
+    turn passes 2 and 3 off; -5 runs mem's defaults at cap_s 96."""
+    from bwa_tpu_torch.mem.batch_seed import _pad_reads
+
+    q, ql, L = _pad_reads(world["short"] + [np.zeros(0, np.uint8)])
+    assert q.shape == (65, 192) and ql[-1] == 0
+    consts = (1, 1 << 30, 0, 0) if kind == "fastmap" else (19, 28, 10, 20)
+    _k1_vs_plain(_tree(world["fm"], "int32", occ_r=occ_r), q, ql, None,
+                 consts, min(16, L + 2), cap_s, kind == "primary5")
+
+
 # tandem arrays in the repeat genome: (start, unit, copies)
 ARRAYS = ((20_000, b"AC", 60), (60_000, b"AGT", 45), (100_000, b"A", 40))
 

@@ -246,16 +246,57 @@ def test_mem_pacbio_w1100_device_extension_matches_jax(world):
 
 
 def test_unported_modes_raise(world):
-    """Single-end -5 is not ported yet."""
+    """Single-end -5, which raised until it was ported, gives bwa_tpu's SAM
+    bytes (the Python route: seeds one read a lane on the engine, chaining,
+    extension, primary marking, the -5 reorder and SAM in Python)."""
+    from bwa_tpu.engine import make_engine as jax_engine
+    from bwa_tpu.index.fmindex import FMIndex as JaxFM
+    from bwa_tpu.mem.pipeline import process_seqs as jax_process
+    from bwa_tpu.mem.types import Read as JaxRead
+    from bwa_tpu.options import MemOptions as JaxOptions
     from bwa_tpu_torch.engine import make_engine
     from bwa_tpu_torch.index.fmindex import FMIndex
     from bwa_tpu_torch.mem.pipeline import process_seqs
     from bwa_tpu_torch.mem.types import Read
-    from bwa_tpu_torch.options import MEM_F_PRIMARY5, MemOptions
+    from bwa_tpu_torch.options import (MEM_F_KEEP_SUPP_MAPQ, MEM_F_PRIMARY5,
+                                       MemOptions)
 
-    fm = FMIndex.load(world["prefix"])
-    eng = make_engine(fm, "cpu")
-    opt = MemOptions()
-    opt.flag |= MEM_F_PRIMARY5
-    with pytest.raises(NotImplementedError):
-        process_seqs(opt, eng, fm, [Read(name="r", seq=b"ACGT" * 40)])
+    rs = simulate_reads(world["genome"], 64, read_len=150, seed=13)
+    sams = []
+    for fm_cls, mk, run, rd, o, dev in (
+            (JaxFM, jax_engine, jax_process, JaxRead, JaxOptions, "tpu"),
+            (FMIndex, make_engine, process_seqs, Read, MemOptions, "cpu")):
+        fm = fm_cls.load(world["prefix"])
+        opt = o()
+        opt.flag |= MEM_F_PRIMARY5 | MEM_F_KEEP_SUPP_MAPQ
+        reads = [rd(name=n, seq=s, qual=q) for n, s, q in rs]
+        run(opt, mk(fm, dev), fm, reads, 0, None, None)
+        sams.append("".join(r.sam for r in reads))
+    assert sams[0].count("\n") >= 64
+    assert sams[1] == sams[0]
+
+
+@pytest.mark.parametrize("flags", [
+    ["-a"], ["-T", "20"], ["-k", "25"], ["-Y"], ["-M"], ["-K", "10000"],
+    ["-R", "@RG\\tID:x\\tSM:y"]],
+    ids=["a", "T20", "k25", "Y", "M", "K10000", "R"])
+def test_cli_mem_se_flags_match_jax(world, monkeypatch, flags):
+    """The single-end options through both command lines (the port's on
+    its CPU engine): the SAM, header included, equals bwa_tpu's but for
+    @PG.  72 reads are 10,800 bases, so -K 10000 reads two chunks."""
+    from bwa_tpu.cli import main as jax_main
+    from bwa_tpu_torch.cli import main
+
+    monkeypatch.setenv("BWA_TPU_NO_DAEMON", "1")
+    fq = world["dir"] / "flags.fq"
+    write_fastq(fq, simulate_reads(world["genome"], 72, read_len=150,
+                                   seed=71, err_rate=0.02))
+    outs = []
+    for run, extra in ((jax_main, []), (main, ["--device", "cpu"])):
+        out = io.StringIO()
+        assert run(["mem", *flags, *extra, world["prefix"], str(fq)],
+                   out_fp=out) == 0
+        outs.append([ln for ln in out.getvalue().splitlines()
+                     if not ln.startswith("@PG")])
+    assert sum(not ln.startswith("@") for ln in outs[0]) >= 72
+    assert outs[1] == outs[0]
