@@ -31,8 +31,8 @@ from bwa_tpu_torch.ops import gap_machine as gm
 CAPS = "1024,8192,65536"
 # the most bytes of stack slots one launch allocates (lanes x cap x a
 # slot's bytes): an eighth of an H100's 80 GB.  A rung with more lanes
-# runs in several launches (1024: 218,453 lanes a launch with int32
-# coordinates; 8192: 27,306; 65536: 3,413)
+# runs in several launches (32-byte slots: 1024: 327,680 lanes a launch,
+# a whole 0x40000-read chunk; 8192: 40,960; 65536: 5,120)
 SCRATCH_BYTES = 10 << 30
 
 
@@ -89,17 +89,18 @@ def _prep_chunk(pk, opt: GapOpt):
 
 
 def _run_lanes(engine, opt: GapOpt, lanes, dq, wb0, sb, use_seed, cap,
-               cap_a, max_steps, n_lists):
+               cap_a, max_steps, n_lists, idx=None):
     """One gap machine launch over the lanes `lanes` (indices into the
-    chunk's device arrays dq); returns (rows, n_aln, ovf): rows [tot, 8]
-    int64 on the host, the records of every lane that did not overflow,
-    lane by lane in lane order."""
+    chunk's device arrays dq) on the tree idx (the engine's by default);
+    returns (rows, n_aln, ovf): rows [tot, 8] int64 on the host, the
+    records of every lane that did not overflow, lane by lane in lane
+    order."""
     dev = engine.device
     li = torch.as_tensor(lanes, device=dev)
     scal = tuple(int(getattr(opt, k)) for k in gm.SCALARS)
     out = gm.gap_machine(
-        engine.idx, dq["qc"][li], dq["lens"][li], dq["md"][li], dq["mg"][li],
-        dq["seed_en"][li], sb[li], wb0[li],
+        engine.idx if idx is None else idx, dq["qc"][li], dq["lens"][li],
+        dq["md"][li], dq["mg"][li], dq["seed_en"][li], sb[li], wb0[li],
         torch.ones(len(lanes), dtype=torch.bool, device=dev), scal, cap=cap,
         cap_a=cap_a, use_seed=use_seed,
         f_gape=bool(opt.mode & BWA_MODE_GAPE),
@@ -136,6 +137,30 @@ def _host_fallback(engine, opt: GapOpt, orig_row, qlen, md_i, mg_i):
     return match_gap(host, q, w, seed_w, local)
 
 
+def search_tree(engine, fm):
+    """The index tree K7 and K7w read on a CUDA engine: the engine's, with
+    an occtab of R = 1 rows (8 text words) where the engine's is re-tiled
+    R = 4 (genomes past 2^16 blocks, for the seeding kernel).  A lookup
+    then reads 48 bytes, not 144, and a group of 2 threads (not 8) makes
+    it, so a warp carries 16 searches (PERF.md §6).  Built once an
+    engine; a CPU engine's tree is its own."""
+    from bwa_tpu_torch.index.fmindex import _i32_bits, build_occtab
+
+    idx = engine.idx
+    occ = idx.get("occtab")
+    if occ is None or not occ.is_cuda or occ.shape[1] == 12:
+        return idx
+    tree = getattr(engine, "k7_tree", None)
+    if tree is None:
+        occ1 = build_occtab(fm, 1)
+        if occ1 is None:
+            return idx
+        tree = dict(idx, occtab=torch.from_numpy(_i32_bits(occ1))
+                    .to(occ.device))
+        engine.k7_tree = tree
+    return tree
+
+
 def aln_batch_device(fm, engine, pk, opt: GapOpt):
     """bt_aln_batch's device twin: (out_n, rows) for SaiWriter.
     rows: [tot, 8] int64 = (n_mm, n_gapo, n_gape, score, n_ins, n_del,
@@ -143,7 +168,7 @@ def aln_batch_device(fm, engine, pk, opt: GapOpt):
     cuts the chunk into buckets of that many reads; a rung's launches are
     cut to SCRATCH_BYTES."""
     n = pk.n
-    idx = engine.idx
+    idx = search_tree(engine, fm)
     dev = engine.device
     cdt = idx["cdt"]
     L, md, mg, orig, qc, seed_en, use_seed, swin, skip = \
@@ -175,15 +200,17 @@ def aln_batch_device(fm, engine, pk, opt: GapOpt):
         else:
             sb = torch.zeros((nb, 1, 2), dtype=cdt, device=dev)
         todo = ~skip[sl_]
+        wide = gm.wide_records(L, md[sl_].max(), mg[sl_].max(), scal,
+                               n_lists)
         for ci, cap in enumerate(caps):
             lanes = np.flatnonzero(todo)
             todo = np.zeros(nb, bool)
-            per = max(1, SCRATCH_BYTES // (cap * gm.slot_bytes(cdt)))
+            per = max(1, SCRATCH_BYTES // (cap * gm.slot_bytes(cdt, wide)))
             for g in range(0, lanes.size, per):
                 part = lanes[g:g + per]
                 rows, n_aln, ovf = _run_lanes(
                     engine, opt, part, dq, wb0, sb, use_seed, cap,
-                    cap_a0 * (1 << ci), max_steps, n_lists)
+                    cap_a0 * (1 << ci), max_steps, n_lists, idx)
                 done = lo + part[~ovf]
                 out_n[done] = n_aln[~ovf]
                 part_ids.append(np.repeat(done, n_aln[~ovf]))

@@ -105,8 +105,8 @@ def _bind(libs) -> None:
     f = libs["gap_machine.cu"].bwa_gap_machine
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp,
-                  vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp,
-                  vp, vp, vp, vp, vp, vp, vp, vp]
+                  vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp,
+                  vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -211,11 +211,14 @@ def cal_width(occtab, L2, primary, seq_len, q, out) -> None:
 
 def gap_machine(occtab, L2, primary, seq_len, q, qlen, md, mg, seed_en, sb,
                 wb, active, scal, max_steps, cap, cap_a, use_seed, f_gape,
-                f_nonstop, f_loggap, heads, pool, aln_m, aln_kl, n_aln, n_stk,
-                done_step, n_occ, ovf, steps) -> None:
+                f_nonstop, f_loggap, wide, n_lists, heads, bits, pool, aln_m,
+                aln_kl, n_aln, n_stk, done_step, n_occ, ovf, steps) -> None:
     """Launch K7 (csrc/gap_machine.cu) on the current stream; scal: the
-    ten integer options (host ints); the stack scratch: heads [B, nb] (one
-    list a score) and pool [B, cap, 12 or 16] int32 (a record a slot)."""
+    ten integer options (host ints); n_lists score lists; the stack
+    scratch: pool [B, cap, 8] int32 (a 32-byte record a slot), or with
+    wide the wide-record variant's pool [B, cap, 12 or 16] with heads
+    [B, n_lists] and bits [B, ceil(n_lists / 32)] int32; steps [2] zeroed
+    (the longest lane's steps and the persistent grid's lane counter)."""
     lib = build_all()["gap_machine.cu"]
     B, L = q.shape
     sc = (ctypes.c_int32 * 10)(*scal)
@@ -226,7 +229,8 @@ def gap_machine(occtab, L2, primary, seq_len, q, qlen, md, mg, seed_en, sb,
         _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(qlen),
         _ptr(md), _ptr(mg), _ptr(seed_en), _ptr(sb), sb.shape[1], _ptr(wb),
         _ptr(active), ctypes.cast(sc, ctypes.c_void_p), int(max_steps),
-        int(cap), int(cap_a), heads.shape[1], flags, _ptr(heads), _ptr(pool),
-        _ptr(aln_m), _ptr(aln_kl), _ptr(n_aln), _ptr(n_stk), _ptr(done_step),
-        _ptr(n_occ), _ptr(ovf), _ptr(steps), _stream(q))
+        int(cap), int(cap_a), int(n_lists), flags, int(wide), _ptr(heads),
+        _ptr(bits), _ptr(pool), _ptr(aln_m), _ptr(aln_kl), _ptr(n_aln),
+        _ptr(n_stk), _ptr(done_step), _ptr(n_occ), _ptr(ovf), _ptr(steps),
+        _stream(q))
     _check(rc, "gap_machine")

@@ -24,10 +24,14 @@ gap_machine_plain and cal_width_plain are line-for-line translations of
 the JAX package's ops/gap_machine.py::gap_machine and cal_width_device,
 one step of every lane per loop iteration as masked tensor ops, with the
 initial state of its driver (aln/batch_search.py::_init_state) folded in.
-The CUDA kernels (csrc/gap_machine.cu) run the same machine with a thread
-per lane until the lane is done: K7 (bwa_gap_machine) the search, K7w
-(bwa_cal_width) the width table.  gap_machine and cal_width dispatch: a
-CUDA tensor launches the kernel, a CPU tensor takes the plain version.
+The CUDA kernels (csrc/gap_machine.cu) run the same machine with a group
+of 2R threads per lane until the lane is done: K7 (bwa_gap_machine) the
+search, K7w (bwa_cal_width) the width table.  gap_machine and cal_width
+dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
+version.  The end of this module models the kernels' parts in plain
+PyTorch (the group occ4, the stack's bookkeeping, the packed record, the
+strided hit bookkeeping) for the CPU tests
+(tests/test_torch_gap_rows.py); no search runs them.
 
 Exactness risks that cannot be represented (stack deeper than `cap`, more
 than cap_a hits, score/seqno key overflow, max_steps) flag `ovf`; the
@@ -39,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from bwa_tpu_torch.ops.fm import _occ4
+from bwa_tpu_torch.ops.fm import _M55, _MFF, _occ4, _popc32, _u32
 
 P_RUN = 0
 P_WALK = 1
@@ -66,6 +70,20 @@ SCALARS = ("s_mm", "s_gapo", "s_gape", "max_gape", "max_seed_diff",
 # launches of K7 and K7w (the CUDA wrappers below add one per launch)
 launches = 0
 width_launches = 0
+# a list to time each K7 launch alone: (start, end) CUDA events around the
+# kernel, beside the wrapper's allocations (set by chip_smoke.py)
+kernel_events = None
+
+# K7's compact 32-byte record (csrc/gap_machine.cu mirrors these): reads up
+# to PACK_L (i, ldp in 10 bits), md + 1, mg and max_gape up to PACK_D (8
+# bits), at most PACK_LISTS score lists (a register bitmap); any other
+# launch takes the wide-record variant.  FREE_SLOTS freed slots are cached
+# a lane, and past them CHUNK at a time go into a freed slot
+PACK_L = 512
+PACK_D = 255
+PACK_LISTS = 128
+FREE_SLOTS = 16
+CHUNK = 7
 
 
 def _col4(mat, c):
@@ -159,6 +177,13 @@ def _cal_width_cuda(idx, q):
                            idx["primary"], idx["seq_len"], q8, out)
     width_launches += 1
     return out
+
+
+def _aligned(t):
+    """t contiguous at a 16-byte address (K7 reads its (width, bid) pairs
+    whole)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _check_occtab(idx, name):
@@ -528,18 +553,47 @@ def score_lists(md_max: int, mg_max: int, scal) -> int:
     return min(top, SCORE_CAP) + 1
 
 
-def slot_bytes(cdt) -> int:
-    """Bytes of one K7 stack slot: 8 fields, k, l and a list link, padded
-    to 16-byte vectors."""
+def slot_bytes(cdt, wide: bool = False) -> int:
+    """Bytes of one K7 stack slot: k, l, a list link and the eight small
+    fields packed into 32 bytes, or in the wide-record variant the eight
+    fields as int32, padded to 16-byte vectors (48, or 64 with int64
+    coordinates)."""
+    if not wide:
+        return 32
     return 48 if cdt == torch.int32 else 64
+
+
+def wide_records(L: int, md_max: int, mg_max: int, scal,
+                 n_lists: int) -> bool:
+    """Whether a K7 launch takes the wide-record variant: a read longer
+    than PACK_L, md + 1, mg or max_gape past PACK_D, or more than
+    PACK_LISTS score lists."""
+    return not (L <= PACK_L and int(md_max) + 1 <= PACK_D
+                and int(mg_max) <= PACK_D and int(scal[3]) <= PACK_D
+                and n_lists <= PACK_LISTS)
+
+
+def overflow_causes(out, cap: int, cap_a: int) -> dict:
+    """Why a K7 launch's lanes overflowed, from its outputs: max_steps (the
+    lane never ended), cap_a (more hits than cap_a), stack (the pool
+    full: n_stk == cap), other (a score or seqno past the key)."""
+    ovf = out["ovf"].bool()
+    steps = ovf & (out["done_step"] == 0)
+    hits = ovf & ~steps & (out["n_aln"] > cap_a)
+    stack = ovf & ~steps & ~hits & (out["n_stk"] == cap)
+    return dict(stack=int(stack.sum()), cap_a=int(hits.sum()),
+                max_steps=int(steps.sum()),
+                other=int((ovf & ~steps & ~hits & ~stack).sum()))
 
 
 def _gap_machine_cuda(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
                       *, cap, cap_a, use_seed, f_gape, f_nonstop, f_loggap,
                       max_steps, n_lists) -> dict:
-    """Kernel K7 launch: a thread per lane runs its search to its end (or
-    to max_steps); its stack (the reference's one LIFO list a score over a
-    pool of `cap` slots) lives in global scratch allocated here."""
+    """Kernel K7 launch: a group of 2R threads per lane runs its search to
+    its end (or to max_steps), a persistent grid taking lanes from a
+    counter; its stack (the reference's one LIFO list a score over a pool
+    of `cap` slots) keeps its bookkeeping in registers and shared memory
+    and its slots in global scratch allocated here."""
     global launches
     from bwa_tpu_torch.ops import cuda_kernels
 
@@ -556,11 +610,16 @@ def _gap_machine_cuda(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
     for t in (q, qlen, md, mg, seed_en, sb, wb, active, occtab):
         if not t.is_cuda:
             raise ValueError("K7 inputs must be CUDA tensors")
+    wide = wide_records(L, int(md.max()) if B else 0,
+                        int(mg.max()) if B else 0, scal, n_lists)
     q8 = q.to(torch.uint8).contiguous()
     # the search rewrites its width table (gap_shadow): a copy per launch
     wb_run = wb.clone().contiguous()
-    heads = torch.empty((B, n_lists), dtype=i32, device=dev)
-    pool = torch.empty((B, cap, slot_bytes(cdt) // 4), dtype=i32,
+    nbw = (n_lists + 31) // 32
+    heads = torch.empty((B, n_lists) if wide else (1,), dtype=i32,
+                        device=dev)
+    bits = torch.empty((B, nbw) if wide else (1,), dtype=i32, device=dev)
+    pool = torch.empty((B, cap, slot_bytes(cdt, wide) // 4), dtype=i32,
                        device=dev)
     aln_m = torch.zeros((B, cap_a, 6), dtype=i32, device=dev)
     aln_kl = torch.zeros((B, cap_a, 2), dtype=cdt, device=dev)
@@ -569,17 +628,282 @@ def _gap_machine_cuda(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
     done_step = torch.empty(B, dtype=i32, device=dev)
     n_occ = torch.empty(B, dtype=i32, device=dev)
     ovf = torch.empty(B, dtype=torch.uint8, device=dev)
-    steps = torch.zeros(1, dtype=i32, device=dev)
+    steps = torch.zeros(2, dtype=i32, device=dev)  # + the lane counter
+    ev = kernel_events is not None
+    if ev:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
     cuda_kernels.gap_machine(
         occtab, idx["L2"].to(torch.int64).contiguous(), idx["primary"],
         idx["seq_len"], q8, qlen.to(i32).contiguous(),
         md.to(i32).contiguous(), mg.to(i32).contiguous(),
-        seed_en.to(torch.uint8).contiguous(), sb.contiguous(), wb_run,
+        seed_en.to(torch.uint8).contiguous(), _aligned(sb), wb_run,
         active.to(torch.uint8).contiguous(), [int(x) for x in scal],
         min(int(max_steps), 2**31 - 1), cap, cap_a, bool(use_seed),
-        bool(f_gape), bool(f_nonstop), bool(f_loggap), heads, pool, aln_m,
-        aln_kl, n_aln, n_stk, done_step, n_occ, ovf, steps)
+        bool(f_gape), bool(f_nonstop), bool(f_loggap), wide, n_lists, heads,
+        bits, pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ, ovf,
+        steps)
+    if ev:
+        e1.record()
+        kernel_events.append((e0, e1))
     launches += 1
     return dict(aln_m=aln_m, aln_kl=aln_kl, n_aln=n_aln, n_stk=n_stk,
                 done_step=done_step, n_occ=n_occ, ovf=ovf.bool(),
-                steps=steps)
+                steps=steps[:1])
+
+
+# --------------------------------------------------------------------------
+# K7 and K7w's parts in plain PyTorch (tests/test_torch_gap_rows.py): what
+# each thread of a group holds, step by step as csrc/gap_machine.cu does it
+# --------------------------------------------------------------------------
+
+def group_occ4_pair(idx, ka, kb, G: int):
+    """occ4_pair of csrc/gap_machine.cu: the G = 2H threads of a group look
+    up occ4 at ka and kb [N] (threads [0, H) count B[0..ka], [H, 2H)
+    B[0..kb], 8 text words each), sum packed 10-bit counts of bases 1-3 by
+    xor shuffles within each half, and exchange the four counts between
+    the halves.  Returns oa, ob [N, G, 4] int64: what each thread holds."""
+    i64 = torch.int64
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    H = G // 2
+    if nw != 8 * H:
+        raise ValueError("a group has 2R threads, 8 text words each")
+    rb = (nw // 8).bit_length() - 1
+    seq_len, primary = idx["seq_len"], idx["primary"]
+    L2 = idx["L2"].to(i64)
+    ka, kb = ka.to(i64), kb.to(i64)
+    packed, base, k_of = [], [], []
+    for gl in range(G):
+        half = gl >= H
+        h = gl - H if half else gl
+        k = kb if half else ka
+        kk = (k - (k >= primary).to(i64)).clamp(0, seq_len - 1)
+        row = occ[kk >> (7 + rb)]
+        kw, kbit = (kk >> 4) & (nw - 1), kk & 15
+        p = torch.zeros_like(k)
+        for t in range(8):
+            nkeep = (kw - (h * 8 + t)) * 16 + kbit + 1
+            shift = (16 - nkeep.clamp(1, 15)) << 1
+            mask = torch.where(nkeep <= 0, 0, torch.where(
+                nkeep >= 16, _MFF, (_MFF << shift) & _MFF))
+            word = _u32(row[:, 4 + h * 8 + t]) & mask
+            hi, lo = (word >> 1) & _M55, word & _M55
+            n3 = _popc32(hi & lo)
+            p = p + ((_popc32(lo) - n3) | ((_popc32(hi) - n3) << 10)
+                     | (n3 << 20))
+        packed.append(p)
+        base.append((_u32(row[:, :4]), kw * 16 + kbit + 1))
+        k_of.append(k)
+    off = 1
+    while off < H:  # __shfl_xor_sync within each half
+        packed = [packed[gl] + packed[gl ^ off] for gl in range(G)]
+        off <<= 1
+    o = []
+    L2d = (L2[1:5] - L2[:4])[None, :]
+    for gl in range(G):
+        p, (cnt, npos), k = packed[gl], base[gl], k_of[gl]
+        n1, n2, n3 = p & 1023, (p >> 10) & 1023, p >> 20
+        v = cnt + torch.stack([npos - n1 - n2 - n3, n1, n2, n3], dim=1)
+        v = torch.where((k == seq_len)[:, None], L2d, v)
+        o.append(torch.where((k == -1)[:, None], 0, v))
+    oa = torch.stack([o[gl ^ H] if gl >= H else o[gl] for gl in range(G)],
+                     dim=1)
+    ob = torch.stack([o[gl] if gl >= H else o[gl ^ H] for gl in range(G)],
+                     dim=1)
+    return oa, ob
+
+
+def pack_record(e: dict, nxt: int, cdt, wide: bool) -> list:
+    """A stack entry (k, l, i, mm, go, ge, ins, del, st, ldp) and its list
+    link as the int32 words of K7's slot (slot_bytes(cdt, wide) / 4)."""
+    w = [0] * (slot_bytes(cdt, wide) // 4)
+    if cdt == torch.int64:
+        w[:4] = [_s32(e["k"]), _s32(e["k"] >> 32), _s32(e["l"]),
+                 _s32(e["l"] >> 32)]
+        o = 4
+    else:
+        w[:2] = [_s32(e["k"]), _s32(e["l"])]
+        o = 2
+    w[o] = nxt
+    if wide:
+        w[o + 1:o + 9] = [e[f] for f in ("i", "ldp", "st", "mm", "go", "ge",
+                                         "ins", "del")]
+    else:
+        w[o + 1] = _s32(e["i"] | e["ldp"] << 10 | e["st"] << 20)
+        w[o + 2] = _s32(e["mm"] | e["go"] << 8 | e["ge"] << 16)
+        w[o + 3] = _s32(e["ins"] | e["del"] << 16)
+    return w
+
+
+def unpack_record(w: list, cdt, wide: bool):
+    """pack_record's inverse: (entry, link)."""
+    if cdt == torch.int64:
+        k = _s64(w[0] & _MFF | (w[1] & _MFF) << 32)
+        l_ = _s64(w[2] & _MFF | (w[3] & _MFF) << 32)
+        o = 4
+    else:
+        k, l_, o = w[0], w[1], 2
+    e = dict(k=k, l=l_)
+    if wide:
+        e.update(zip(("i", "ldp", "st", "mm", "go", "ge", "ins", "del"),
+                     w[o + 1:o + 9]))
+    else:
+        a, b, c = (x & _MFF for x in w[o + 1:o + 4])
+        e.update(i=a & 1023, ldp=(a >> 10) & 1023, st=(a >> 20) & 3,
+                 mm=b & 255, go=(b >> 8) & 255, ge=(b >> 16) & 255,
+                 ins=c & 0xFFFF)
+        e["del"] = c >> 16
+    return e, w[o]
+
+
+def _s32(x: int) -> int:
+    x &= _MFF
+    return x - (1 << 32) if x >> 31 else x
+
+
+def _s64(x: int) -> int:
+    x &= (1 << 64) - 1
+    return x - (1 << 64) if x >> 63 else x
+
+
+class StackModel:
+    """K7's stack for one lane as csrc/gap_machine.cu keeps it: score lists
+    whose heads and non-empty bitmap are on chip, the next pop in
+    registers (the newest child an expansion pushes onto the list it
+    popped from), freed slots in a stack of FREE_SLOTS and past it in
+    chunks of CHUNK in the pool, and the pool's packed records.  step()
+    takes one pop and its children as the kernel does; the plain
+    version's key array is the reference (tests/test_torch_gap_rows.py)."""
+
+    def __init__(self, cap: int, nb: int, cdt=torch.int32,
+                 wide: bool = False):
+        self.cap, self.nb, self.cdt, self.wide = cap, nb, cdt, wide
+        self.pool = [[0] * (slot_bytes(cdt, wide) // 4) for _ in range(cap)]
+        self.heads = [0] * nb
+        self.bits = 0
+        self.lo = nb
+        self.fs, self.hw, self.gfree = [], 0, -1
+        self.nx = None
+        self.n_stk = 0
+        self.loads = 0  # loads of the pool's free list (chunk refills)
+
+    def root(self, e: dict) -> None:
+        self.nx, self.n_stk = dict(e), 1
+
+    def _first(self) -> int:
+        b = self.bits
+        return (b & -b).bit_length() - 1 if b else self.nb
+
+    def pop(self):
+        """The least entry, and the slot it freed (-1 for the next pop kept
+        in registers)."""
+        if self.nx is not None:
+            e, self.nx, fslot = self.nx, None, -1
+        else:
+            sel = self.heads[self.lo]
+            e, nxt = unpack_record(self.pool[sel], self.cdt, self.wide)
+            self.heads[self.lo] = nxt
+            if nxt < 0:
+                self.bits &= ~(1 << self.lo)
+                self.lo = self._first()
+            fslot = sel
+        self.n_stk -= 1
+        return e, fslot
+
+    def push(self, bkp: int, kids: list, fslot: int):
+        """The children of the entry popped from list bkp, in push order:
+        (valid, score, entry); returns (n_push, nfree, the slot freed and
+        not taken, or -1)."""
+        nb, nfree = self.nb, self.cap - self.n_stk
+        bk = [min(max(sc, 0), nb - 1) for _, sc, _ in kids]
+        pushed, n_push, cc = [], 0, -1
+        for c, (v, _, _) in enumerate(kids):
+            pushed.append(v and n_push < nfree)
+            n_push += v
+            if pushed[c] and bk[c] == bkp:
+                cc = c
+        st = [p and c != cc for c, p in enumerate(pushed)]
+        n_st, have_f = sum(st), int(fslot >= 0)
+        while have_f + len(self.fs) + self.cap - self.hw < n_st:
+            ch = self.pool[self.gfree]
+            self.loads += 1
+            self.fs += ch[:CHUNK] + [self.gfree]
+            self.gfree = ch[CHUNK]
+        slot, link, r = [], [], 0
+        for c in range(len(kids)):
+            s = -1
+            if st[c]:
+                r2 = r - have_f
+                s = fslot if r2 < 0 else (
+                    self.fs[-1 - r2] if r2 < len(self.fs)
+                    else self.hw + r2 - len(self.fs))
+                r += 1
+            slot.append(s)
+            lk = self.heads[bk[c]] if self.bits >> bk[c] & 1 else -1
+            for d in range(c):
+                if st[d] and bk[d] == bk[c]:
+                    lk = slot[d]
+            link.append(lk)
+        used_f = min(n_st, have_f)
+        from_fs = min(n_st - used_f, len(self.fs))
+        self.hw += n_st - used_f - from_fs
+        del self.fs[len(self.fs) - from_fs:]
+        for c, (_, _, e) in enumerate(kids):
+            if c == cc:
+                self.nx = dict(e)
+            if st[c]:
+                self.pool[slot[c]] = pack_record(e, link[c], self.cdt,
+                                                 self.wide)
+                if not any(st[d] and bk[d] == bk[c]
+                           for d in range(c + 1, len(kids))):
+                    self.heads[bk[c]] = slot[c]
+                    self.bits |= 1 << bk[c]
+                    self.lo = min(self.lo, bk[c])
+        self.n_stk += min(n_push, nfree)
+        assert self.hw <= self.cap
+        return n_push, nfree, -1 if used_f else fslot
+
+    def free(self, fslot: int) -> None:
+        """The popped slot no child took: onto the stack, or spill CHUNK of
+        the stack into it."""
+        if fslot < 0:
+            return
+        if len(self.fs) < FREE_SLOTS:
+            self.fs.append(fslot)
+            return
+        self.pool[fslot][:CHUNK + 1] = self.fs[-CHUNK:] + [self.gfree]
+        del self.fs[-CHUNK:]
+        self.gfree = fslot
+
+
+def shadow_strided(w, x: int, tn: int, seq_len: int, G: int):
+    """gap_shadow (bwtgap.c:86-96) over w[:tn] ([L, 2] int64, modified in
+    place) as a group of G threads does it: G positions a round, each
+    equal width's rank in the running count from a ballot and a
+    popcount."""
+    jj = 0
+    for t0 in range(0, tn, G):
+        t = torch.arange(t0, t0 + G)
+        inn = t < tn
+        tt = t.clamp(max=max(tn - 1, 0))
+        wv = torch.where(inn, w[tt, 0], 0)
+        eq = inn & (wv == x)
+        rank = torch.cumsum(eq.to(torch.int64), 0) - eq.to(torch.int64)
+        for g in range(G):
+            if eq[g]:
+                w[t0 + g, 0] = seq_len - (jj + int(rank[g]) + 1)
+                w[t0 + g, 1] = 1
+            elif inn[g] and wv[g] > x:
+                w[t0 + g, 0] = wv[g] - x
+        jj += int(eq.sum())
+    return w
+
+
+def dup_strided(akl, na: int, hk: int, hl: int, G: int) -> bool:
+    """The tandem duplicate test (bwtgap.c:166-169) over the first na hits
+    (akl [cap_a, 2]) by G threads, hit s by thread s mod G, then a vote."""
+    votes = [any(int(akl[s, 0]) == hk and int(akl[s, 1]) == hl
+                 for s in range(g, na, G)) for g in range(G)]
+    return any(votes)

@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py [--log DIR]
     python3 chip_smoke.py --aln-chunk
+    python3 chip_smoke.py --k7-bench
 
 Run from the repository root on a machine with one CUDA card.  With
---aln-chunk it only runs one whole `aln` chunk on the card (aln_chunk_main).
+--aln-chunk it only runs one whole `aln` chunk on the card (aln_chunk_main);
+with --k7-bench only K7 and K7w at aln_se_100bp's first launches, alone,
+on fewer lanes and on both occtab layouts (k7_bench_main).
 Without, in order:
   1. builds the hand-written kernels (csrc/*.cu, nvcc sm_90a, in parallel)
      and the native library;
@@ -69,8 +72,10 @@ Without, in order:
      launch (256 lanes and the last) to the plain versions on the card,
      and the first launch of K7's second rung (cap 8192; 32 of its lanes
      and its longest) to the plain version on the host meanwhile;
-     prints each K7 launch's event ms, cap, lanes, longest lane's steps
-     and ns a step, the device and native search seconds, the kernels'
+     prints each K7 launch's event ms (the wrapper's, and the kernel's
+     alone, without the scratch allocation), cap, lanes, longest lane's
+     steps, ns a step and why its lanes overflowed (the stack cap, cap_a,
+     max_steps), the device and native search seconds, the kernels'
      share of the device search's wall and the reads that fell back to
      the host spec; prints each K1 launch's event time with its longest
      lane's steps and ns a step, each K2 launch's event time with its P,
@@ -892,9 +897,12 @@ def aln_phase(d, prefix, phase, fqs, recs, fallback):
     n_reads = 0
     info = dict(phase=phase, native_s=0.0, device_s=0.0, fallback_reads=0,
                 launches={}, kernel_event_ms={})
+    from bwa_tpu_torch.ops import gap_machine
+
     for r in recs.values():
         r.events = []
         r.phase = phase
+    gap_machine.kernel_events = []  # K7's kernel alone, launch by launch
     sais = []
     for fq in fqs:
         n_reads += sum(1 for _ in open(fq)) // 4
@@ -914,6 +922,10 @@ def aln_phase(d, prefix, phase, fqs, recs, fallback):
         sai.write_bytes(dev)
         sais.append(sai)
     info["kernel_event_ms"] = {k: r.take_ms() for k, r in recs.items()}
+    alone = [a.elapsed_time(b) for a, b in gap_machine.kernel_events]
+    gap_machine.kernel_events = None
+    K7_ALONE_MS.extend(alone)
+    info["k7_kernel_only_ms"] = sum(alone)
     info["kernel_share_of_device_wall"] = (
         sum(info["kernel_event_ms"].values()) / 1e3 / info["device_s"])
     info.update(reads=n_reads, sai_equal_native=True,
@@ -1061,6 +1073,75 @@ def aln_chunk_main() -> int:
                           longest_lane_steps=int(st))
                      for c, n, e0, e1, st in calls],
         card=card.strip())), flush=True)
+    return 0
+
+
+# each main-path K7 launch's time without its wrapper's allocations, in
+# call order (aln_phase)
+K7_ALONE_MS: list = []
+
+
+def k7_keep(out):
+    """What the K7 recorder keeps of a launch: the longest lane's steps and
+    the outputs overflow_causes reads."""
+    return {k: out[k] for k in ("steps", "ovf", "done_step", "n_aln",
+                                "n_stk")}
+
+
+def k7_bench_main() -> int:
+    """K7 and K7w at aln_se_100bp's first launches: `aln` with the device
+    search through the CLI, each wrapper's first call recorded, then
+    timed alone with CUDA events (a warm launch, then 3 or 5); K7's first
+    launch also on its longest lane alone (a lone lane's step latency)
+    and with 1,023 and 16,383 other lanes, and both kernels on R = 1 and
+    R = 4 occtab rows of the same genome.  Prints one JSON line."""
+    import torch
+
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex, FMIndex
+    from bwa_tpu_torch.native.build import get_lib
+    from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    get_lib()
+    cuda_kernels.build_all()
+    d = REPO / "build" / "smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    fa, codes = make_genome(d)
+    reads, _ = simulate(codes, 65536, 100, SEED + 10, 0.02, 0.001, "a")
+    fq = d / "aln_se_100bp.fq"
+    write_fastq(fq, reads)
+    recs = {"K7": Recorder(gm, "gap_machine"),
+            "K7w": Recorder(gm, "cal_width")}
+    run_aln(str(fa), fq, True)
+    for r in recs.values():
+        r.restore()
+    (_, a, k), (_, aw, _) = recs["K7"].calls[0], recs["K7w"].calls[0]
+    res = dict(card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(),
+        occtab_words=int(a[0]["occtab"].shape[1] - 4))
+    full = gm.gap_machine(*a, **k)
+    top = int(k7_steps(full, k["max_steps"]).argmax())
+    longest = int(full["steps"][0])
+    for n in (1, 1024, 16384, a[1].shape[0]):
+        r = torch.arange(n, device=a[1].device)
+        r[-1] = top
+        sub = a if n == a[1].shape[0] else \
+            [a[0]] + [x[r] for x in a[1:9]] + [a[9]]
+        ms = cuda_time(lambda: gm.gap_machine(*sub, **k), 3)
+        res[f"k7_{n}_lanes"] = dict(ms=ms, ns_per_step=per_unit(ms, longest))
+    fmi = FMIndex.load(str(fa))
+    for R in (1, 4):
+        t = DeviceFMIndex(fmi, device="cuda", occ_r=R).tree()
+        out = gm.gap_machine(t, *a[1:], **k)
+        res[f"r{R}"] = dict(
+            k7_ms=cuda_time(lambda: gm.gap_machine(t, *a[1:], **k), 3),
+            k7w_ms=cuda_time(lambda: gm.cal_width(t, aw[1]), 5),
+            k7_equal=all(torch.equal(out[x], full[x]) for x in full))
+    print(json.dumps(res), flush=True)
     return 0
 
 
@@ -1229,17 +1310,36 @@ def time_k7(rec, reps=3):
                overflow_lanes=int(full["ovf"].sum()))
     launches = []
     for i, (ph_i, a, k) in enumerate(rec.calls):
-        ms_i, top = rec.call_ms[i], int(rec.kept[i])
-        launches.append(dict(phase=ph_i, call=i, cap=k["cap"],
-                             cap_a=k["cap_a"], lanes=int(a[1].shape[0]),
-                             event_ms=ms_i, longest_lane_steps=top,
-                             ns_per_step=per_unit(ms_i, top)))
+        ms_i, top = rec.call_ms[i], int(rec.kept[i]["steps"])
+        alone = K7_ALONE_MS[i]
+        launches.append(dict(
+            phase=ph_i, call=i, cap=k["cap"], cap_a=k["cap_a"],
+            lanes=int(a[1].shape[0]), event_ms=ms_i, kernel_only_ms=alone,
+            longest_lane_steps=top, ns_per_step=per_unit(alone, top),
+            overflow=gm.overflow_causes(rec.kept[i], k["cap"], k["cap_a"])))
         log(f"K7 launch {launches[-1]}")
     res["launches_on_main_path"] = launches
     log(f"K7 timed {res}")
     if not equal:
         fail(f"K7 disagrees with its plain version: {res['shape']}")
     return res
+
+
+K7_DESIGN = (
+    "redesigned for Hopper: a group of 2R threads a lane (2 on the "
+    "R = 1 occtab the aln path passes), one cooperative occ4 pair a step "
+    "whatever its phase, its loads issued together with those of the codes "
+    "and width tables; the next pop (the exact-match child) in registers, "
+    "a register bitmap of the non-empty score lists, list heads and 16 "
+    "freed slots in shared memory, further freed slots in chunks of 7 in "
+    "the pool, 32-byte packed records; a persistent grid taking lanes from "
+    "a counter; a wide-record variant for fields past the packed widths")
+K7W_DESIGN = (
+    "redesigned for Hopper: a group of 2R threads a read (2 on the "
+    "R = 1 occtab the aln path passes), one cooperative occ4 pair a base "
+    "(half the group counts B[0..k-1], half B[0..l], every load issued "
+    "together, packed 10-bit sums by shuffles), the next code loaded a "
+    "step ahead")
 
 
 def time_k7w(rec, reps=5):
@@ -1828,6 +1928,8 @@ def main(argv) -> int:
         return k7_plain_host(*argv[1:3])
     if argv[:1] == ["--aln-chunk"]:
         return aln_chunk_main()
+    if argv[:1] == ["--k7-bench"]:
+        return k7_bench_main()
     log_dir = None
     if "--log" in argv:
         log_dir = Path(argv[argv.index("--log") + 1])
@@ -1987,8 +2089,7 @@ def main(argv) -> int:
         from bwa_tpu_torch.aln import batch_search
         from bwa_tpu_torch.ops import gap_machine
 
-        arecs = {"K7": Recorder(gap_machine, "gap_machine",
-                                keep=lambda out: out["steps"]),
+        arecs = {"K7": Recorder(gap_machine, "gap_machine", keep=k7_keep),
                  "K7w": Recorder(gap_machine, "cal_width")}
         fallback = Counter(batch_search, "_host_fallback")
         t0 = time.perf_counter()
@@ -2046,7 +2147,9 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         k7 = time_k7(arecs["K7"])
         k7["second_rung"] = wait_k7_host_plain(k7_host[0])
+        k7["design"] = K7_DESIGN
         k7w = time_k7w(arecs["K7w"])
+        k7w["design"] = K7W_DESIGN
         phase_ladder = wait_aln_ladder(ladder[0], str(fa))
         log(f"K7, K7w and the ladder checked in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -2110,11 +2213,11 @@ def main(argv) -> int:
              "bwa_tpu/ops/ksw_pallas.py:273", k5, entry_par,
              phase_entry["launches"]["K5"], None),
             ("K7 gap_machine", "bwa_tpu_torch/csrc/gap_machine.cu",
-             "bwa_tpu/ops/gap_machine.py:162", k7, None,
+             "bwa_tpu/ops/gap_machine.py:164", k7, None,
              sum(p["launches"]["K7"] for p in (phase_aln_se, phase_aln_pe)),
              None),
             ("K7w cal_width", "bwa_tpu_torch/csrc/gap_machine.cu",
-             "bwa_tpu/ops/gap_machine.py:99", k7w, None,
+             "bwa_tpu/ops/gap_machine.py:100", k7w, None,
              sum(p["launches"]["K7w"] for p in (phase_aln_se, phase_aln_pe)),
              k7w["calls"])):
         b_ms, b_by = bound(k["bytes"], k["ops"])
@@ -2134,7 +2237,7 @@ def main(argv) -> int:
                   if kk in k},
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
                                     "launches_on_main_path",
-                                    "one_read_lanes") if kk in k},
+                                    "one_read_lanes", "design") if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
                 if e["kernel"] == ("K5" if k is k5 else "K2 host-array")]}

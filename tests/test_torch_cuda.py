@@ -673,6 +673,94 @@ def test_k7_caps_coords_occtab_match_plain(aln_reads, cap, cap_a, max_steps,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap", [3, 16, 40])
+@pytest.mark.parametrize("occ_r", [1, 4])
+def test_k7_slot_reuse_and_full_pool_match_plain(aln_reads, cap, occ_r):
+    """Pools of a few slots: lanes that end reuse freed slots (through the
+    free-slot stack and the chunk list), the rest fill the pool (n_stk ==
+    cap, n_push > cap - n_stk)."""
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    fm, codes = aln_reads
+    got = _k7_vs_plain(_tree(fm, "int32", occ_r), codes, cap, 32, 200000,
+                       0x9)
+    causes = gm.overflow_causes(got, cap, 32)
+    assert causes["stack"] > 0
+    assert bool((~got["ovf"] & (got["done_step"] > 4 * cap)).any())
+
+
+@pytest.fixture(scope="module")
+def long_reads(aln_reads):
+    """The 60 bp reads and two of 600 bp (past the compact record's 512)."""
+    from bwa_tpu_torch.index.pack import NT4_TABLE
+
+    fm, codes = aln_reads
+    g = random_genome(150_000, seed=41, n_contigs=2)
+    rs = simulate_reads(g, 2, read_len=600, seed=10, err_rate=0.01,
+                        indel_rate=0.002)
+    return fm, [NT4_TABLE[np.frombuffer(s, np.uint8)] for _, s, _ in rs] \
+        + codes[:30]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("why", ["long_read", "max_gape"])
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k7_wide_records_match_plain(aln_reads, long_reads, why, occ_r,
+                                     coords):
+    """The wide-record variant (records, lists and tables in global
+    memory), forced by a read past PACK_L or by max_gape past PACK_D (and
+    with it more score lists than the register bitmap holds)."""
+    from bwa_tpu_torch.aln.opts import GapOpt
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    if why == "long_read":
+        fm, codes = long_reads
+        kw = dict(max_diff=2, fnr=0.0)
+        L = 1024
+    else:
+        fm, codes = aln_reads
+        kw = dict(max_diff=3, fnr=0.0, max_gape=gm.PACK_D + 45)
+        L = 64
+    opt = GapOpt(**kw)
+    scal = tuple(getattr(opt, k) for k in gm.SCALARS)
+    md = opt.max_diff
+    n_lists = gm.score_lists(md, opt.max_gapo, scal)
+    assert gm.wide_records(L, md, opt.max_gapo, scal, n_lists)
+    got = _k7_vs_plain(_tree(fm, coords, occ_r), codes, 64, 32, 200000,
+                       0x9, **kw)
+    assert int(got["n_aln"].sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+@pytest.mark.parametrize("L", [100, 128])
+def test_k7w_n_runs_and_padding_match_plain(aln_reads, occ_r, coords, L):
+    """K7w on reads with runs of N, an all-N read, reads shorter than the
+    row (padding, code 4) and a row width that is not a multiple of 32."""
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    fm, codes = aln_reads
+    rng = np.random.default_rng(L + occ_r)
+    q = np.full((len(codes), L), 4, np.uint8)
+    for i, c in enumerate(codes):
+        n = min(len(c), L - int(rng.integers(0, 20)))
+        q[i, :n] = c[:n]
+        if i % 3 == 0 and n > 10:  # a run of N
+            a = int(rng.integers(0, n - 5))
+            q[i, a:a + int(rng.integers(1, 6))] = 4
+    tt = _tree(fm, coords, occ_r)
+    qd = torch.from_numpy(q).cuda()
+    w0 = gm.width_launches
+    got = gm.cal_width(tt, qd)
+    torch.cuda.synchronize()
+    assert gm.width_launches == w0 + 1
+    assert got.dtype == tt["cdt"]
+    assert torch.equal(got.cpu(), gm.cal_width_plain(tt, qd).cpu())
+
+
+@pytest.mark.requires_cuda
 def test_k7_refused_launch_raises(aln_reads):
     """An occtab layout K7 does not take (R = 2) raises in the wrapper; a
     launch the library refuses (cap 0) raises; neither counts a launch or
@@ -694,6 +782,6 @@ def test_k7_refused_launch_raises(aln_reads):
         cuda_kernels.gap_machine(
             tt["occtab"], tt["L2"].long(), tt["primary"], tt["seq_len"], q,
             z, z, z, u, wb, wb.clone(), u, [1] * 10, 10, 0, 1, False, False,
-            False, False, z[None], z, z, wb, z, z, z, z, u, z)
+            False, False, False, 4, z, z, z, z, wb, z, z, z, z, u, z)
     assert gm.launches == n0
     _k7_vs_plain(tt, codes[:8], 64, 32, 200000, 0x9)

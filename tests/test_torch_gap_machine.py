@@ -214,8 +214,11 @@ def test_aln_batch_device_scratch_split(world, monkeypatch):
     several launches of at most that much scratch; the results are those
     of the native search."""
     from bwa_tpu_torch.aln import batch_search
+    from bwa_tpu_torch.ops import gap_machine as gm
 
-    monkeypatch.setattr(batch_search, "SCRATCH_BYTES", 64 * 48 * 24)
+    # the launches' slots: 60 bp reads, int32 coordinates, compact records
+    slot = gm.slot_bytes(torch.int32)
+    monkeypatch.setattr(batch_search, "SCRATCH_BYTES", 64 * slot * 24)
     runs = []
     real = batch_search._run_lanes
 
@@ -228,7 +231,7 @@ def test_aln_batch_device_scratch_split(world, monkeypatch):
     _assert_equal(*_batches(world["prefix"], world["fq"], {}))
     first = [m for cap, m in runs if cap == 64]
     assert len(first) == -(-N_READS // 24) and max(first) == 24
-    assert all(cap * m * 48 <= 64 * 48 * 24 for cap, m in runs)
+    assert all(cap * m * slot <= 64 * slot * 24 for cap, m in runs)
     assert {cap for cap, _ in runs} >= {64, 128}
 
 
@@ -294,7 +297,9 @@ def test_score_lists_bound():
     """K7's stack keeps one list a score up to the most a pushed entry can
     have, (max md + 1) * s_mm + max mg * s_gapo + max_gape * s_gape, or up
     to the key's SCORE_CAP; negative penalties are refused.  K7 slots are
-    48 bytes with int32 coordinates and 64 with int64."""
+    32-byte packed records with either coordinate type, and in the
+    wide-record variant 48 bytes with int32 coordinates and 64 with
+    int64."""
     from bwa_tpu_torch.aln.opts import GapOpt
     from bwa_tpu_torch.ops import gap_machine as gm
 
@@ -307,4 +312,6 @@ def test_score_lists_bound():
     with pytest.raises(ValueError):
         gm.score_lists(5, 1, (-1,) + scal[1:])
     assert (gm.slot_bytes(torch.int32), gm.slot_bytes(torch.int64)) == \
-        (48, 64)
+        (32, 32)
+    assert (gm.slot_bytes(torch.int32, wide=True),
+            gm.slot_bytes(torch.int64, wide=True)) == (48, 64)
