@@ -97,12 +97,13 @@ def _aln_batch_native(fm, pk: PackedReads, opt: GapOpt):
     return out_n, rec[: tot_rec * 8].reshape(tot_rec, 8)
 
 
-def aln_core(prefix, fn_fa, opt: GapOpt, out_fp, fm=None,
+def aln_core(prefix, fn_fa, opt: GapOpt, out_fp, fm=None, engine=None,
              device: str = "cuda") -> None:
     """bwa aln: compute SA intervals, write .sai.  BWA_TPU_ALN picks the
     search: "native" (the default, native/btgap.cpp), "device" (the gap
     machine on `device`: kernel K7 on a CUDA card, its plain version on
-    the CPU) or anything else (the Python spec, aln/search.py)."""
+    the CPU; `engine`, when given, is a warm engine of fm on that device)
+    or anything else (the Python spec, aln/search.py)."""
     import os
 
     if fm is None:
@@ -111,9 +112,10 @@ def aln_core(prefix, fn_fa, opt: GapOpt, out_fp, fm=None,
     use_native = mode == "native"
     use_device = mode == "device"
     if use_device:
-        from bwa_tpu_torch.engine import make_engine
+        if engine is None:
+            from bwa_tpu_torch.engine import make_engine
 
-        engine = make_engine(fm, device)
+            engine = make_engine(fm, device)
     else:
         engine = HostFM(fm)
     reader = open_reads(opt.mode, fn_fa)

@@ -7,13 +7,24 @@
     python -m bwa_tpu_torch.cli samse [options] <idx> <in.sai> <in.fq>
     python -m bwa_tpu_torch.cli sampe [options] <idx> <1.sai> <2.sai>
                                       <1.fq> <2.fq>
+    python -m bwa_tpu_torch.cli bwasw [options] <idx> <in.fq> [in2.fq]
+    python -m bwa_tpu_torch.cli daemon start [--device cuda|cpu]|stop|status <idx>
+    python -m bwa_tpu_torch.cli shm [-d|-l] [idx]
+    python -m bwa_tpu_torch.cli fa2pac|pac2bwt|pac2bwtgen|bwtupdate|bwt2sa|
+                                maxk|pemerge|xa2multi|qualfa2fq ...
 
 mem runs single-end reads, paired-end reads from two files, or (-p)
 interleaved pairs; the device defaults to the CUDA card.  mem -5 and
 BWA_TPU_FINALIZE=python run the Python finalize after the device seeding;
 fastmap seeds on the device too.  aln searches with the native C++ search
 by default; BWA_TPU_ALN=device runs the gap machine on the device (kernel
-K7 on the card, its plain version under --device cpu).
+K7 on the card, its plain version under --device cpu).  bwasw and the
+index tools run on the host.
+
+While a daemon (server.py) serves the index, mem, fastmap, aln, samse and
+sampe forward to it, unless BWA_TPU_NO_DAEMON=1, an input is stdin or not
+a regular file, or the output goes to a file (-o/-f); the forward runs
+before torch is imported.
 """
 
 from __future__ import annotations
@@ -52,6 +63,68 @@ def _escape(s: str) -> str:
             .replace("\\r", "\r").replace("\\\\", "\\"))
 
 
+# resident-engine cache (filled by the daemon, server.py): the warm
+# (FMIndex, engine, device) per index (by real path), so that a command in
+# the serving process skips the index load and the upload
+_ENGINE_CACHE: dict = {}
+
+
+def _engine(prefix, device=None, build=True, ignore_alt=False):
+    """(fm, engine) for prefix: the daemon's warm index and, on its
+    device, its engine; else a fresh load and, with build and a device, a
+    fresh engine.  The engine is None for a host command (device None) or
+    without build when none is warm.  ignore_alt (mem -j) changes the
+    index, so it always loads afresh."""
+    import os
+
+    c = None if ignore_alt else _ENGINE_CACHE.get(os.path.realpath(prefix))
+    if c is not None:
+        fm = c[0]
+        if c[2] == device:
+            return fm, c[1]
+    else:
+        from bwa_tpu_torch.index.fmindex import FMIndex
+
+        fm = FMIndex.load(prefix)
+        if ignore_alt:
+            for c0 in fm.bnt.contigs:
+                c0.is_alt = False
+    if device is None or not build:
+        return fm, None
+    from bwa_tpu_torch.engine import make_engine
+
+    return fm, make_engine(fm, device)
+
+
+def _daemon_forward(cmd: str, argv: list[str], args: list[str],
+                    device: str | None, local: bool, tag: str, out_fp):
+    """The resident-engine forward shared by mem/fastmap/aln/samse/sampe:
+    the exit code when the daemon ran the command, None when the caller
+    runs it itself.  argv: the command's arguments without --device
+    (device: its value, None for a host command), args: the positional
+    tail (prefix first), local: an output file or other local state.
+    Never forwards inside the daemon (whose _ENGINE_CACHE is filled).
+    Imports no torch."""
+    import os
+
+    if (_ENGINE_CACHE or local
+            or os.environ.get("BWA_TPU_NO_DAEMON") == "1"
+            # stdin ("-"), /dev/stdin, process substitution and other
+            # non-regular files cannot be reopened by the daemon
+            or not all(os.path.isfile(a) for a in args[1:])):
+        return None
+    from bwa_tpu_torch import server
+
+    if not server.daemon_available(args[0]):
+        return None
+    # the daemon runs in its own cwd: the positional paths go absolute
+    flags = argv[:len(argv) - len(args)]
+    dev = [] if device is None else ["--device", device]
+    return server.client_run(
+        args[0], [cmd, *flags, *dev, *(os.path.abspath(a) for a in args)],
+        out_fp, tag)
+
+
 def _pop_device(argv: list[str]) -> tuple[list[str], str]:
     """Strip --device DEV / --device=DEV from argv."""
     out, device = [], "cuda"
@@ -70,11 +143,8 @@ def main_mem(argv: list[str], out_fp=None) -> int:
     import getopt as getopt_mod
     import math
 
-    from bwa_tpu_torch.engine import make_engine
-    from bwa_tpu_torch.index.fmindex import FMIndex
     from bwa_tpu_torch.io.fastq import SeqReader, read_batch
     from bwa_tpu_torch.mem.pairing import PEStat
-    from bwa_tpu_torch.mem.pipeline import process_seqs, process_seqs_smart
     from bwa_tpu_torch.options import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ,
                                        MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
                                        MEM_F_NOPAIRING, MEM_F_PE,
@@ -87,7 +157,7 @@ def main_mem(argv: list[str], out_fp=None) -> int:
     mode = None
     fixed_chunk_size = -1
     rg_line = rg_id = hdr_line = pes0 = None
-    ignore_alt = copy_comment = False
+    ignore_alt = copy_comment = hdr_file = False
     out_fp = out_fp if out_fp is not None else sys.stdout
     opened_out = False
     try:
@@ -165,6 +235,7 @@ def main_mem(argv: list[str], out_fp=None) -> int:
                 return 1
             rg_id = rg_line.split("\tID:")[1].split("\t")[0].split("\n")[0]
         elif c == "H":
+            hdr_file = hdr_file or not a.startswith("@")
             ln = _escape(a) if a.startswith("@") else open(a).read().rstrip("\n")
             hdr_line = (hdr_line + "\n" + ln) if hdr_line else ln
         elif c == "I":
@@ -186,12 +257,14 @@ def main_mem(argv: list[str], out_fp=None) -> int:
               file=sys.stderr)
         return 1
     opt.apply_mode(mode)
+    rc = _daemon_forward("mem", argv, args, device, opened_out or hdr_file,
+                         "main_mem", out_fp)
+    if rc is not None:
+        return rc
 
-    fm = FMIndex.load(args[0])
-    if ignore_alt:
-        for c0 in fm.bnt.contigs:
-            c0.is_alt = False
-    engine = make_engine(fm, device)
+    from bwa_tpu_torch.mem.pipeline import process_seqs, process_seqs_smart
+
+    fm, engine = _engine(args[0], device, ignore_alt=ignore_alt)
     ks1 = SeqReader(args[1])
     ks2 = None
     if len(args) > 2:
@@ -256,11 +329,6 @@ def main_fastmap(argv: list[str], out_fp=None) -> int:
     loop."""
     import getopt as getopt_mod
 
-    from bwa_tpu_torch.engine import make_engine
-    from bwa_tpu_torch.index.fmindex import FMIndex
-    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
-    from bwa_tpu_torch.mem.fastmap import fastmap_batch
-
     argv, device = _pop_device(argv)
     out_fp = out_fp if out_fp is not None else sys.stdout
     min_iwidth, min_len, print_seq, min_intv, max_intv = 20, 17, False, 1, 0
@@ -275,8 +343,14 @@ def main_fastmap(argv: list[str], out_fp=None) -> int:
         print("Usage: python -m bwa_tpu_torch.cli fastmap [options] "
               "[--device cuda|cpu] <idxbase> <in.fq>", file=sys.stderr)
         return 1
-    fm = FMIndex.load(args[0])
-    engine = make_engine(fm, device)
+    rc = _daemon_forward("fastmap", argv, args, device, False,
+                         "main_fastmap", out_fp)
+    if rc is not None:
+        return rc
+    from bwa_tpu_torch.io.fastq import SeqReader, read_batch
+    from bwa_tpu_torch.mem.fastmap import fastmap_batch
+
+    fm, engine = _engine(args[0], device)
     ks = SeqReader(args[1])
     while True:
         reads = read_batch(ks, None, 10_000_000)
@@ -291,7 +365,6 @@ def main_fastmap(argv: list[str], out_fp=None) -> int:
 def main_aln(argv: list[str], out_fp_override=None) -> int:
     import getopt as getopt_mod
 
-    from bwa_tpu_torch.aln.driver import aln_core
     from bwa_tpu_torch.aln.opts import (BWA_MODE_BAM, BWA_MODE_BAM_READ1,
                                         BWA_MODE_BAM_READ2, BWA_MODE_BAM_SE,
                                         BWA_MODE_CFY, BWA_MODE_GAPE,
@@ -347,7 +420,15 @@ def main_aln(argv: list[str], out_fp_override=None) -> int:
     opened_out = out_fp is not sys.stdout.buffer
     if out_fp_override is not None and not opened_out:
         out_fp = getattr(out_fp_override, "buffer", out_fp_override)
-    aln_core(args[0], args[1], opt, out_fp, device=device)
+    rc = _daemon_forward("aln", argv, args, device, opened_out, "main_aln",
+                         out_fp)
+    if rc is not None:
+        return rc
+    from bwa_tpu_torch.aln.driver import aln_core
+
+    fm, engine = _engine(args[0], device, build=False)
+    aln_core(args[0], args[1], opt, out_fp, fm=fm, engine=engine,
+             device=device)
     if opened_out:
         out_fp.close()
     return 0
@@ -355,8 +436,6 @@ def main_aln(argv: list[str], out_fp_override=None) -> int:
 
 def main_samse(argv: list[str], out_fp_override=None) -> int:
     import getopt as getopt_mod
-
-    from bwa_tpu_torch.aln.driver import samse_core
 
     n_occ = 3
     rg_id = rg_line = None
@@ -375,7 +454,14 @@ def main_samse(argv: list[str], out_fp_override=None) -> int:
     opened_out = out is not sys.stdout
     if out_fp_override is not None and not opened_out:
         out = out_fp_override
-    samse_core(args[0], args[1], args[2], n_occ, rg_id, rg_line, out)
+    rc = _daemon_forward("samse", argv, args, None, opened_out,
+                         "main_samse", out)
+    if rc is not None:
+        return rc
+    from bwa_tpu_torch.aln.driver import samse_core
+
+    samse_core(args[0], args[1], args[2], n_occ, rg_id, rg_line, out,
+               fm=_engine(args[0])[0])
     if opened_out:
         out.close()
     return 0
@@ -385,7 +471,6 @@ def main_sampe(argv: list[str], out_fp_override=None) -> int:
     import getopt as getopt_mod
 
     from bwa_tpu_torch.aln.opts import PEOpt
-    from bwa_tpu_torch.aln.sampe import sampe_core
 
     popt = PEOpt()
     rg_id = rg_line = None
@@ -411,8 +496,101 @@ def main_sampe(argv: list[str], out_fp_override=None) -> int:
     opened_out = out is not sys.stdout
     if out_fp_override is not None and not opened_out:
         out = out_fp_override
-    sampe_core(args[0], args[1:3], args[3:5], popt, rg_id, rg_line, out)
+    rc = _daemon_forward("sampe", argv, args, None, opened_out,
+                         "main_sampe", out)
+    if rc is not None:
+        return rc
+    from bwa_tpu_torch.aln.sampe import sampe_core
+
+    sampe_core(args[0], args[1:3], args[3:5], popt, rg_id, rg_line, out,
+               fm=_engine(args[0])[0])
     if opened_out:
+        out.close()
+    return 0
+
+
+def main_bwasw(argv: list[str]) -> int:
+    """bwa bwasw (bwa_bwtsw2, bwtsw2_main.c:11-89)."""
+    import getopt as getopt_mod
+
+    import numpy as np
+
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.sw2.aln import bsw2_aln
+    from bwa_tpu_torch.sw2.types import Bsw2Opt
+    from bwa_tpu_torch.utils.rand48 import Rand48
+
+    opt = Bsw2Opt()
+    rng = Rand48()
+    rng.srand48(11)
+    out = sys.stdout
+    try:
+        opts, args = getopt_mod.getopt(argv, "q:r:a:b:t:T:w:d:z:m:s:c:N:Hf:MI:SG:C")
+    except getopt_mod.GetoptError as e:
+        print(f"[main_bwasw] {e}", file=sys.stderr)
+        return 1
+    for c, v in opts:
+        c = c[1:]
+        if c == "q": opt.q = int(v)
+        elif c == "r": opt.r = int(v)
+        elif c == "a": opt.a = int(v)
+        elif c == "b": opt.b = int(v)
+        elif c == "w": opt.bw = int(v)
+        elif c == "T": opt.t = int(v)
+        elif c == "t": opt.n_threads = int(v)
+        elif c == "z": opt.z = int(v)
+        elif c == "s": opt.is_ = int(v)
+        elif c == "m": opt.mask_level = float(np.float32(v))
+        elif c == "c": opt.coef = float(np.float32(v))
+        elif c == "N": opt.t_seeds = int(v)
+        elif c == "M": opt.multi_2nd = 1
+        elif c == "H": opt.hard_clip = 1
+        elif c == "f": out = open(v, "w")
+        elif c == "I": opt.max_ins = int(v)
+        elif c == "S": opt.skip_sw = 1
+        elif c == "C": opt.cpy_cmt = 1
+        elif c == "G": opt.max_chain_gap = int(v)
+        else:  # -d is accepted by the option string but unhandled
+            return 1
+    opt.qr = opt.q + opt.r
+    if len(args) < 2:
+        print(f"""
+Usage:   python -m bwa_tpu_torch.cli bwasw [options] <target.prefix> <query.fa> [query2.fa]
+
+Options: -a INT   score for a match [{opt.a}]
+         -b INT   mismatch penalty [{opt.b}]
+         -q INT   gap open penalty [{opt.q}]
+         -r INT   gap extension penalty [{opt.r}]
+         -w INT   band width [{opt.bw}]
+         -m FLOAT mask level [{opt.mask_level:.2f}]
+
+         -t INT   number of threads [{opt.n_threads}]
+         -f FILE  file to output results to instead of stdout
+         -H       in SAM output, use hard clipping instead of soft clipping
+         -C       copy FASTA/Q comment to SAM output
+         -M       mark multi-part alignments as secondary
+         -S       skip Smith-Waterman read pairing
+         -I INT   ignore pairs with insert >=INT for inferring the size distr [{opt.max_ins}]
+
+         -T INT   score threshold divided by a [{opt.t}]
+         -c FLOAT coefficient of length-threshold adjustment [{opt.coef:.1f}]
+         -z INT   Z-best [{opt.z}]
+         -s INT   maximum seeding interval size [{opt.is_}]
+         -N INT   # seeds to trigger rev aln; 2*INT is also the chaining threshold [{opt.t_seeds}]
+         -G INT   maximum gap size during chaining [{opt.max_chain_gap}]
+
+Note: For long Illumina, 454 and Sanger reads, assembly contigs, fosmids and
+      BACs, the default setting usually works well. For the current PacBio
+      reads (end of 2010), '-b5 -q2 -r1 -z10' is recommended. One may also
+      increase '-z' for better sensitivity.
+""", file=sys.stderr)
+        return 1
+    # adjust for the match score (bwtsw2_main.c:80-81)
+    opt.t *= opt.a
+    opt.coef = float(np.float32(np.float32(opt.coef) * opt.a))
+    fm = FMIndex.load(args[0])
+    bsw2_aln(opt, fm, args[1], args[2] if len(args) > 2 else None, out, rng)
+    if out is not sys.stdout:
         out.close()
     return 0
 
@@ -429,12 +607,31 @@ def main(argv=None, out_fp=None) -> int:
               f"         fastmap   identify super-maximal exact matches\n"
               f"         aln       gapped/ungapped alignment\n"
               f"         samse     generate alignment (single ended)\n"
-              f"         sampe     generate alignment (paired ended)\n",
+              f"         sampe     generate alignment (paired ended)\n"
+              f"         bwasw     BWA-SW for long queries\n"
+              f"         daemon    keep the index and the engine warm on "
+              f"the card\n"
+              f"         shm       manage indices in shared memory\n\n"
+              f"         fa2pac    convert FASTA to PAC format\n"
+              f"         pac2bwt   generate BWT from PAC\n"
+              f"         pac2bwtgen alternative algorithm for generating "
+              f"BWT\n"
+              f"         bwtupdate update .bwt to the new format\n"
+              f"         bwt2sa    generate SA from BWT and Occ\n"
+              f"         maxk      histogram of the longest exact match a "
+              f"base\n"
+              f"         pemerge   merge overlapping paired ends\n"
+              f"         xa2multi  split XA tags into records\n"
+              f"         qualfa2fq FASTA + QUAL to FASTQ\n",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "mem":
         return main_mem(rest, out_fp=out_fp)
+    if cmd == "daemon":
+        from bwa_tpu_torch.server import main_daemon
+
+        return main_daemon(rest)
     if cmd == "index":
         return main_index(rest)
     if cmd == "fastmap":
@@ -445,6 +642,17 @@ def main(argv=None, out_fp=None) -> int:
         return main_samse(rest, out_fp_override=out_fp)
     if cmd == "sampe":
         return main_sampe(rest, out_fp_override=out_fp)
+    if cmd in ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate", "bwt2sa",
+               "maxk", "pemerge", "xa2multi", "qualfa2fq"):
+        from bwa_tpu_torch import tools
+
+        return getattr(tools, "main_" + cmd)(rest)
+    if cmd in ("bwasw", "bwtsw2", "dbwtsw"):  # aliases per main.c:107-109
+        return main_bwasw(rest)
+    if cmd == "shm":
+        from bwa_tpu_torch.shm import main_shm
+
+        return main_shm(rest)
     print(f"[main] unrecognized command '{cmd}'", file=sys.stderr)
     return 1
 

@@ -52,6 +52,21 @@ class FMIndex:
 
     @classmethod
     def load(cls, prefix) -> "FMIndex":
+        """Attach from shared memory when staged (bwa shm analog,
+        fastmap.c:362-366 probes shm first), else read the index files."""
+        from bwa_tpu_torch import shm as shm_mod
+
+        fm = shm_mod.shm_attach(str(prefix))
+        if fm is not None:
+            import sys
+
+            print("[M::bwa_idx_load_from_shm] load the bwa index from "
+                  "shared memory", file=sys.stderr)
+            return fm
+        return cls.load_from_disk(prefix)
+
+    @classmethod
+    def load_from_disk(cls, prefix) -> "FMIndex":
         import os
 
         prefix = str(prefix)
@@ -170,10 +185,17 @@ class FMIndex:
         return seq, beg, end, rid
 
 
+def writable(a: np.ndarray, dtype) -> np.ndarray:
+    """a as a contiguous array of dtype that torch.from_numpy may wrap: an
+    index attached from shm (shm.py) holds read-only memmaps, which are
+    copied, never wrapped."""
+    a = np.ascontiguousarray(a, dtype)
+    return a if a.flags.writeable else a.copy()
+
+
 def _i32_bits(a: np.ndarray) -> np.ndarray:
     """uint32 array -> writable int32 array with the same bits."""
-    a = np.ascontiguousarray(a, dtype=np.uint32)
-    return (a if a.flags.writeable else a.copy()).view(np.int32)
+    return writable(a, np.uint32).view(np.int32)
 
 
 def occ_retile(n_blocks: int) -> int:
@@ -240,8 +262,8 @@ class DeviceFMIndex:
         self.words = torch.from_numpy(_i32_bits(words)).to(dev)
         self.ssa = (None if ssa is None else
                     torch.from_numpy(np.asarray(ssa).astype(cdt)).to(dev))
-        self.pac = (None if pac is None else torch.from_numpy(
-            np.ascontiguousarray(pac, np.uint8)).to(dev))
+        self.pac = (None if pac is None
+                    else torch.from_numpy(writable(pac, np.uint8)).to(dev))
         self.occtab = (None if occtab is None
                        else torch.from_numpy(_i32_bits(occtab)).to(dev))
 

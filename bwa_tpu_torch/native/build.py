@@ -9,7 +9,8 @@ We build one shared library from all .cpp files in this directory with g++
 -O3 and cache it keyed by a hash of the sources, loading through ctypes
 (no pybind11 in this environment).  The library lands in the repository's
 build/native directory (git-ignored), never in a per-user cache, so it
-cannot collide with another package's build of the same sources.
+cannot collide with another package's build of the same sources.  The
+native CLI front end (client.c, client_exe) is built beside it.
 """
 
 from __future__ import annotations
@@ -58,6 +59,17 @@ def _compile(files, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def _link(link: Path, target: Path) -> None:
+    """Point link at target (a relative symlink in the same directory),
+    replaced atomically so that a concurrent reader never misses it."""
+    if link.is_symlink() and os.readlink(link) == target.name:
+        return
+    tmp = link.with_name(f"{link.name}.{os.getpid()}.tmp")
+    tmp.unlink(missing_ok=True)
+    tmp.symlink_to(target.name)
+    os.replace(tmp, link)
+
+
 def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
@@ -67,6 +79,8 @@ def get_lib() -> ctypes.CDLL:
         so = _CACHE_DIR / f"bwa_tpu_torch_native_{_build_hash(_hash_files())}.so"
         if not so.exists():
             _compile(files, so)
+        # stable name for the native CLI client's dlopen (client.c)
+        _link(_CACHE_DIR / "bwa_tpu_torch_native.so", so)
         lib = ctypes.CDLL(str(so))
 
         lib.sais_u8_i32.restype = ctypes.c_int
@@ -145,6 +159,25 @@ def get_lib() -> ctypes.CDLL:
                                       c_i, c_i, c_i, c_i, c_i, i32p]
         _lib = lib
         return lib
+
+
+def client_exe() -> Path:
+    """The native CLI front end (client.c), compiled on demand beside the
+    library (content-hash named like it): it forwards one-shots to the
+    resident daemon without starting Python, runs the host backtrack
+    one-shots in the library, and execs the Python CLI otherwise.
+    Returns the executable's path."""
+    get_lib()  # the client dlopens the lib's stable name
+    src = _SRC_DIR / "client.c"
+    exe = _CACHE_DIR / f"bwa-tpu-torch-{_build_hash([src])}"
+    with _lock:
+        if not exe.exists():
+            tmp = exe.with_name(f"{exe.name}.{os.getpid()}.tmp")
+            subprocess.run(["gcc", "-O2", "-o", str(tmp), str(src), "-ldl"],
+                           check=True, capture_output=True)
+            os.replace(tmp, exe)
+        _link(_CACHE_DIR / "bwa-tpu-torch", exe)
+    return exe
 
 
 def suffix_array(text: np.ndarray) -> np.ndarray:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bwa_tpu_torch.index.fmindex import writable
 from bwa_tpu_torch.ops.ksw_band import _band_for, ksw_band_side
 
 
@@ -56,8 +57,7 @@ class ExtGatherEngine:
     def __init__(self, pac: np.ndarray, l_pac: int, coord_dtype,
                  device: str | torch.device = "cuda"):
         self.device = torch.device(device)
-        self.pac = torch.from_numpy(np.ascontiguousarray(pac, np.uint8)).to(
-            self.device)
+        self.pac = torch.from_numpy(writable(pac, np.uint8)).to(self.device)
         self.l_pac = int(l_pac)
         self.cdt = coord_dtype
         self._qflat = None

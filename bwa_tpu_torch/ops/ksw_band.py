@@ -29,9 +29,11 @@ import torch
 
 NEG = -(1 << 30)
 
-# launches of the K2 kernel: gather mode (ksw_band_side) and host-array
-# mode (ksw_band_arrays); each CUDA wrapper below adds one per launch
+# launches of the K2 kernel: gather mode (ksw_band_side; wide_launches
+# counts those at P > 1024, the wide path, again) and host-array mode
+# (ksw_band_arrays); each CUDA wrapper below adds one per launch
 launches = 0
+wide_launches = 0
 array_launches = 0
 
 # shared memory the wide path's ring (9 bytes a slot) may take; a wider
@@ -405,7 +407,7 @@ def ksw_band_side(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen,
         return ksw_band_side_plain(pac, l_pac, qflat, qbase, qdir, qlen,
                                    tbase, tdir, tlen, w, h0, mat, o_del,
                                    e_del, o_ins, e_ins, zdrop, P)
-    global launches
+    global launches, wide_launches
     from bwa_tpu_torch.ops import cuda_kernels
 
     dev = qbase.device
@@ -425,6 +427,7 @@ def ksw_band_side(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen,
         [int(v) for v in np.asarray(mat, np.int64).reshape(-1)], o_del,
         e_del, o_ins, e_ins, zdrop, P, out, wide_scratch(n, P, dev))
     launches += 1
+    wide_launches += int(P > 1024)
     return out
 
 

@@ -57,6 +57,23 @@ Without, in order:
      meanwhile a subprocess runs 256 of the SE reads with caps 8, 16,
      cap_a 2 and 120 steps (every rung and the host-spec fallback), whose
      .sai must equal the native search's;
+  4c. starts the resident daemon (`daemon start --device cuda`) in a
+     fresh process with a socket directory of its own, waits for its ping (fails if it exits first) and prints
+     the seconds to the ping and each warm stage's (SE, PE, fastmap,
+     pacbio, aln); forwards the smoke's own inputs through the Python
+     client (mem SE, mem PE from the two FASTQs, mem -x pacbio, fastmap,
+     aln with BWA_TPU_ALN=device, samse on that .sai), each output equal
+     to the main process's local one, the daemon's kernel launches, wall
+     and card memory printed for each; the cold one-shot of the same mem
+     SE command (BWA_TPU_NO_DAEMON=1); mem SE and aln again through the
+     native client (client_exe()); a bogus request through each client
+     (non-zero exit, the daemon serving on); `daemon stop` (exit 0, the
+     socket gone); then stages the index with `shm` under build/smoke/shm
+     (the BWA_TPU_SHM_DIR of the whole run, so that no staging elsewhere
+     on the host stands in for the index), runs mem SE on the attached
+     index (the [M::bwa_idx_load_from_shm] line, SAM equal to the
+     disk-loaded run's), times the index load and upload both ways and
+     destroys the staging;
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
      its three shapes (K2 host-array mode and K5, launches counted), and
      past the widths the first kernels refused (K5 at QP = 6016 with
@@ -92,8 +109,10 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -662,18 +681,17 @@ def records_differ(sam_a: str, sam_b: str):
 def zero_launches():
     from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
 
-    fm_machine.launches = ksw_band.launches = 0
+    fm_machine.launches = ksw_band.launches = ksw_band.wide_launches = 0
     ksw_band.array_launches = ksw_full.launches = 0
     gap_machine.launches = gap_machine.width_launches = 0
 
 
 def read_launches() -> dict:
-    from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
+    """Each wrapper's count, as the daemon logs them ("K2": K2's gather
+    mode on both paths, "K2 wide": those at P > 1024)."""
+    from bwa_tpu_torch.server import launch_counts
 
-    return {"K1": fm_machine.launches, "K2": ksw_band.launches,
-            "K2 host-array": ksw_band.array_launches,
-            "K5": ksw_full.launches, "K7": gap_machine.launches,
-            "K7w": gap_machine.width_launches}
+    return launch_counts()
 
 
 def main_path(d, prefix, phase, reads, extra, recs, reads2=None,
@@ -694,6 +712,7 @@ def main_path(d, prefix, phase, reads, extra, recs, reads2=None,
     zero_launches()
     sam, dt = run_mem(prefix, fqs, extra, cmd)
     launches = read_launches()
+    (d / f"{phase}.out").write_text(sam)  # step 4c's local output
     kernel_ms = {k: r.take_ms() for k, r in recs.items()}
     n = len(reads) * len(fqs)
     info = dict(phase=phase, reads=n,
@@ -934,6 +953,7 @@ def aln_phase(d, prefix, phase, fqs, recs, fallback):
     if len(fqs) == 1:
         sam, info["samse_s"] = run_sam(["samse", prefix, sais[0], fqs[0]])
         check_sam(sam, n_reads)
+        (d / f"{phase}.sam").write_text(sam)  # step 4c's local output
     else:
         sam, info["sampe_s"] = run_sam(["sampe", prefix, *sais, *fqs])
         info["proper_pair_share"] = check_pe_sam(sam, n_reads // 2)
@@ -1911,6 +1931,283 @@ def time_k2(rec, i=0):
                 launches_on_main_path=launches)
 
 
+# --------------------------------------------------------------------------
+# 4c. the resident daemon and shm on the card
+# --------------------------------------------------------------------------
+
+def smi(query: str) -> list[str]:
+    """nvidia-smi's csv rows for a query (none where there is no
+    nvidia-smi: a rehearsal on the CPU)."""
+    if shutil.which("nvidia-smi") is None:
+        return []
+    r = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                       capture_output=True, text=True)
+    return [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+
+
+def daemon_memory(pid: int) -> dict:
+    """The daemon's card memory: its row of nvidia-smi's compute processes
+    (null when that list does not show this pid namespace's pids), every
+    row, and the card's whole memory.used (the daemon's share is its
+    change from card_used_before_daemon)."""
+    rows = smi("--query-compute-apps=pid,used_memory")
+    mine = [r.split(",", 1)[1].strip() for r in rows
+            if r.split(",", 1)[0].strip() == str(pid)]
+    return dict(smi_used=mine[0] if mine else None, smi_rows=rows,
+                card_used=(smi("--query-gpu=memory.used") or [None])[0])
+
+
+def daemon_log_done(log: Path, n_done: int) -> dict:
+    """The daemon's n_done-th "done" line (1-based): seconds, launches and
+    the torch allocator's MiB after the request."""
+    done = [ln for ln in log.read_text().splitlines()
+            if ln.startswith("[daemon] done ")]
+    if len(done) < n_done:
+        fail(f"daemon: {len(done)} requests logged, expected {n_done}")
+    ln = done[n_done - 1]
+    launches = json.loads(ln.split("launches=", 1)[1].split("}", 1)[0] + "}")
+    kv = dict(t.split("=", 1) for t in ln.split() if "=" in t
+              and not t.startswith("launches="))
+    return dict(rc=int(kv["rc"]), daemon_seconds=float(kv["seconds"]),
+                launches=launches,
+                **{k: float(kv[k]) if k in kv else None
+                   for k in ("allocated_mib", "reserved_mib")})
+
+
+def start_daemon(d: Path, prefix: str, sockdir: Path, device: str):
+    """`daemon start` on the device in a fresh process (every warm stage);
+    waits for its ping.  Returns (process, env, log path, seconds from
+    Popen to the ping)."""
+    from bwa_tpu_torch import server
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BWA_TPU_") or k == "BWA_TPU_SHM_DIR"}
+    env.update(BWA_TPU_DAEMON_DIR=str(sockdir), PYTHONPATH=str(REPO))
+    dlog = d / "daemon.log"
+    t0 = time.perf_counter()
+    with open(dlog, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bwa_tpu_torch.cli", "daemon", "start",
+             "--device", device, prefix], cwd=REPO, env=env, stderr=err)
+    os.environ["BWA_TPU_DAEMON_DIR"] = str(sockdir)
+    try:
+        while not server.daemon_available(prefix):
+            if proc.poll() is not None:
+                fail(f"daemon exited {proc.returncode} before its ping: "
+                     f"{dlog.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > 600:
+                fail("daemon: no ping after 600 s")
+            time.sleep(0.1)
+    finally:
+        os.environ.pop("BWA_TPU_DAEMON_DIR")
+    return proc, env, dlog, time.perf_counter() - t0
+
+
+def client(args, env, native=False, **extra):
+    """One command through the Python client (python3 -m bwa_tpu_torch.cli)
+    or the native one (client_exe()): (result, wall seconds)."""
+    from bwa_tpu_torch.native.build import client_exe
+
+    cmd = ([str(client_exe())] if native
+           else [sys.executable, "-m", "bwa_tpu_torch.cli"])
+    t0 = time.perf_counter()
+    r = subprocess.run([*cmd, *map(str, args)], capture_output=True,
+                       cwd=REPO, env=dict(env, BWA_TPU_PYTHON=sys.executable,
+                                          **extra), timeout=600)
+    return r, time.perf_counter() - t0
+
+
+def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
+    """Step 4c: the daemon serves the smoke's own inputs on the card (or
+    the given device: "cpu" rehearses the phase without one), each
+    output equal to the main process's local one (written by main_path and
+    aln_phase), through the Python and the native client; the cold one-shot
+    beside the forward; stop; then shm staging and a mem on the attached
+    index."""
+    fa = prefix
+    # a unix socket's path holds at most 107 bytes: the temporary
+    # directory, or the smoke's own where that one's path is too long
+    room = 107 - len("/engine-0123456789abcdef.sock")
+    sockdir = Path(tempfile.mkdtemp(prefix="btd"))
+    if len(str(sockdir)) > room:
+        sockdir.rmdir()
+        sockdir = Path(tempfile.mkdtemp(prefix="btd", dir=d))
+        if len(str(sockdir)) > room:
+            sockdir.rmdir()
+            fail(f"daemon: no socket directory within {room} bytes "
+                 f"(TMPDIR and {d} are too long)")
+    card_before = (smi("--query-gpu=memory.used") or [None])[0]
+    proc, env, dlog, start_s = start_daemon(d, fa, sockdir, device)
+    info = dict(phase="daemon", card_used_before_daemon=card_before,
+                start_to_ping_s=start_s, warm_s={})
+    try:
+        for ln in dlog.read_text().splitlines():
+            if " warm in " in ln:
+                tag, s = ln[len("[daemon] "):].split(" warm in ")
+                info["warm_s"][tag] = float(s.rstrip("s"))
+            if ln.startswith("[daemon] warm") and "reserved_mib" in ln:
+                info["after_warm_reserved_mib"] = float(
+                    ln.split("reserved_mib=")[1])
+        if sorted(info["warm_s"]) != ["PE", "SE", "aln", "fastmap",
+                                      "pacbio"]:
+            fail(f"daemon: warm stages {sorted(info['warm_s'])}")
+        info["after_warm_memory"] = daemon_memory(proc.pid)
+        log(f"daemon up in {start_s:.3f} s, warm {info['warm_s']}, reserved "
+            f"{info.get('after_warm_reserved_mib')} MiB, card "
+            f"{card_before} before it, {info['after_warm_memory']}")
+        fq = lambda name: d / f"{name}.fq"
+        sai = d / "aln_se_100bp.sai"
+        dev = ["--device", device]
+        reqs = [("mem_se_150bp", ["mem", *dev, fa, fq("mem_se_150bp")], {},
+                 "sam"),
+                ("mem_pe_150bp", ["mem", *dev, fa, fq("mem_pe_150bp"),
+                                  fq("mem_pe_150bp_2")], {}, "sam"),
+                ("mem_pacbio", ["mem", "-x", "pacbio", *dev, fa,
+                                fq("mem_pacbio")], {}, "sam"),
+                ("fastmap_150bp", ["fastmap", *dev, fa, fq("fastmap_150bp")],
+                 {}, "text"),
+                ("aln_se_100bp", ["aln", *dev, fa, fq("aln_se_100bp")],
+                 {"BWA_TPU_ALN": "device"}, "sai"),
+                ("samse_100bp", ["samse", fa, sai, fq("aln_se_100bp")], {},
+                 "samse")]
+        want = {"sam": lambda ph: records_of((d / f"{ph}.out").read_text()),
+                "text": lambda ph: (d / f"{ph}.out").read_text(),
+                "sai": lambda ph: sai.read_bytes(),
+                "samse": lambda ph: records_of(
+                    (d / "aln_se_100bp.sam").read_text())}
+        got_of = {"sam": lambda b: records_of(b.decode()),
+                  "text": lambda b: b.decode(), "sai": lambda b: b,
+                  "samse": lambda b: records_of(b.decode())}
+        n_done = 0
+        info["requests"] = []
+        # launches each request must show in the daemon (its wrappers
+        # count only the card's kernels)
+        need = {"mem_se_150bp": ("K1",), "mem_pe_150bp": ("K1",),
+                "mem_pacbio": ("K1", "K2"), "fastmap_150bp": ("K1",),
+                "aln_se_100bp": ("K7", "K7w"), "samse_100bp": ()}
+        if device != "cuda":
+            need = {}
+        for native in (False, True):
+            for ph, args, extra, kind in reqs:
+                if native and ph not in ("mem_se_150bp", "aln_se_100bp"):
+                    continue
+                r, wall = client(args, env, native, **extra)
+                n_done += 1
+                if r.returncode != 0:
+                    fail(f"daemon: {ph} through the "
+                         f"{'native' if native else 'Python'} client "
+                         f"exited {r.returncode}: {r.stderr[-2000:]}")
+                if not native and b"forwarding to the resident engine " \
+                        b"daemon" not in r.stderr:
+                    fail(f"daemon: {ph} was not forwarded: "
+                         f"{r.stderr[-2000:]}")
+                if got_of[kind](r.stdout) != want[kind](ph):
+                    fail(f"daemon: {ph}'s forwarded output differs from the "
+                         f"main process's")
+                req = dict(phase=ph, client="native" if native else "python",
+                           wall_s=wall, equal_local=True,
+                           **daemon_log_done(dlog, n_done),
+                           memory=daemon_memory(proc.pid))
+                for k in need.get(ph, ()):
+                    if req["launches"][k] < 1:
+                        fail(f"daemon: {ph} launched no {k} in the daemon")
+                info["requests"].append(req)
+                log(f"daemon request {req}")
+        # the cold one-shot of the same mem SE command: interpreter, torch,
+        # CUDA context, kernel loads, index load and upload
+        r, wall = client(reqs[0][1], env, BWA_TPU_NO_DAEMON="1")
+        if r.returncode != 0 or b"forwarding" in r.stderr \
+                or records_of(r.stdout.decode()) != want["sam"](
+                    "mem_se_150bp"):
+            fail(f"daemon: the cold one-shot failed or differs: "
+                 f"{r.stderr[-2000:]}")
+        info["cold_one_shot_mem_se_s"] = wall
+        log(f"daemon: cold one-shot mem SE {wall:.3f} s")
+        # a bogus input gives a non-zero exit through both clients, and the
+        # daemon serves on
+        bogus = d / "bogus.sai"
+        bogus.write_bytes(b"not a sai file\n")
+        r1, _ = client(["samse", fa, bogus, fq("aln_se_100bp")], env)
+        se = fq("mem_se_150bp")
+        r2, _ = client(["mem", *dev, fa, se, se, se], env, native=True)
+        if r1.returncode == 0 or r2.returncode == 0:
+            fail(f"daemon: a bogus request exited {r1.returncode} (Python "
+                 f"client), {r2.returncode} (native client)")
+        info["bogus_exit_codes"] = [r1.returncode, r2.returncode]
+        if proc.poll() is not None:
+            fail(f"daemon died after the bogus requests: "
+                 f"{dlog.read_text()[-2000:]}")
+        r, _ = client(["daemon", "stop", fa], env)
+        rc = proc.wait(timeout=120)
+        if r.returncode != 0 or rc != 0 or list(sockdir.glob("*.sock")):
+            fail(f"daemon stop: client {r.returncode}, daemon exit {rc}, "
+                 f"sockets left {list(sockdir.glob('*.sock'))}")
+        info["stop_exit_code"] = rc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(sockdir, ignore_errors=True)
+    info["shm"] = shm_phase(d, fa, env, device)
+    return info
+
+
+def shm_phase(d: Path, fa: str, env: dict, device: str) -> dict:
+    """Stage the smoke index with shm, run mem SE on the card against the
+    attached index (the SAM must equal the disk-loaded run's), time the
+    index load and its upload both ways, destroy the staging."""
+    import torch
+
+    from bwa_tpu_torch import shm
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex, FMIndex
+
+    root = d / "shm"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log(f"shm: staging under {root}")
+    env = dict(env, BWA_TPU_SHM_DIR=str(root), BWA_TPU_NO_DAEMON="1")
+    info = dict(shm_dir=str(root))
+    try:
+        r, info["stage_s"] = client(["shm", fa], env)
+        if r.returncode != 0:
+            fail(f"shm staging exited {r.returncode}: {r.stderr[-2000:]}")
+        r, info["mem_se_wall_s"] = client(
+            ["mem", "--device", device, fa, d / "mem_se_150bp.fq"], env)
+        if r.returncode != 0 or b"[M::bwa_idx_load_from_shm]" not in r.stderr:
+            fail(f"shm: mem did not attach the staged index: "
+                 f"{r.stderr[-2000:]}")
+        if records_of(r.stdout.decode()) != records_of(
+                (d / "mem_se_150bp.out").read_text()):
+            fail("shm: mem's SAM on the attached index differs from the "
+                 "disk-loaded run's")
+        info["equal_disk_loaded"] = True
+        saved = os.environ.get("BWA_TPU_SHM_DIR")
+        os.environ["BWA_TPU_SHM_DIR"] = str(root)
+        try:
+            for way, load in (("disk", FMIndex.load_from_disk),
+                              ("shm", shm.shm_attach)):
+                t0 = time.perf_counter()
+                fm = load(fa)
+                t1 = time.perf_counter()
+                DeviceFMIndex(fm, device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                info[f"load_{way}_s"] = t1 - t0
+                info[f"load_and_upload_{way}_s"] = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("BWA_TPU_SHM_DIR")
+            else:
+                os.environ["BWA_TPU_SHM_DIR"] = saved
+        r, _ = client(["shm", "-d"], env)
+        if r.returncode != 0:
+            fail(f"shm -d exited {r.returncode}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"shm {info}")
+    return info
+
+
 def bound(nbytes, ops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT_OPS_PER_S * 1e3
@@ -1980,6 +2277,10 @@ def main(argv) -> int:
     # reads and of the first 256 pairs
     d = REPO / "build" / "smoke"
     d.mkdir(parents=True, exist_ok=True)
+    # every index load (here, in the daemon and in each client) looks for
+    # a shm staging in the checkout's own directory, not the host's
+    # /dev/shm registry, which another checkout may have filled
+    os.environ["BWA_TPU_SHM_DIR"] = str(d / "shm")
     t0 = time.perf_counter()
     fa, codes = make_genome(d)
     from bwa_tpu_torch.index.fmindex import FMIndex
@@ -2107,6 +2408,18 @@ def main(argv) -> int:
         log(f"aln phases done in {time.perf_counter() - t0:.1f} s")
         k7_host.append(start_k7_host_plain(d, arecs["K7"]))
 
+        # 4c. the resident daemon on the card, serving the smoke's own
+        # inputs through both clients; then shm
+        t0 = time.perf_counter()
+        phase_daemon = daemon_phase(d, str(fa))
+        log(f"daemon and shm phases done in {time.perf_counter() - t0:.1f} "
+            f"s")
+        if log_dir:
+            (log_dir / "daemon_phase.json").write_text(
+                json.dumps(phase_daemon, indent=1))
+            (log_dir / "daemon.log").write_bytes(
+                (d / "daemon.log").read_bytes())
+
         # 5. the kernel entry point (K2 host-array mode and K5) through
         # bench_kernel at its three shapes
         from bwa_tpu_torch import bench_kernel
@@ -2181,7 +2494,7 @@ def main(argv) -> int:
                       {n for n, _ in pb5_reads[:8]})
         print(json.dumps(phase_pe), flush=True)
         print(json.dumps(phase_w), flush=True)
-        for ph in (phase_aln_se, phase_aln_pe, phase_ladder):
+        for ph in (phase_aln_se, phase_aln_pe, phase_ladder, phase_daemon):
             print(json.dumps(ph), flush=True)
     finally:
         for proc, err, *_ in [*cpu.values(), *host, *host5, *ladder,
@@ -2191,39 +2504,47 @@ def main(argv) -> int:
             proc.wait()
             err.close()
 
+    mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases)
+    # each row's launches in one run's counts (the main path's phases, or
+    # the daemon's requests): K2's warp path is its gather mode's launches
+    # less the wide path's
+    count = {"K1 seed_machine": lambda c: c["K1"],
+             "K2 ksw_band": lambda c: c["K2"] - c["K2 wide"],
+             "K2 ksw_band wide path (P > 1024)": lambda c: c["K2 wide"],
+             "K2 ksw_band host-array mode": lambda c: c["K2 host-array"],
+             "K5 ksw_full": lambda c: c["K5"], "K7 gap_machine":
+             lambda c: c["K7"], "K7w cal_width": lambda c: c["K7w"]}
     kernels = []
     for name, src, repl, k, par, n, checked in (
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
-             "bwa_tpu/ops/fm_machine.py:369", k1, k1_par,
-             sum(p["launches"]["K1"] for p in (phase_se, phase_pb,
-                                                phase_pe, phase_w,
-                                                *new_phases)),
+             "bwa_tpu/ops/fm_machine.py:369", k1, k1_par, mains,
              calls["K1"]),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
-             "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par,
-             phase_pb["launches"]["K2"], calls["K2"]),
+             "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par, mains,
+             calls["K2"]),
             ("K2 ksw_band wide path (P > 1024)",
              "bwa_tpu_torch/csrc/ksw_band.cuh",
-             "bwa_tpu/ops/ksw_pallas.py:380", k2w, k2_par,
-             phase_w["launches"]["K2"], None),
+             "bwa_tpu/ops/ksw_pallas.py:380", k2w, k2_par, mains, None),
             ("K2 ksw_band host-array mode", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:622", k2h, entry_par,
-             phase_entry["launches"]["K2 host-array"], None),
+             (phase_entry,), None),
             ("K5 ksw_full", "bwa_tpu_torch/csrc/ksw_full.cu",
              "bwa_tpu/ops/ksw_pallas.py:273", k5, entry_par,
-             phase_entry["launches"]["K5"], None),
+             (phase_entry,), None),
             ("K7 gap_machine", "bwa_tpu_torch/csrc/gap_machine.cu",
              "bwa_tpu/ops/gap_machine.py:164", k7, None,
-             sum(p["launches"]["K7"] for p in (phase_aln_se, phase_aln_pe)),
-             None),
+             (phase_aln_se, phase_aln_pe), None),
             ("K7w cal_width", "bwa_tpu_torch/csrc/gap_machine.cu",
              "bwa_tpu/ops/gap_machine.py:100", k7w, None,
-             sum(p["launches"]["K7w"] for p in (phase_aln_se, phase_aln_pe)),
-             k7w["calls"])):
+             (phase_aln_se, phase_aln_pe), k7w["calls"])):
         b_ms, b_by = bound(k["bytes"], k["ops"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=int(n), max_abs_err=k["err"], tolerance=0, ms=k["ms"],
+            launches=sum(count[name](p["launches"]) for p in n),
+            # the daemon's own launches in step 4c (its wrappers' counts)
+            daemon_launches=sum(count[name](r["launches"])
+                                for r in phase_daemon["requests"]),
+            max_abs_err=k["err"], tolerance=0, ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, timed_shape=k["shape"], parity=par,
             parity_at_main_shape=k["equal"], main_path_calls=checked,

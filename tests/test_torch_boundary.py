@@ -60,3 +60,24 @@ def test_chip_smoke_fails_without_card(tmp_path):
                            text=True, cwd=cwd, env=_env(), timeout=300)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_native_client_execs_only_the_port():
+    """native/client.c execs the port's CLI and dlopens the port's
+    library, never bwa_tpu's; server.py's socket directory is the port's
+    own, so a bwa_tpu daemon for the same index never answers."""
+    src = (REPO / "bwa_tpu_torch" / "native" / "client.c").read_text()
+    assert '"bwa_tpu_torch.cli"' in src and '"bwa_tpu.cli"' not in src
+    assert "bwa_tpu_torch_native.so" in src
+    assert "bwa_tpu_native.so" not in src
+    assert "/bwa_tpu_torch_daemon" in src
+    from bwa_tpu_torch import server
+
+    env = dict(os.environ)
+    try:
+        os.environ.pop("BWA_TPU_DAEMON_DIR", None)
+        os.environ["TMPDIR"] = "/tmp"
+        assert str(server.sock_dir()) == "/tmp/bwa_tpu_torch_daemon"
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
