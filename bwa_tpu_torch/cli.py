@@ -139,7 +139,9 @@ def _pop_device(argv: list[str]) -> tuple[list[str], str]:
     return out, device
 
 
-def main_mem(argv: list[str], out_fp=None) -> int:
+def main_mem(argv: list[str], out_fp=None, chunk_done_hook=None) -> int:
+    """mem (fastmap.c main_mem).  chunk_done_hook(n_reads), if given, is
+    called after each chunk is aligned (a streaming benchmark's clock)."""
     import getopt as getopt_mod
     import math
 
@@ -151,6 +153,9 @@ def main_mem(argv: list[str], out_fp=None) -> int:
                                        MEM_F_PRIMARY5, MEM_F_REF_HDR,
                                        MEM_F_SMARTPE, MEM_F_SOFTCLIP,
                                        MEM_F_XB, MemOptions)
+
+    import queue
+    import threading
 
     argv, device = _pop_device(argv)
     opt = MemOptions()
@@ -279,16 +284,77 @@ def main_mem(argv: list[str], out_fp=None) -> int:
     out_fp.write(_hdr_lines(fm.bnt, hdr_line, pg))
     chunk = (fixed_chunk_size if fixed_chunk_size > 0
              else opt.chunk_size * opt.n_threads)
+    run = process_seqs_smart if opt.flag & MEM_F_SMARTPE else process_seqs
     n_processed = 0
-    while True:
-        reads = read_batch(ks1, ks2, chunk, copy_comment)
-        if not reads:
-            break
-        run = process_seqs_smart if opt.flag & MEM_F_SMARTPE else process_seqs
-        run(opt, engine, fm, reads, n_processed, pes0, rg_id)
-        n_processed += len(reads)
-        for r in reads:
-            out_fp.write(r.sam)
+    # the kt_pipeline analog (kthread.c:119-147, fastmap.c:64-123): a reader
+    # thread parses chunk k+1 and a writer thread writes chunk k-1's SAM
+    # while chunk k aligns; only this thread touches torch and the card.
+    # The chunks are the same, so the bytes are too.
+    rq: queue.Queue = queue.Queue(maxsize=2)
+    wq: queue.Queue = queue.Queue(maxsize=2)
+    stop = threading.Event()
+    # an exception in either thread is raised here, never a hang on the
+    # bounded queues
+    pipe_err: list = []
+
+    def _put(batch):  # gives up once the command has ended
+        while not stop.is_set():
+            try:
+                return rq.put(batch, timeout=0.1)
+            except queue.Full:
+                pass
+
+    def _reader():
+        try:
+            while not stop.is_set():
+                batch = read_batch(ks1, ks2, chunk, copy_comment)
+                _put(batch)
+                if not batch:
+                    return
+        except BaseException as e:  # a malformed or truncated FASTQ, IO
+            pipe_err.append(e)
+            _put([])  # the sentinel: unblocks rq.get below
+
+    def _writer():
+        try:
+            while True:
+                batch = wq.get()
+                if batch is None:
+                    return
+                for r in batch:
+                    out_fp.write(r.sam)
+        except BaseException as e:  # ENOSPC, EPIPE on out_fp
+            pipe_err.append(e)
+            while wq.get() is not None:  # drain: wq.put never blocks
+                pass
+
+    rt = threading.Thread(target=_reader, daemon=True)
+    wt = threading.Thread(target=_writer, daemon=True)
+    rt.start()
+    wt.start()
+    try:
+        while True:
+            reads = rq.get()
+            if pipe_err:
+                raise pipe_err[0]
+            if not reads:
+                break
+            run(opt, engine, fm, reads, n_processed, pes0, rg_id)
+            n_processed += len(reads)
+            wq.put(reads)
+            if chunk_done_hook is not None:
+                chunk_done_hook(len(reads))
+            if pipe_err:
+                raise pipe_err[0]
+    finally:
+        # both threads end with the command (a daemon serves on after it):
+        # the writer once it has drained, the reader at its next chunk
+        wq.put(None)
+        wt.join()
+        stop.set()
+        rt.join()
+    if pipe_err:
+        raise pipe_err[0]
     if opened_out:
         out_fp.close()
     return 0

@@ -45,6 +45,18 @@
 //  6. No initialisation pass: every seed slot is written once, by a push or,
 //     after the machine ends, by the warp's coalesced zeroing of the slots
 //     past seed_n; qmask is read only below seed_n.
+//  7. Retire-and-refill mode (the JAX machine's refill=True): the B lanes
+//     draw the n_queue reads of q from a cursor in device memory.  A lane
+//     whose read is done and whose seed store holds cap_r more rows takes
+//     the next read with one atomicAdd (its first thread's, broadcast by a
+//     shuffle); the cursor may pass n_queue by the failed draws, so the
+//     reads drawn are min(qctr, n_queue).  Pass 2 scans only the current
+//     read's seeds (from seed_base) and the tag column is the read id.
+//     Which lane takes which read follows the order lanes finish, so only
+//     each read's seeds, sorted by (start, end), equal the plain version's.
+//
+// Kernel K8, probe_breaks, lives here too: it reads the same occtab with
+// the same cooperative extend_c (see probe_breaks_kernel below).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (bwa_tpu_torch/ops/cuda_kernels.py).
@@ -66,16 +78,17 @@ struct SeedArgs {
   const uint32_t *occtab;  // [n_rows, 4 + nw] counts || text words
   const int64_t *L2;       // [5]
   C primary, seq_len;
-  const uint8_t *q;        // [B, L] read codes
-  int B, L;
-  const int32_t *qlen, *nv, *job_lo, *hi1, *hi3;  // nv: [B, L+1]
+  const uint8_t *q;        // [n_queue, L] read codes
+  int B, n_queue, L;       // lanes, reads (equal unless refill)
+  const int32_t *qlen, *nv, *job_lo, *hi1, *hi3;  // nv: [n_queue, L+1]
   int min_seed_len, split_len;
   int64_t split_width, max_intv3;
-  int cap, cap_s, use_p3, tagged;
+  int cap, cap_s, use_p3, tagged, cap_r;
   C *seeds;                // [B, cap_s, 5|6]
   int32_t *seed_n, *done_step, *steps;
   uint8_t *ovf;
   uint8_t *qmask;          // [B, cap_s] scratch
+  int32_t *qctr;           // refill mode's queue cursor, else null
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -163,25 +176,43 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int gl = lane & (G - 1), grp = lane / G;
   const unsigned below = (1u << (lane & ~(G - 1))) - 1;  // earlier groups
   const int L = a.L, cap = a.cap, cap_s = a.cap_s;
+  const bool refill = a.qctr != nullptr;
   const int ncol = a.tagged ? 6 : 5;
   C *stkA = reinterpret_cast<C *>(smem_raw) + (size_t)warp * 2 * cap * 4;
   C *stkB = stkA + cap * 4;
-  const uint8_t *q = a.q + (size_t)b * L;
-  const int32_t *nv = a.nv + (size_t)b * (L + 1);
   C *seeds = a.seeds + (size_t)b * cap_s * ncol;
   uint8_t *qmask = a.qmask + (size_t)b * cap_s;
-  const int qlen = a.qlen[b], hi1 = a.hi1[b], hi3 = a.hi3[b];
+  // the lane's read: row b, or in refill mode each read it draws
+  int rid = b, qlen = 0, hi1 = 0, hi3 = 0;
+  const uint8_t *q = a.q;
+  const int32_t *nv = a.nv;
+  auto take_read = [&](int r) {
+    rid = r;
+    q = a.q + (size_t)r * L;
+    nv = a.nv + (size_t)r * (L + 1);
+    qlen = a.qlen[r];
+    hi1 = refill ? qlen : a.hi1[r];
+    hi3 = refill ? qlen : a.hi3[r];
+  };
   C L2[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) L2[c] = (C)a.L2[c];
 
-  int phase = P_NEXT, stage = S_P1, old_n = 0, job = a.job_lo[b], x = 0;
+  int phase = P_NEXT, stage = S_P1, old_n = 0, job = 0, x = 0;
   C minv = 1, ik0 = 0, ik1 = 0, ik2 = 0;
   int info_end = 0, i = 0, an = 0, bn = 0;
   bool cur_is_a = true, rev_read = true, ovf = false;
   int call_last_start = 0, call_mem_n = 0, ret = 0, seed_n = 0;
+  int seed_base = 0;  // the current read's first seed slot (refill)
   int64_t cur_tag = 0;
   int steps = 0, done_step = 0;
+  if (b < a.n_queue) {
+    take_read(b);
+    if (!refill) job = a.job_lo[b];
+  } else {  // a refill lane with no read: done at the plain machine's step 1
+    phase = P_DONE;
+    done_step = 1;
+  }
 
   // one seed row, pushed by the warp (the last slot keeps being overwritten
   // once the store is full; seed_n keeps counting)
@@ -235,13 +266,29 @@ __global__ void __launch_bounds__(WARPS * 32)
       const bool to_s2 = exh && stage == S_P1;
       const bool to_s3 = exh && st1m && a.use_p3;
       const bool to_done = exh && (st2m || (st1m && !a.use_p3));
+      bool done_now = to_done;
       if (to_s2) {
         old_n = seed_n;
         stage = S_P2;
+        job = seed_base;  // pass 2 scans the current read's seeds
       } else if (to_s3) {
         stage = S_P3;
+        job = 0;
       }
-      if (to_s2 || to_s3) job = 0;
+      if (refill && to_done && seed_n <= cap_s - a.cap_r) {
+        // draw the next read; the lane idles this step, as the plain
+        // version's does
+        int r = 0;
+        if (lane == 0) r = atomicAdd(a.qctr, 1);
+        r = __shfl_sync(FULL, r, 0);
+        if (r < a.n_queue) {
+          take_read(r);
+          seed_base = seed_n;
+          stage = S_P1;
+          job = 0;
+          done_now = false;
+        }
+      }
       bool startable = false;
       if (have) {
         const int qx = q[clampi(x, 0, L - 1)];
@@ -257,7 +304,7 @@ __global__ void __launch_bounds__(WARPS * 32)
       }
       if (minv < 1) minv = 1;
       if (!startable) {
-        if (to_done) phase = P_DONE;
+        if (done_now) phase = P_DONE;
         ++steps;
         if (phase == P_DONE && done_step == 0) done_step = steps;
         continue;
@@ -305,7 +352,8 @@ __global__ void __launch_bounds__(WARPS * 32)
         const bool amb3 = run3 && qi >= 4, ext3 = run3 && !amb3;
         const bool hit3 = ext3 && (int64_t)of2 < a.max_intv3 &&
                           (i - x) >= a.min_seed_len;
-        if (hit3 && of2 > 0) push_seed(of0, of1, of2, x, i + 1, -1);
+        if (hit3 && of2 > 0)
+          push_seed(of0, of1, of2, x, i + 1, refill ? rid : -1);
         if (ext3 && !hit3) {
           ik0 = of0; ik1 = of1; ik2 = of2;
           ++i;
@@ -372,7 +420,8 @@ __global__ void __launch_bounds__(WARPS * 32)
       const C p0 = pr[0], p1 = pr[1], p2 = pr[2];
       const int p3 = (int)pr[3];
       if (p3 - (i + 1) >= a.min_seed_len)
-        push_seed(p0, p1, p2, i + 1, p3, st1m ? cur_tag : 0);
+        push_seed(p0, p1, p2, i + 1, p3,
+                  refill ? rid : (st1m ? cur_tag : 0));
       call_last_start = i + 1;
       ++call_mem_n;
     }
@@ -436,27 +485,121 @@ int launch_nw(const SeedArgs<C> &a, int nw, cudaStream_t stream) {
   }
 }
 
+// Kernel K8: probe_breaks, the trip-count predictor of trip-sorted bucket
+// packing.  Replaces the JAX package's lax.scan bwa_tpu/ops/fm.py:253
+// probe_breaks; its plain version is bwa_tpu_torch/ops/fm.py::
+// probe_breaks_plain, equal count for count.  One forward interval a read
+// over x = 0..L-1: where the previous base and this one are bases, the
+// interval is extended forwards by c (the backward extension of the
+// reverse complement, base 3 - c); an empty result counts a break, and
+// wherever c is a base that did not extend, the interval restarts on c
+// (bwt_set_intv).  The pad codes (4) end an interval as an N does.
+//
+// What bounds it: as K1, the chain of dependent occ4 pairs, L of them; the
+// bytes (the codes once, the occtab once) and the operations are far
+// below.  Design: a group of G = 2R threads a read (E = 32 / G reads a
+// warp), each step one cooperative extend_c, K1's; every read of the
+// launch takes exactly L steps, so the warp never diverges and a step
+// with nothing to extend looks up k = -1 (row 0, in cache).  No stack,
+// no tail.
+template <typename C, int NW>
+__global__ void __launch_bounds__(WARPS * 32)
+    probe_breaks_kernel(SeedArgs<C> a, int32_t *breaks) {
+  constexpr int G = 2 * NW / WPT;
+  const int lane = threadIdx.x & 31, gl = lane & (G - 1);
+  const int b = (blockIdx.x * WARPS * 32 + threadIdx.x) / G;
+  const bool live = b < a.B;  // dead groups step on row 0, for the shuffles
+  const uint8_t *q = a.q + (size_t)(live ? b : 0) * a.L;
+  C L2[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) L2[c] = (C)a.L2[c];
+  C x0 = 1, x1 = 1, x2 = 0;
+  bool started = false;
+  int brk = 0;
+  for (int x = 0; x < a.L; ++x) {
+    const int c = q[x];
+    const bool good = c < 4, ext = started && good;
+    C nb, sz, above;
+    extend_c<C, NW>(a, L2, ext ? x1 - 1 : (C)-1, ext ? x1 - 1 + x2 : (C)-1,
+                    gl, clampi(3 - c, 0, 3), nb, sz, above);
+    const C span = (x1 <= a.primary && x1 + x2 - 1 >= a.primary) ? 1 : 0;
+    if (ext && sz >= 1) {
+      x0 = x0 + span + above;
+      x1 = nb;
+      x2 = sz;
+    } else if (good) {
+      if (ext) ++brk;
+      x0 = pick(L2, c) + 1;
+      x1 = pick(L2, 3 - c) + 1;
+      x2 = pick(L2, c + 1) - pick(L2, c);
+    }
+    started = good;
+  }
+  if (live && gl == 0) breaks[b] = brk;
+}
+
+template <typename C, int NW>
+int launch_probe(const SeedArgs<C> &a, int32_t *breaks, cudaStream_t stream) {
+  constexpr int G = 2 * NW / WPT;
+  const int64_t threads = (int64_t)a.B * G;
+  const int block = WARPS * 32;
+  probe_breaks_kernel<C, NW><<<(int)((threads + block - 1) / block), block,
+                               0, stream>>>(a, breaks);
+  return (int)cudaGetLastError();
+}
+
+template <typename C>
+int launch_probe_nw(const SeedArgs<C> &a, int nw, int32_t *breaks,
+                    cudaStream_t stream) {
+  if (a.B == 0) return 0;
+  switch (nw) {
+    case 8: return launch_probe<C, 8>(a, breaks, stream);
+    case 32: return launch_probe<C, 32>(a, breaks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int bwa_seed_machine(
     int coord64, const uint32_t *occtab, int nw, const int64_t *L2,
-    int64_t primary, int64_t seq_len, const uint8_t *q, int B, int L,
-    const int32_t *qlen, const int32_t *nv, const int32_t *job_lo,
+    int64_t primary, int64_t seq_len, const uint8_t *q, int B, int n_queue,
+    int L, const int32_t *qlen, const int32_t *nv, const int32_t *job_lo,
     const int32_t *hi1, const int32_t *hi3, int min_seed_len, int split_len,
     int64_t split_width, int64_t max_intv3, int cap, int cap_s, int use_p3,
-    int tagged, void *seeds, int32_t *seed_n, uint8_t *ovf,
-    int32_t *done_step, int32_t *steps, uint8_t *qmask, void *stream) {
+    int tagged, int cap_r, void *seeds, int32_t *seed_n, uint8_t *ovf,
+    int32_t *done_step, int32_t *steps, uint8_t *qmask, int32_t *qctr,
+    void *stream) {
+  if (qctr == nullptr && n_queue != B) return (int)cudaErrorInvalidValue;
+  if (qctr != nullptr && !tagged) return (int)cudaErrorInvalidValue;
   if (coord64) {
-    SeedArgs<int64_t> a{occtab, L2, primary, seq_len, q, B, L, qlen, nv,
-                        job_lo, hi1, hi3, min_seed_len, split_len,
+    SeedArgs<int64_t> a{occtab, L2, primary, seq_len, q, B, n_queue, L,
+                        qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
                         split_width, max_intv3, cap, cap_s, use_p3, tagged,
-                        (int64_t *)seeds, seed_n, done_step, steps, ovf,
-                        qmask};
+                        cap_r, (int64_t *)seeds, seed_n, done_step, steps,
+                        ovf, qmask, qctr};
     return launch_nw(a, nw, (cudaStream_t)stream);
   }
   SeedArgs<int32_t> a{occtab, L2, (int32_t)primary, (int32_t)seq_len, q, B,
-                      L, qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
-                      split_width, max_intv3, cap, cap_s, use_p3, tagged,
-                      (int32_t *)seeds, seed_n, done_step, steps, ovf, qmask};
+                      n_queue, L, qlen, nv, job_lo, hi1, hi3, min_seed_len,
+                      split_len, split_width, max_intv3, cap, cap_s, use_p3,
+                      tagged, cap_r, (int32_t *)seeds, seed_n, done_step,
+                      steps, ovf, qmask, qctr};
   return launch_nw(a, nw, (cudaStream_t)stream);
+}
+
+extern "C" int bwa_probe_breaks(int coord64, const uint32_t *occtab, int nw,
+                                const int64_t *L2, int64_t primary,
+                                int64_t seq_len, const uint8_t *q, int B,
+                                int L, int32_t *breaks, void *stream) {
+  if (coord64) {
+    SeedArgs<int64_t> a{};
+    a.occtab = occtab; a.L2 = L2; a.primary = primary; a.seq_len = seq_len;
+    a.q = q; a.B = B; a.n_queue = B; a.L = L;
+    return launch_probe_nw(a, nw, breaks, (cudaStream_t)stream);
+  }
+  SeedArgs<int32_t> a{};
+  a.occtab = occtab; a.L2 = L2; a.primary = (int32_t)primary;
+  a.seq_len = (int32_t)seq_len; a.q = q; a.B = B; a.n_queue = B; a.L = L;
+  return launch_probe_nw(a, nw, breaks, (cudaStream_t)stream);
 }

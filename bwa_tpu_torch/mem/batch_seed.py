@@ -5,11 +5,16 @@ The host packs reads into machine lanes (pack_k=2 N-separated short reads
 per lane, or one long read sharded over several lanes with provenance),
 climbs a device cap ladder when a bucket overflows, demuxes the lanes back
 to per-read flat seed arrays, and batches the occurrence SA lookups.
+trip_order sorts a big batch's short reads by K8's predicted trips before
+they are packed (their lanes then gathered on the device);
+BWA_TPU_SEED_REFILL seeds short reads on K1's retire-and-refill lanes.
 collect_intv_batch is the per-read form of the same seeding, one read a
 lane, for the Python mem path (-5, BWA_TPU_FINALIZE=python).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -192,7 +197,6 @@ def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
     tag and are kept (ties of (start, end) denote the same interval, so
     any tie order is output-equivalent — ks_introsort on .info is
     unstable too)."""
-    max_occ = opt.max_occ
     if n_shard > 1:
         s0, s1, s2, ss, se, sn, tg = seeds_out
         sn_l = sn.astype(np.int64)
@@ -215,7 +219,6 @@ def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
         x2 = s2[lmask][order].astype(np.int64)
         start = start_a[order].astype(np.int32)
         end = end_a[order].astype(np.int32)
-        sn_v = np.bincount(rid_sorted, minlength=nb)[:nb]
     else:
         s0, s1, s2, ss, se, sn = seeds_out
         sn_l = sn.astype(np.int64)
@@ -235,52 +238,220 @@ def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
         off_p = (rslot * (L + 1))[order].astype(np.int64)
         start = (start_p[order] - off_p).astype(np.int32)
         end = (se[lmask].astype(np.int64)[order] - off_p).astype(np.int32)
-        sn_v = np.bincount(rid_sorted, minlength=nb)[:nb]
+    return _flat_seeds(opt, fm, rid_sorted, k0, x2, start, end, nb)
+
+
+def _flat_seeds(opt, fm, rid, k0, x2, start, end, nb):
+    """Per-read flat arrays from seed rows already in the reads' order
+    (rid: each row's read): the occurrence SA rows of each seed
+    (mem_chain's bwt_sa calls, bwamem.c:304-309) looked up in one batch
+    through fm.sa_lookup.  Returns (iv_off, x2, start, end, rbegs,
+    rb_off), offsets local to the nb reads."""
+    max_occ = opt.max_occ
     counts = np.where(x2 > max_occ, max_occ, x2)
     step = np.where(x2 > max_occ, x2 // max_occ, 1)
     tot = int(counts.sum())
     csum = np.cumsum(counts)
     grp = np.repeat(np.arange(len(counts)), counts)
     within = np.arange(tot, dtype=np.int64) - np.repeat(csum - counts, counts)
-    ranks = k0[grp] + step[grp] * within
-    rbegs = fm.sa_lookup(ranks)
+    rbegs = fm.sa_lookup(k0[grp] + step[grp] * within)
     iv_off = np.zeros(nb + 1, np.int32)       # per READ
-    iv_off[1:] = np.cumsum(sn_v)
+    iv_off[1:] = np.cumsum(np.bincount(rid, minlength=nb)[:nb])
     rb_off = np.zeros(len(counts) + 1, np.int32)  # per SEED
     rb_off[1:] = csum
     return (iv_off, x2, start, end, rbegs, rb_off)
 
 
-def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24):
+def _demux_refill(opt, fm, seeds_out, nb):
+    """Demux retire-and-refill lanes: the provenance column carries the
+    read id, so one stable lexsort by (read, start, end) restores the
+    static route's order of each read's seeds (a read lives in one lane,
+    its rows leave the lane's sort_seeds in (start, end, emission) order,
+    and the stable sort keeps that tie order)."""
+    s0, s1, s2, ss, se, sn, tg = seeds_out
+    lmask = np.arange(s0.shape[1])[None, :] < sn.astype(np.int64)[:, None]
+    rid_all = tg[lmask].astype(np.int64)
+    start_a = ss[lmask].astype(np.int64)
+    end_a = se[lmask].astype(np.int64)
+    order = np.lexsort((end_a, start_a, rid_all))
+    return _flat_seeds(opt, fm, rid_all[order],
+                       s0[lmask][order].astype(np.int64),
+                       s2[lmask][order].astype(np.int64),
+                       start_a[order].astype(np.int32),
+                       end_a[order].astype(np.int32), nb)
+
+
+def _se_flat_refill(opt, engine, fm, codes_list, cap_s):
+    """se_flat_buckets' retire-and-refill route (BWA_TPU_SEED_REFILL):
+    chunks of BWA_TPU_REFILL_BUCKET reads (default 4 buckets' worth) feed
+    a pool of lanes (the bucket's lane count, at most BWA_TPU_REFILL_LANES)
+    that draw from a shared queue (engine.collect_seeds_refill).  The
+    chunk climbs a ladder of 2x and 4x the seed store (stack caps 32, 64)
+    when a lane overflows or the lanes filled before the queue drained;
+    past it the chunk yields None (the per-read host route)."""
+    B = len(codes_list)
+    RB = int(os.environ.get("BWA_TPU_REFILL_BUCKET", str(4 * BATCH_BUCKET)))
+    los = list(range(0, B, RB))
+    pend = {}
+
+    def _dispatch(i):
+        chunk = codes_list[los[i]:los[i] + RB]
+        n = len(chunk)
+        q, lens, L = _pad_reads(chunk)
+        lanes = _lane_bucket(L, n)
+        if os.environ.get("BWA_TPU_REFILL_LANES"):
+            lanes = min(lanes, int(os.environ["BWA_TPU_REFILL_LANES"]))
+        cs_tot = max(4 * cap_s, (-(-n // lanes) + 1) * cap_s)
+        h = engine.collect_seeds_refill_dispatch(q, lens, opt, cs_tot,
+                                                 cap_s, lanes)
+        pend[i] = (h, n, q, lens, lanes, cs_tot)
+
+    _dispatch(0)
+    for i, lo in enumerate(los):
+        if i + 1 < len(los):
+            _dispatch(i + 1)
+        h, n, q, lens, lanes, cs_tot = pend.pop(i)
+        out, n_drawn = engine.collect_seeds_refill_wait(h)
+        if (out[5] > cs_tot).any() or n_drawn < n:
+            for mul, sc2 in ((2, 32), (4, 64)):
+                cs_tot *= mul
+                out, n_drawn = engine.collect_seeds_refill(
+                    q, lens, opt, cs_tot, cap_s, lanes, stack_cap=sc2)
+                if not (out[5] > cs_tot).any() and n_drawn == n:
+                    break
+            else:
+                yield lo, n, None  # exactness fallback (tuple path)
+                continue
+        yield lo, n, _demux_refill(opt, fm, out, n)
+
+
+def trip_order(opt, engine, codes_list):
+    """Trip-sorted antithetic bucket packing (the kt_for work-stealing
+    analog, kthread.c:25-61): the seeding machine runs every lane to its
+    bucket's slowest one, so reads are ordered by K8's predicted trips
+    (engine.probe_trips) and each bucket arranged so that _pack_bucket's
+    pairing (slot 0 = chunk[i], slot 1 = chunk[B2 + i]) puts rank j beside
+    rank nb - 1 - j, which evens the lanes' sums; with more than one
+    bucket the sorted ranks are dealt round-robin over the buckets first,
+    so that each holds an even mix.
+
+    BWA_TPU_TRIP_SORT: off; force; auto (the default), which sorts only
+    batches of 4,096 reads or more on genomes of 200 Mbp or more (below
+    that the serial probe costs more than it saves).  Reads over 256 bp
+    (lane-sharded) and engines on a mesh are never sorted.  Returns
+    (order, qdev): a [B] permutation (position -> original read) and the
+    batch's read matrix on the engine's device, which se_flat_buckets
+    gathers the sorted lanes from; or (None, None).  Each read's seeds do
+    not depend on its lane, so the output bytes never depend on it;
+    callers keep the original read ids for hash_64."""
+    mode = os.environ.get("BWA_TPU_TRIP_SORT", "auto")
+    if mode == "off" or not hasattr(engine, "probe_trips"):
+        return None, None
+    if getattr(engine, "mesh", None) is not None:
+        return None, None
+    B = len(codes_list)
+    if mode != "force" and B < 4096:
+        return None, None
+    if mode == "auto" and getattr(engine, "fm", None) is not None \
+            and engine.fm.l_pac < 200_000_000:
+        return None, None
+    L = _len_bucket(max(len(c) for c in codes_list))
+    if L > 256:
+        return None, None
+    pred, qdev = engine.probe_trips(codes_list)
+    perm = np.argsort(pred, kind="stable").astype(np.int64)
+    bucket0 = _lane_bucket(L)
+    nbk = (B + bucket0 - 1) // bucket0
+    if nbk > 1:
+        sizes = [min(bucket0, B - b * bucket0) for b in range(nbk)]
+        assign = [[] for _ in range(nbk)]
+        bi = 0
+        for r in range(B):
+            while len(assign[bi]) >= sizes[bi]:
+                bi = (bi + 1) % nbk
+            assign[bi].append(perm[r])
+            bi = (bi + 1) % nbk
+        perm = np.concatenate([np.asarray(a, np.int64) for a in assign])
+    out = np.empty(B, np.int64)
+    for lo in range(0, B, bucket0):
+        s = perm[lo:lo + bucket0]
+        nb = len(s)
+        bucket = _lane_bucket(L, nb)
+        if nb >= bucket // 2:  # pack_k = 2, as _pack_bucket picks it
+            B2 = bucket // 2
+            n1 = min(B2, nb)
+            out[lo:lo + n1] = s[:n1]
+            if nb > B2:
+                # slot-1 positions B2..nb-1 get ranks nb-1 down to B2
+                out[lo + B2:lo + nb] = s[nb - 1:B2 - 1:-1]
+        else:
+            out[lo:lo + nb] = s
+    return out, qdev
+
+
+def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
+                    row_ids=None, qdev=None):
     """Generator yielding (lo, nb, flat | None) per bucket, with the NEXT
     bucket's device seeding dispatched before this bucket's host demux —
     the kt_pipeline analog (kthread.c:119-147): the device seeds bucket k+1
     while the host demuxes/finalizes bucket k.  flat arrays use
     bucket-local offsets; None = exactness fallback (seed-cap overflow
-    even at the roomy retry cap) — redo that bucket via the tuple path."""
+    even at the roomy retry cap) — redo that bucket via the tuple path.
+
+    row_ids, qdev: trip_order's permutation and read matrix (each entry's
+    row of qdev).  Given them, a bucket of pack_k = 2 lanes is gathered
+    from qdev on the device (collect_seeds_dispatch_gather) instead of
+    packed and uploaded.  BWA_TPU_SEED_REFILL routes reads of 256 bp or
+    less through _se_flat_refill."""
     B = len(codes_list)
     if B == 0:
         return
-    bucket0 = _lane_bucket(_len_bucket(max(len(c) for c in codes_list)))
+    Lg = _len_bucket(max(len(c) for c in codes_list))
+    if (os.environ.get("BWA_TPU_SEED_REFILL") and Lg <= 256
+            and hasattr(engine, "collect_seeds_refill_dispatch")
+            and getattr(engine, "mesh", None) is None):
+        yield from _se_flat_refill(opt, engine, fm, codes_list, cap_s)
+        return
+    bucket0 = _lane_bucket(Lg)
     los = list(range(0, B, bucket0))
     packed = {}
 
     def _dispatch(idx):
-        chunk = codes_list[los[idx]:los[idx] + bucket0]
+        lo = los[idx]
+        chunk = codes_list[lo:lo + bucket0]
+        nb = len(chunk)
+        B2 = _lane_bucket(Lg, nb) // 2
+        if qdev is not None and nb >= B2:  # the pack_k = 2 regime
+            rid = np.asarray(row_ids[lo:lo + nb], np.int64)
+            pb = np.full(B2, -1, np.int64)
+            pb[:nb - B2] = rid[B2:nb]
+            qlen = np.array([len(c) for c in chunk[:B2]], np.int32)
+            qlen[:nb - B2] = (Lg + 1) + np.array(
+                [len(c) for c in chunk[B2:nb]], np.int32)
+            h = engine.collect_seeds_dispatch_gather(qdev, rid[:B2], pb,
+                                                     qlen, opt, 2 * cap_s)
+            # the host lanes are built only if the bucket climbs the ladder
+            packed[idx] = (None, None, Lg, B2, 2, 2 * cap_s, None, 1, h, nb,
+                           chunk)
+            return
         q, lens, L, B2, pack_k, cs, shard, ns = _pack_bucket(opt, chunk,
                                                              cap_s)
         h = engine.collect_seeds_dispatch(q, lens, opt, cs, shard=shard)
-        packed[idx] = (q, lens, L, B2, pack_k, cs, shard, ns, h, len(chunk))
+        packed[idx] = (q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk)
 
     _dispatch(0)
     for idx, lo in enumerate(los):
         if idx + 1 < len(los):
             _dispatch(idx + 1)  # next bucket's seeding in flight
-        q, lens, L, B2, pack_k, cs, shard, ns, h, nb = packed.pop(idx)
+        q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk = \
+            packed.pop(idx)
         out = engine.collect_seeds_wait(h)
         if (out[5] > cs).any():
             # seed-rich / deep-stack bucket (repeat regions): the whole
             # bucket climbs the device cap ladder
+            if q is None:  # a gathered bucket: build its host lanes
+                q, lens, L, B2, pack_k, cs, shard, ns = _pack_bucket(
+                    opt, chunk, cap_s)
             for cs2, sc2 in _cap_ladder(pack_k, q.shape[1]):
                 cs = cs2
                 out = engine.collect_seeds(q, lens, opt, cs2,
@@ -291,6 +462,31 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24):
                 yield lo, nb, None  # exactness fallback (tuple path)
                 continue
         yield lo, nb, _demux_bucket(opt, fm, out, nb, L, B2, cs, ns)
+
+
+def _reorder_flat(flat, order):
+    """Gather the per-read segments of flat seed arrays made in the
+    permuted order back into ORIGINAL read order (trip-sorted seeding,
+    the PE finalize takes reads pairwise in file order)."""
+    iv_off, x2, start, end, rbegs, rb_off = flat
+    B = len(order)
+    inv = np.empty(B, np.int64)
+    inv[order] = np.arange(B)
+    cnt_o = (iv_off[1:] - iv_off[:-1]).astype(np.int64)[inv]
+    new_iv_off = np.zeros(B + 1, np.int32)
+    new_iv_off[1:] = np.cumsum(cnt_o)
+    tot = int(new_iv_off[-1])
+    ramp = np.arange(tot, dtype=np.int64) - np.repeat(
+        new_iv_off[:-1].astype(np.int64), cnt_o)
+    g = np.repeat(iv_off[:-1].astype(np.int64)[inv], cnt_o) + ramp
+    rb_cnt = (rb_off[1:] - rb_off[:-1]).astype(np.int64)[g]
+    new_rb_off = np.zeros(tot + 1, np.int32)
+    new_rb_off[1:] = np.cumsum(rb_cnt)
+    rtot = int(new_rb_off[-1])
+    rramp = np.arange(rtot, dtype=np.int64) - np.repeat(
+        new_rb_off[:-1].astype(np.int64), rb_cnt)
+    rg = np.repeat(rb_off[:-1].astype(np.int64)[g], rb_cnt) + rramp
+    return (new_iv_off, x2[g], start[g], end[g], rbegs[rg], new_rb_off)
 
 
 def occurrence_positions(opt, engine, mems_list):
@@ -319,17 +515,21 @@ def occurrence_positions(opt, engine, mems_list):
     return caches
 
 
-def collect_se_flat(opt, engine, fm, codes_list, cap_s: int = 24):
+def collect_se_flat(opt, engine, fm, codes_list, cap_s: int = 24,
+                    order=None, qdev=None):
     """Whole-batch flat seed arrays with batch-global offsets, for the PE
     finalize (one call over every read, in file order: its insert-size
     estimate and hash_64 ids cover the whole batch).  Built on
     se_flat_buckets, so it climbs the same cap ladder (lane-wide rung
     included); returns None if a bucket still overflows (the caller takes
-    the tuple path)."""
+    the tuple path).  order, qdev: what trip_order returned; the reads
+    seed in that order and the arrays come back in file order."""
     if not codes_list:
         return None
+    src = codes_list if order is None else [codes_list[j] for j in order]
     parts = []
-    for _, _, flat in se_flat_buckets(opt, engine, fm, codes_list, cap_s):
+    for _, _, flat in se_flat_buckets(opt, engine, fm, src, cap_s,
+                                      row_ids=order, qdev=qdev):
         if flat is None:
             return None
         parts.append(flat)
@@ -340,9 +540,10 @@ def collect_se_flat(opt, engine, fm, codes_list, cap_s: int = 24):
         rb_off.append((rb_base + o_rb[1:]).astype(np.int32))
         iv_base += int(o_iv[-1])
         rb_base += int(o_rb[-1])
-    return (np.concatenate(iv_off),
-            *(np.concatenate([p[k] for p in parts]) for k in range(1, 5)),
-            np.concatenate(rb_off))
+    out = (np.concatenate(iv_off),
+           *(np.concatenate([p[k] for p in parts]) for k in range(1, 5)),
+           np.concatenate(rb_off))
+    return out if order is None else _reorder_flat(out, order)
 
 
 class CachedSeedEngine:

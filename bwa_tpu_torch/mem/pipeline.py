@@ -6,8 +6,9 @@ The default route hands the seeds to the C++ finalize
 bucket by bucket; bucket k's host finalize runs while bucket k+1 seeds
 (the kt_pipeline overlap, kthread.c:119-147).  Paired-end seeds the whole
 batch, then runs one finalize over it (insert-size estimate, mate rescue,
-pairing).  Single-end -5 (primary5), and every read under
-BWA_TPU_FINALIZE other than "native", take the Python route: the batch
+pairing).  Either may seed in trip-sorted order (batch_seed.trip_order);
+the output stays in file order.  Single-end -5 (primary5), and every read
+under BWA_TPU_FINALIZE other than "native", take the Python route: the batch
 seeds on the device one read a lane (batch_seed.collect_intv_batch), then
 chaining, extension, primary marking and SAM run per read in Python
 (chain.py, extend.py, primary.py, sam.py, pairing.py).
@@ -156,7 +157,7 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
         return
     from bwa_tpu_torch.mem.batch_seed import (collect_se_flat, host_reseed,
                                               occurrence_positions,
-                                              se_flat_buckets)
+                                              se_flat_buckets, trip_order)
     from bwa_tpu_torch.mem.native_fin import (RefBlob, finalize_pe_arrays,
                                               finalize_se_arrays,
                                               flatten_tuple_seeds)
@@ -173,22 +174,31 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
         else None
     if not hasattr(fm, "_ref_blob"):
         fm._ref_blob = RefBlob(fm)
+    # trip-sorted packing (batch_seed.trip_order): the reads seed in the
+    # order of their predicted trips, so that packed lanes finish together
+    order, qdev = trip_order(opt, engine, codes)
     if opt.flag & MEM_F_PE:
         # one finalize over the whole batch, in file order: the insert-size
         # estimate and the pair ids of hash_64 cover every pair
-        flat = collect_se_flat(opt, engine, fm, codes) or host_seeds(codes)
+        flat = collect_se_flat(opt, engine, fm, codes, order=order,
+                               qdev=qdev) or host_seeds(codes)
         sams = finalize_pe_arrays(opt, fm, fm._ref_blob, reads, codes, *flat,
                                   n_processed, pes0, rg_id, device_ext=ext)
         for r, s in zip(reads, sams):
             r.sam = s
         return
-    for lo, nb, flat in se_flat_buckets(opt, engine, fm, codes):
-        rd = reads[lo:lo + nb]
-        cd = codes[lo:lo + nb]
-        ids = n_processed + np.arange(lo, lo + nb, dtype=np.int64)
+    # SE buckets finalize in seeding order; the SAM goes back to the file
+    # order and hash_64 takes each read's index in the file
+    src = codes if order is None else [codes[j] for j in order]
+    for lo, nb, flat in se_flat_buckets(opt, engine, fm, src, row_ids=order,
+                                        qdev=qdev):
+        ix = (np.arange(lo, lo + nb, dtype=np.int64) if order is None
+              else order[lo:lo + nb])
+        rd = [reads[j] for j in ix]
+        cd = [codes[j] for j in ix]
         sams = finalize_se_arrays(opt, fm, fm._ref_blob, rd, cd,
                                   *(flat or host_seeds(cd)), 0, rg_id,
-                                  device_ext=ext, ids=ids)
+                                  device_ext=ext, ids=n_processed + ix)
         for r, s in zip(rd, sams):
             r.sam = s
 

@@ -83,9 +83,12 @@ def _bind(libs) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     f = libs["seed_machine.cu"].bwa_seed_machine
     f.restype = ctypes.c_int
-    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32,
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, i32,
                   vp, vp, vp, vp, vp, i32, i32, i64, i64, i32, i32, i32,
-                  i32, vp, vp, vp, vp, vp, vp, vp]
+                  i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+    f = libs["seed_machine.cu"].bwa_probe_breaks
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp]
     f = libs["ksw_band.cu"].bwa_ksw_band
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -125,19 +128,33 @@ def _check(rc: int, name: str) -> None:
 def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
                  hi3, min_seed_len, split_len, split_width, max_intv3, cap,
                  cap_s, use_p3, tagged, seeds, seed_n, ovf, done_step, steps,
-                 qmask) -> None:
-    """Launch K1 (csrc/seed_machine.cu) on the current stream."""
+                 qmask, lanes=None, cap_r=0, qctr=None) -> None:
+    """Launch K1 (csrc/seed_machine.cu) on the current stream: one lane a
+    row of q, or with qctr (an int32 [1] cursor) the refill mode, `lanes`
+    lanes drawing q's rows."""
     lib = build_all()["seed_machine.cu"]
-    B, L = q.shape
+    N, L = q.shape
     rc = lib.bwa_seed_machine(
         int(seeds.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
-        _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(qlen),
+        _ptr(L2), int(primary), int(seq_len), _ptr(q),
+        N if lanes is None else int(lanes), N, L, _ptr(qlen),
         _ptr(nv), _ptr(job_lo), _ptr(hi1), _ptr(hi3), int(min_seed_len),
         int(split_len), int(split_width), int(max_intv3), int(cap),
-        int(cap_s), int(use_p3), int(tagged), _ptr(seeds), _ptr(seed_n),
-        _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
-        _stream(q))
+        int(cap_s), int(use_p3), int(tagged), int(cap_r), _ptr(seeds),
+        _ptr(seed_n), _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
+        None if qctr is None else _ptr(qctr), _stream(q))
     _check(rc, "seed_machine")
+
+
+def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:
+    """Launch K8 (csrc/seed_machine.cu, q [B, L] uint8 codes, out [B]
+    int32) on the current stream."""
+    lib = build_all()["seed_machine.cu"]
+    B, L = q.shape
+    rc = lib.bwa_probe_breaks(
+        int(coord64), _ptr(occtab), occtab.shape[1] - 4, _ptr(L2),
+        int(primary), int(seq_len), _ptr(q), B, L, _ptr(out), _stream(q))
+    _check(rc, "probe_breaks")
 
 
 def _mat(mat) -> ctypes.c_void_p:

@@ -170,6 +170,118 @@ def _next_valid_device(q, qlen):
     return torch.minimum(nv, qlen.to(torch.int32)[:, None])
 
 
+def _gather_pack(q_all, pa, pb):
+    """The pack_k=2 lane layout built on the device from a batch-resident
+    read matrix: lane i = q_all[pa[i]] | 4 | q_all[pb[i]] | 4, pb = -1
+    giving an all-N slot 1 (the exact batch_seed._pack_bucket layout)."""
+    sep = torch.full((pa.shape[0], 1), 4, dtype=q_all.dtype,
+                     device=q_all.device)
+    qb = q_all[pb.clamp(min=0)]
+    qb = torch.where((pb >= 0)[:, None], qb, torch.full_like(qb, 4))
+    return torch.cat([q_all[pa], sep, qb, sep], dim=1)
+
+
+def _refill_table(q, qlen):
+    """The retire-and-refill machine's per-read table: one int32 row a
+    read = qlen | chars[L] | next-valid[L+1]."""
+    nv = _next_valid_device(q, qlen)
+    return torch.cat([qlen.to(torch.int32)[:, None], q.to(torch.int32), nv],
+                     dim=1)
+
+
+# launches of kernel K8 (the CUDA wrapper of probe_breaks adds one a launch)
+probe_launches = 0
+
+
+def probe_breaks(idx, q, qlen):
+    """[B] int32 break counts of kernel K8, the trip-count predictor of
+    trip-sorted bucket packing (mem/batch_seed.py::trip_order): one
+    forward interval scanned over x = 0..L-1, restarted where an extension
+    fails; a read's machine trips follow its restart count (corr 0.97 in
+    the JAX package's measurements).  A CUDA q launches K8
+    (csrc/seed_machine.cu); a CPU q runs probe_breaks_plain.  qlen is not
+    read: the pad codes (4) end an interval as an N does."""
+    if q.is_cuda:
+        return _probe_breaks_cuda(idx, q)
+    return probe_breaks_plain(idx, q, qlen)
+
+
+def probe_breaks_plain(idx, q, qlen=None):
+    """The plain version of K8, a line-for-line port of the JAX package's
+    ops/fm.py::probe_breaks: each step extends the interval forwards by
+    base c (the backward extension of the reverse complement, bwt_extend
+    with is_back = 0), counts a break where a started interval fails, and
+    restarts on c (bwt_set_intv) wherever c is a base and the extension
+    did not hold."""
+    B, L = q.shape
+    dev = q.device
+    i64 = torch.int64
+    L2 = idx["L2"].to(i64)
+    primary = idx["primary"]
+    x0 = torch.ones(B, dtype=i64, device=dev)
+    x1 = torch.ones(B, dtype=i64, device=dev)
+    x2 = torch.zeros(B, dtype=i64, device=dev)
+    started = torch.zeros(B, dtype=torch.bool, device=dev)
+    breaks = torch.zeros(B, dtype=torch.int32, device=dev)
+    bidx = torch.arange(B, device=dev)
+    for x in range(L):
+        c = q[:, x].to(i64)
+        good = c < 4
+        tk = _occ4(idx, x1 - 1).to(i64)
+        tl = _occ4(idx, x1 - 1 + x2).to(i64)
+        ok_sz = tl - tk
+        cf = (3 - c).clamp(0, 3)
+        span = ((x1 <= primary) & (x1 + x2 - 1 >= primary)).to(i64)
+        above = (ok_sz * (torch.arange(4, device=dev)[None, :]
+                          > cf[:, None])).sum(dim=1)
+        of0 = x0 + span + above
+        of1 = L2[cf] + 1 + tk[bidx, cf]
+        of2 = ok_sz[bidx, cf]
+        ext_ok = started & good & (of2 >= 1)
+        breaks += (started & good & (of2 < 1)).to(torch.int32)
+        s0, s1, s2 = (s.to(i64) for s in _set_intv(idx, c))
+        restart = good & ~ext_ok
+        x0 = torch.where(ext_ok, of0, torch.where(restart, s0, x0))
+        x1 = torch.where(ext_ok, of1, torch.where(restart, s1, x1))
+        x2 = torch.where(ext_ok, of2, torch.where(restart, s2, x2))
+        started = good
+    return breaks
+
+
+def _probe_breaks_cuda(idx, q):
+    """Kernel K8 launch: a group of 2R threads a read, L steps."""
+    global probe_launches
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    occtab = idx.get("occtab")
+    if occtab is None or not (q.is_cuda and occtab.is_cuda):
+        raise ValueError("K8 reads the fused occtab and CUDA codes")
+    if occtab.dtype != torch.int32 or occtab.data_ptr() % 16 \
+            or occtab.shape[1] - 4 not in (8, 32):
+        raise ValueError("K8 reads an int32 occtab of 8 or 32 text words a "
+                         "row (R = 1 or 4), aligned to 16 bytes")
+    q8 = q.to(torch.uint8).contiguous()
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    cuda_kernels.probe_breaks(
+        occtab, idx["L2"].to(torch.int64).contiguous(), idx["primary"],
+        idx["seq_len"], idx["cdt"] == torch.int64, q8, out)
+    probe_launches += 1
+    return out
+
+
+def unported_routes() -> None:
+    """Raise on the JAX package's seeding routes that the port does not
+    have yet, rather than take the default route without a word."""
+    if os.environ.get("BWA_TPU_SEED_MACHINE", "unified") == "split":
+        raise NotImplementedError(
+            "BWA_TPU_SEED_MACHINE=split (the three-call seeding route) is "
+            "not ported yet; unset it for the unified machine")
+    if os.environ.get("BWA_TPU_SEED_COMPACT"):
+        raise NotImplementedError(
+            "BWA_TPU_SEED_COMPACT (K1's tail-compaction mode) is not ported "
+            "yet; unset it")
+
+
 class BatchedFMEngine:
     """Batched device engine with the method set mem/batch_seed.py calls,
     on one device (`mesh` is None: one GPU)."""
@@ -216,6 +328,7 @@ class BatchedFMEngine:
     # ---- seeding ----
 
     def _consts(self, opt, L: int, stack_cap):
+        unported_routes()
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
         if stack_cap is None:
             stack_cap = int(os.environ.get("BWA_TPU_STACK_CAP", "16"))
@@ -248,6 +361,86 @@ class BatchedFMEngine:
                                         use_p3, split_len, shard,
                                         key64=bool(L >= 32768))
         return (seeds, meta, cap_s, self._event())
+
+    def probe_trips(self, codes_list):
+        """[B] predicted machine trips of each read (K8's break counts,
+        probe_breaks) for trip-sorted bucket packing, and the batch's read
+        matrix on the device, from which collect_seeds_dispatch_gather
+        packs each bucket's lanes instead of uploading them."""
+        from bwa_tpu_torch.mem.batch_seed import _pad_reads
+
+        q, lens, _ = _pad_reads(codes_list)
+        qd = torch.from_numpy(q).to(self.device)
+        br = probe_breaks(self.idx, qd, torch.from_numpy(lens).to(
+            self.device))
+        return br.cpu().numpy(), qd
+
+    def collect_seeds_dispatch_gather(self, q_all, pa, pb, qlen, opt,
+                                      cap_s: int,
+                                      stack_cap: int | None = None):
+        """collect_seeds_dispatch for a bucket whose pack_k=2 lanes are
+        gathered on the device from q_all, the read matrix probe_trips
+        returned (_gather_pack): pa/pb are its row indices a lane (pb = -1:
+        an all-N slot 1), qlen the packed lane lengths."""
+        Lp = 2 * (q_all.shape[1] + 1)
+        split_len, stack_cap, use_p3 = self._consts(opt, Lp, stack_cap)
+        dev = self.device
+        qd = _gather_pack(q_all, torch.from_numpy(pa.astype(np.int64)).to(
+            dev), torch.from_numpy(pb.astype(np.int64)).to(dev))
+        qld = torch.from_numpy(qlen.astype(np.int32)).to(dev)
+        seeds, meta = self._run_machine(qd, qld, opt, cap_s, stack_cap,
+                                        use_p3, split_len, None,
+                                        key64=bool(Lp >= 32768))
+        return (seeds, meta, cap_s, self._event())
+
+    def collect_seeds_refill_dispatch(self, q_all: np.ndarray,
+                                      qlen_all: np.ndarray, opt, cap_s: int,
+                                      cap_r: int, lanes: int,
+                                      stack_cap: int | None = None):
+        """Retire-and-refill seeding, queued without waiting: the bucket's
+        reads go up as one per-read table (_refill_table) and `lanes`
+        machine lanes draw reads from a shared queue as they finish
+        theirs (fm_machine.seed_machine_refill; kernel K1's refill mode
+        on a CUDA engine), so a launch lasts about total work / lanes
+        rather than its unluckiest lane.  Seeds carry the read id in the
+        provenance column; cap_s is a lane's seed store, cap_r one read's
+        share of it (a lane stops drawing without that much room)."""
+        from bwa_tpu_torch.ops import fm_machine
+
+        N, L = q_all.shape
+        split_len, stack_cap, use_p3 = self._consts(opt, L, stack_cap)
+        qd = torch.from_numpy(np.ascontiguousarray(q_all)).to(self.device)
+        qld = torch.from_numpy(qlen_all.astype(np.int32)).to(self.device)
+        table = _refill_table(qd, qld)
+        seeds, seed_n, st, ovf, ds, qctr = fm_machine.seed_machine_refill(
+            self.idx, table, lanes, opt.min_seed_len, split_len,
+            opt.split_width, opt.max_mem_intv, cap=stack_cap, cap_s=cap_s,
+            use_p3=use_p3, cap_r=cap_r)
+        # the kernel's cursor passes N by the draws that found the queue
+        # empty: the reads drawn are min(qctr, N)
+        drawn = qctr.clamp(max=N).to(torch.int32).reshape(1, 1)
+        meta = torch.cat([_pack_meta(seed_n, ovf, ds, st),
+                          drawn.expand(1, lanes)])
+        seeds = fm_machine.sort_seeds(seeds, seed_n, key64=False)
+        return (seeds, meta, cap_s, self._event())
+
+    def collect_seeds_refill_wait(self, handle):
+        """Blocking half of the refill dispatch: the usual seed tuple (tag
+        column = read id) and n_drawn, the reads the lanes started; fewer
+        than the bucket's means every lane filled its seed store."""
+        seeds, meta, cap_s, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        meta = meta.cpu().numpy()
+        return (self._fetch_seeds(seeds, meta[0], meta[1] != 0, cap_s),
+                int(meta[4, 0]))
+
+    def collect_seeds_refill(self, q_all, qlen_all, opt, cap_s: int,
+                             cap_r: int, lanes: int,
+                             stack_cap: int | None = None):
+        h = self.collect_seeds_refill_dispatch(q_all, qlen_all, opt, cap_s,
+                                               cap_r, lanes, stack_cap)
+        return self.collect_seeds_refill_wait(h)
 
     def _event(self):
         if self.device.type != "cuda":

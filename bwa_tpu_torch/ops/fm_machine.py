@@ -8,12 +8,13 @@ pass 3 LAST-like seeds (bwt_seed_strategy1, bwt.c:358-379).
 
 seed_machine_seg is the plain version: one machine step of every lane per
 loop iteration as masked tensor ops, a line-for-line port of the JAX
-package's ops/fm_machine.py::seed_machine_seg (no refill mode).  The CUDA
+package's ops/fm_machine.py::seed_machine_seg, retire-and-refill mode
+included (segmented runs for tail compaction are not ported).  The CUDA
 kernel (csrc/seed_machine.cu, kernel K1) runs the same machine with a warp
 per lane until the lane is done, extending all entries of a backward row
 at once; bwd_row_resolve is the plain form of how it orders that row's
-pushes and emit.  seed_machine dispatches: a CUDA tensor launches K1, a CPU
-tensor takes the plain version.
+pushes and emit.  seed_machine and seed_machine_refill dispatch: a CUDA
+tensor launches K1, a CPU tensor takes the plain version.
 
 Emission order within a lane differs from the reference's collection
 order; sort_seeds (stable by (start, end)) makes the result identical.
@@ -72,13 +73,17 @@ def seed_state_init(B: int, cap: int, cap_s: int, device,
         call_last_start=z(B), call_mem_n=z(B), ret=z(B),
         seeds=z(B, cap_s, 6 if tagged else 5), seed_n=z(B),
         qmask=torch.zeros((B, cap_s), dtype=torch.bool, device=device),
-        cur_tag=z(B), steps=0, ovf=b(False), done_step=z(B))
+        cur_tag=z(B), steps=0, ovf=b(False), done_step=z(B),
+        # refill mode: each lane's current read, the first seed slot of that
+        # read, and the shared queue cursor
+        read_idx=z(B), seed_base=z(B), qctr=0)
 
 
 def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
                      split_len, split_width, max_intv3, max_steps: int,
                      cap: int, cap_s: int, use_p3: bool, hi1=None, hi3=None,
-                     tagged: bool = False) -> dict:
+                     tagged: bool = False, refill: bool = False,
+                     n_queue: int = 0, cap_r: int = 0) -> dict:
     """Run at most max_steps more machine steps over every lane (the plain
     version of kernel K1).  q: [B, L] codes; qlen, hi1, hi3: [B]; nv:
     [B, L+1] next-valid table.  Updates and returns the state dict.
@@ -92,15 +97,29 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
     the `tagged` provenance column lets the demux drop cross-lane
     duplicates exactly.  Pass 3's seeds depend on the visit sequence
     (bwt.c:358-379), so only lane 0 of a read runs it (hi3 = qlen there,
-    0 elsewhere)."""
-    B, L = q.shape
+    0 elsewhere).
+
+    Retire-and-refill (refill=True, tagged): q is instead the per-read
+    table [N, 2L+2] of ops/fm.py::_refill_table (qlen | chars | next
+    valid) and qlen, next_valid are unused; each lane reads the row of its
+    read_idx, and a lane whose read is done draws the next read from the
+    shared cursor qctr (same-step finishers in lane order) while its seed
+    store holds cap_r more rows, else it goes P_DONE; its pass 2 scans only
+    the current read's seeds (from seed_base), and the provenance column
+    carries the read id."""
     dev = q.device
     i64 = torch.int64
-    q = q.to(i64)
-    qlen = qlen.to(i64)
-    nv = next_valid.to(i64)
-    hi1 = qlen if hi1 is None else hi1.to(i64)
-    hi3 = qlen if hi3 is None else hi3.to(i64)
+    if refill:
+        table = q.to(i64)
+        L = (table.shape[1] - 2) // 2
+        B = d["phase"].shape[0]
+    else:
+        B, L = q.shape
+        q = q.to(i64)
+        qlen = qlen.to(i64)
+        nv = next_valid.to(i64)
+        hi1 = qlen if hi1 is None else hi1.to(i64)
+        hi3 = qlen if hi3 is None else hi3.to(i64)
     sidx = torch.arange(cap_s, dtype=i64, device=dev)
     L2r = idx["L2"][:4].to(i64)[None, :]
     primary = idx["primary"]
@@ -114,6 +133,11 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         return mat[torch.arange(B, device=dev), c]
 
     while d["steps"] < stop_at and bool((d["phase"] != P_DONE).any()):
+        if refill:  # the lanes' current reads
+            trow = table[d["read_idx"]]
+            qlen = hi1 = hi3 = trow[:, 0]
+            q = trow[:, 1:L + 1]
+            nv = trow[:, L + 1:]
         phase = d["phase"]
         st1m = d["stage"] == S_P2
         st2m = d["stage"] == S_P3
@@ -156,8 +180,28 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         d["stage"] = W(to_s2, torch.full_like(d["stage"], S_P2),
                        W(to_s3, torch.full_like(d["stage"], S_P3),
                          d["stage"]))
-        d["job"] = W(to_s2 | to_s3, torch.zeros_like(d["job"]), d["job"])
+        # pass 2 scans the current read's seeds: from seed_base (0 unless
+        # the lane refills)
+        d["job"] = W(to_s2, d["seed_base"],
+                     W(to_s3, torch.zeros_like(d["job"]), d["job"]))
         st2m = d["stage"] == S_P3
+
+        if refill:
+            # a finishing lane with room for another read's seeds draws the
+            # next queued read; same-step finishers take consecutive queue
+            # slots in lane order.  The lane idles this step (its gathered
+            # row is the old read's) and starts the new read's pass 1 next.
+            want = to_done & (d["seed_n"] <= cap_s - cap_r)
+            wanti = want.to(i64)
+            new_idx = d["qctr"] + torch.cumsum(wanti, 0) - wanti
+            acq = want & (new_idx < n_queue)
+            d["read_idx"] = W(acq, new_idx, d["read_idx"])
+            d["seed_base"] = W(acq, d["seed_n"], d["seed_base"])
+            d["stage"] = W(acq, torch.full_like(d["stage"], S_P1),
+                           d["stage"])
+            d["job"] = W(acq, torch.zeros_like(d["job"]), d["job"])
+            d["qctr"] += int(acq.sum())
+            to_done = to_done & ~acq
 
         qx = vread(q, d["x"].clamp(0, L - 1))
         startable = have & (qx < 4)
@@ -264,8 +308,9 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         write_any = write | write3
         seed_row = W(write3[:, None], row3, seed_row)
         if tagged:
-            tag = W(write3, torch.full_like(d["cur_tag"], -1),
-                    W(st1m, d["cur_tag"], torch.zeros_like(d["cur_tag"])))
+            tag = d["read_idx"] if refill else W(
+                write3, torch.full_like(d["cur_tag"], -1),
+                W(st1m, d["cur_tag"], torch.zeros_like(d["cur_tag"])))
             seed_row = torch.cat([seed_row, tag[:, None]], dim=1)
         qual_new = ((seed_row[:, 4] - seed_row[:, 3]) >= split_len) \
             & (seed_row[:, 2] <= split_width)
@@ -421,9 +466,22 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
                        split_width, max_intv3, cap, cap_s, use_p3, shard):
     """Kernel K1 launch: a warp per lane runs its machine to done."""
     global launches
+    out = _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len,
+                     split_len, split_width, max_intv3, cap, cap_s, use_p3)
+    launches += 1
+    return out
+
+
+def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
+               split_width, max_intv3, cap, cap_s, use_p3, lanes=None,
+               cap_r=0, qctr=None):
+    """K1 on q's rows, one a lane, or in refill mode (qctr given) on
+    `lanes` lanes drawing q's rows from the cursor qctr.  Returns (seeds,
+    seed_n, steps, ovf, done_step)."""
     from bwa_tpu_torch.ops import cuda_kernels
 
-    B, L = q.shape
+    refill = qctr is not None
+    B = lanes if refill else q.shape[0]
     dev = q.device
     cdt = idx["cdt"]
     if "occtab" not in idx:
@@ -436,14 +494,14 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
             or occtab.shape[1] - 4 not in (8, 32):
         raise ValueError("K1 reads an int32 occtab of 8 or 32 text words a "
                          "row (R = 1 or 4), aligned to 16 bytes")
-    tagged = shard is not None
+    tagged = shard is not None or refill
     ncol = 6 if tagged else 5
     i32 = torch.int32
-    if tagged:
+    if shard is not None:
         job_lo, hi1, hi3 = (torch.as_tensor(np.asarray(a, np.int32),
                                             device=dev) for a in shard)
-    else:
-        job_lo = torch.zeros(B, dtype=i32, device=dev)
+    else:  # refill mode reads neither: its bounds are each read's length
+        job_lo = torch.zeros(q.shape[0], dtype=i32, device=dev)
         hi1 = hi3 = qlen.to(i32)
     q8 = q.to(torch.uint8).contiguous()
     ql = qlen.to(i32).contiguous()
@@ -462,9 +520,74 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
         job_lo.contiguous(), hi1.contiguous(), hi3.contiguous(),
         int(min_seed_len), int(split_len), int(split_width),
         int(max_intv3), cap, cap_s, bool(use_p3), tagged, seeds, seed_n,
-        ovf, done_step, steps, qmask)
-    launches += 1
+        ovf, done_step, steps, qmask, lanes=B, cap_r=int(cap_r), qctr=qctr)
     return seeds, seed_n, steps, ovf.bool(), done_step
+
+
+# launches of K1's refill mode (its CUDA wrapper adds one a launch)
+refill_launches = 0
+
+
+def seed_machine_refill(idx, table, lanes: int, min_seed_len, split_len,
+                        split_width, max_intv3, cap: int, cap_s: int,
+                        use_p3: bool, cap_r: int):
+    """Retire-and-refill seeding of the N reads of `table` (ops/fm.py::
+    _refill_table) on `lanes` lanes: lane b starts on read b (lanes past N
+    start done), the shared cursor starts at min(lanes, N).  Returns
+    (seeds [lanes, cap_s, 6] coord dtype, tag = read id; seed_n [lanes]
+    int32; steps; ovf [lanes] bool; done_step [lanes] int32; qctr, a
+    [1] int32 tensor: min(qctr, N) reads were drawn).  Which lane seeds
+    which read depends on the order lanes finish, so only the seeds of
+    each read, sorted by (start, end), are the same on both devices.
+
+    A CUDA table launches K1's refill mode; a CPU table runs the plain
+    version."""
+    args = (idx, table, lanes, min_seed_len, split_len, split_width,
+            max_intv3, cap, cap_s, use_p3, cap_r)
+    if table.is_cuda:
+        return _seed_machine_refill_cuda(*args)
+    return seed_machine_refill_plain(*args)
+
+
+def seed_machine_refill_plain(idx, table, lanes, min_seed_len, split_len,
+                              split_width, max_intv3, cap, cap_s, use_p3,
+                              cap_r):
+    """seed_machine_refill through the plain version, on table's device."""
+    dev = table.device
+    N = table.shape[0]
+    d = seed_state_init(lanes, cap, cap_s, dev, tagged=True)
+    init_n = min(lanes, N)
+    d["read_idx"] = torch.arange(lanes, device=dev).clamp(max=max(N - 1, 0))
+    d["phase"][init_n:] = P_DONE
+    d["qctr"] = init_n
+    d = seed_machine_seg(d, idx, table, None, None, int(min_seed_len),
+                         int(split_len), int(split_width), int(max_intv3),
+                         1 << 62, cap=cap, cap_s=cap_s, use_p3=use_p3,
+                         tagged=True, refill=True, n_queue=N,
+                         cap_r=int(cap_r))
+    return (d["seeds"].to(idx["cdt"]), d["seed_n"].to(torch.int32),
+            d["steps"], d["ovf"], d["done_step"].to(torch.int32),
+            torch.tensor([d["qctr"]], dtype=torch.int32, device=dev))
+
+
+def _seed_machine_refill_cuda(idx, table, lanes, min_seed_len, split_len,
+                              split_width, max_intv3, cap, cap_s, use_p3,
+                              cap_r):
+    """K1's refill mode: a warp per lane, a lane whose read is done draws
+    the next one with an atomic add on the queue cursor."""
+    global refill_launches
+    N = table.shape[0]
+    L = (table.shape[1] - 2) // 2
+    i32 = torch.int32
+    q = table[:, 1:L + 1].to(torch.uint8).contiguous()
+    qlen = table[:, 0].contiguous()
+    nv = table[:, L + 1:].contiguous()
+    qctr = torch.full((1,), min(lanes, N), dtype=i32, device=table.device)
+    out = _launch_k1(idx, q, qlen, nv, None, min_seed_len, split_len,
+                     split_width, max_intv3, cap, cap_s, use_p3,
+                     lanes=lanes, cap_r=cap_r, qctr=qctr)
+    refill_launches += 1
+    return (*out, qctr)
 
 
 def sort_seeds(seeds, seed_n, key64: bool):

@@ -48,7 +48,9 @@ DEVICE_CMDS = ("mem", "fastmap", "aln")
 # the switches that pick a route (read at call time by the port)
 ROUTE_VARS = ("BWA_TPU_ALN", "BWA_TPU_FINALIZE", "BWA_TPU_SAMSE",
               "BWA_TPU_SAMPE", "BWA_TPU_EXT_FUSED", "BWA_TPU_EXT_STAGE",
-              "BWA_TPU_STACK_CAP")
+              "BWA_TPU_STACK_CAP", "BWA_TPU_TRIP_SORT", "BWA_TPU_SEED_REFILL",
+              "BWA_TPU_REFILL_LANES", "BWA_TPU_REFILL_BUCKET",
+              "BWA_TPU_SEED_MACHINE", "BWA_TPU_SEED_COMPACT")
 
 
 def fnv1a64(data: bytes) -> int:
@@ -282,10 +284,13 @@ def _context_lost(engine, err: Exception) -> bool:
 def launch_counts() -> dict:
     """Kernel launches so far in this process, each wrapper's count: "K2"
     counts K2's gather mode on both paths, "K2 wide" those of them at
-    P > 1024."""
-    from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
+    P > 1024, "K1 refill" K1's refill mode."""
+    from bwa_tpu_torch.ops import (fm, fm_machine, gap_machine, ksw_band,
+                                   ksw_full)
 
-    return {"K1": fm_machine.launches, "K2": ksw_band.launches,
+    return {"K1": fm_machine.launches,
+            "K1 refill": fm_machine.refill_launches,
+            "K8": fm.probe_launches, "K2": ksw_band.launches,
             "K2 wide": ksw_band.wide_launches,
             "K2 host-array": ksw_band.array_launches,
             "K5": ksw_full.launches, "K7": gap_machine.launches,

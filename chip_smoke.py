@@ -4,11 +4,16 @@
     python3 chip_smoke.py [--log DIR]
     python3 chip_smoke.py --aln-chunk
     python3 chip_smoke.py --k7-bench
+    python3 chip_smoke.py --big-genome
 
 Run from the repository root on a machine with one CUDA card.  With
 --aln-chunk it only runs one whole `aln` chunk on the card (aln_chunk_main);
 with --k7-bench only K7 and K7w at aln_se_100bp's first launches, alone,
-on fewer lanes and on both occtab layouts (k7_bench_main).
+on fewer lanes and on both occtab layouts (k7_bench_main); with
+--big-genome only a 210 Mbp genome from the seed, indexed by the port's
+index_build into build/big_genome, and 24,576 x 150 bp SE reads through
+`mem` with BWA_TPU_TRIP_SORT unset, whose auto gate must launch K8 once
+(big_genome_main; prints the index build's seconds and the phase wall).
 Without, in order:
   1. builds the hand-written kernels (csrc/*.cu, nvcc sm_90a, in parallel)
      and the native library;
@@ -57,23 +62,42 @@ Without, in order:
      meanwhile a subprocess runs 256 of the SE reads with caps 8, 16,
      cap_a 2 and 120 steps (every rung and the host-spec fallback), whose
      .sai must equal the native search's;
-  4c. starts the resident daemon (`daemon start --device cuda`) in a
-     fresh process with a socket directory of its own, waits for its ping (fails if it exits first) and prints
-     the seconds to the ping and each warm stage's (SE, PE, fastmap,
-     pacbio, aln); forwards the smoke's own inputs through the Python
-     client (mem SE, mem PE from the two FASTQs, mem -x pacbio, fastmap,
-     aln with BWA_TPU_ALN=device, samse on that .sai), each output equal
-     to the main process's local one, the daemon's kernel launches, wall
-     and card memory printed for each; the cold one-shot of the same mem
-     SE command (BWA_TPU_NO_DAEMON=1); mem SE and aln again through the
-     native client (client_exe()); a bogus request through each client
-     (non-zero exit, the daemon serving on); `daemon stop` (exit 0, the
-     socket gone); then stages the index with `shm` under build/smoke/shm
-     (the BWA_TPU_SHM_DIR of the whole run, so that no staging elsewhere
-     on the host stands in for the index), runs mem SE on the attached
-     index (the [M::bwa_idx_load_from_shm] line, SAM equal to the
-     disk-loaded run's), times the index load and upload both ways and
-     destroys the staging;
+  4c. starts the resident daemon (`daemon start --device cuda`) in a fresh
+     process with a socket directory of its own, waits for its ping (fails
+     if it exits first) and prints the seconds to the ping and each warm
+     stage's (SE, PE, fastmap, pacbio, aln); forwards the smoke's own
+     inputs through the Python client (mem SE, mem SE with
+     BWA_TPU_TRIP_SORT=force, which must launch K8 in the daemon, mem PE
+     from the two FASTQs, mem -x pacbio, fastmap, aln with
+     BWA_TPU_ALN=device, samse on that .sai), each output equal to the main
+     process's local one, the daemon's kernel launches, wall and card
+     memory printed for each; the cold one-shot of the same mem SE command
+     (BWA_TPU_NO_DAEMON=1); mem SE and aln again through the native client
+     (client_exe()); a bogus request through each client and mem with
+     BWA_TPU_SEED_COMPACT=1 (non-zero exits, the last with the engine's
+     NotImplementedError, the daemon serving on); `daemon stop` (exit 0,
+     the socket gone); then stages the index with `shm` under
+     build/smoke/shm (the BWA_TPU_SHM_DIR of the whole run, so that no
+     staging elsewhere on the host stands in for the index), runs mem SE
+     on the attached index (the [M::bwa_idx_load_from_shm] line, SAM equal
+     to the disk-loaded run's), times the index load and upload both ways
+     and destroys the staging;
+  4d. (run right after 4a) trip-sorted packing, K1's refill mode and
+     main_mem's threads, on the same genome: 24,576 x 150 bp SE reads
+     (bench.py's headline set) with BWA_TPU_TRIP_SORT off, force, force and
+     off, and the 12,288 pairs off and force (SAM equal to the first off
+     run's, K8 launched once under force and never under off); the SE
+     reads with BWA_TPU_SEED_REFILL=1, then also BWA_TPU_REFILL_LANES=1024
+     (SAM equal to the unsorted static run's, K1 launched only in its
+     refill mode); prints each K1 launch's longest lane's steps with and
+     without the sort and each refill launch's reads drawn and event ms;
+     holds K8's launch to its plain version on all 24,576 rows, and every
+     refill launch of the main path on its own arguments (12,288 and 1,024
+     lanes) and 257 of the reads drawn by 64 lanes to the plain version on
+     the card, each timed beside its bound;
+     then main_mem with -K in four chunks or more (SE against
+     mem_se_150bp's SAM; PE with -I 350,40 against the one-chunk run with
+     -I), printing each chunk's chunk_done_hook time;
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
      its three shapes (K2 host-array mode and K5, launches counted), and
      past the widths the first kernels refused (K5 at QP = 6016 with
@@ -679,9 +703,11 @@ def records_differ(sam_a: str, sam_b: str):
 
 
 def zero_launches():
-    from bwa_tpu_torch.ops import fm_machine, gap_machine, ksw_band, ksw_full
+    from bwa_tpu_torch.ops import (fm, fm_machine, gap_machine, ksw_band,
+                                   ksw_full)
 
-    fm_machine.launches = ksw_band.launches = ksw_band.wide_launches = 0
+    fm_machine.launches = fm_machine.refill_launches = fm.probe_launches = 0
+    ksw_band.launches = ksw_band.wide_launches = 0
     ksw_band.array_launches = ksw_full.launches = 0
     gap_machine.launches = gap_machine.width_launches = 0
 
@@ -1932,6 +1958,404 @@ def time_k2(rec, i=0):
 
 
 # --------------------------------------------------------------------------
+# 4d. trip-sorted packing (K8), K1's refill mode, main_mem's threads
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """The environment variables kv set for the calls made inside."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_sam(name, a, b, what):
+    diff = records_differ(a, b)
+    if diff or records_of(a) != records_of(b):
+        fail(f"{name}: SAM differs from {what}: {diff}")
+
+
+def k1_steps(rec, phase):
+    """Each K1 launch of a phase: its lanes and longest lane's steps."""
+    return [dict(call=i, lanes=int(a[1].shape[0]),
+                 longest_lane_steps=int(rec.kept[i]),
+                 event_ms=rec.call_ms.get(i))
+            for i, (ph, a, _) in enumerate(rec.calls) if ph == phase]
+
+
+def check_k8(rec, phase="mem_se_tripsort"):
+    """K8's main-path launch in `phase` (all rows) against the plain
+    version on the card, its time over 5 launches, and its bound: the
+    codes, the occtab and the counts once; an occ4 pair (24 integer ops a
+    text word scanned, nw / 2 + 1 words on average, as K1's) at each
+    position that extends (its base and the one before are bases), 16 ops
+    at every position."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    i = next(j for j, (ph, _, _) in enumerate(rec.calls) if ph == phase)
+    idx, q, qlen = rec.calls[i][1]
+    got = fm_ops.probe_breaks(idx, q, qlen)
+    want, plain_ms = timed_once(lambda: fm_ops.probe_breaks_plain(idx, q))
+    err = int((got.long() - want.long()).abs().max())
+    ms = cuda_time(lambda: fm_ops.probe_breaks(idx, q, qlen), 5)
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    ext = int(((q[:, 1:] < 4) & (q[:, :-1] < 4)).sum())
+    nbytes = q.numel() + occ.numel() * 4 + q.shape[0] * 4
+    ops = ext * 2 * 12 * (nw / 2 + 1) + q.numel() * 16
+    res = dict(phase=phase, call=i, ms=ms, plain_ms=plain_ms,
+               event_ms=rec.call_ms.get(i), equal=err == 0, err=err,
+               rows=int(q.shape[0]), shape=f"B={q.shape[0]} L={q.shape[1]}",
+               extending_positions=ext, breaks=int(want.sum()),
+               bytes=int(nbytes), ops=float(ops))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log(f"K8 {res}")
+    if err:
+        fail(f"K8 disagrees with its plain version on {phase}'s rows")
+    return res
+
+
+def refill_rows(out):
+    """Each read's seed rows of a refill launch, the way _demux_refill
+    orders them (sort_seeds in each lane, then a stable sort by (read,
+    start, end)), and the reads whose rows depend on the lane that drew
+    them: those seeded in a lane that overflowed its seed store or
+    stack."""
+    import numpy as np
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    s = fmm.sort_seeds(out[0], out[1], False).cpu().numpy()
+    sn = out[1].cpu().numpy().astype(np.int64)
+    live = np.arange(s.shape[1])[None, :] < sn[:, None]
+    bad = (sn > s.shape[1]) | out[3].cpu().numpy().astype(bool)
+    rows = s[live]
+    return (rows[np.lexsort((rows[:, 4], rows[:, 3], rows[:, 5]))],
+            np.unique(s[bad][live[bad]][:, 5]))
+
+
+def refill_equal(got, want, n):
+    """Two runs of K1's refill mode on one table of n reads, whichever
+    lane drew which read: the rows of every read that both drew (the
+    cursor hands reads out in order, so the first min(drawn) reads) and
+    that neither seeded in an overflowing lane, equal.  Returns (equal,
+    max abs err, rows compared, reads left out, (drawn, drawn))."""
+    import numpy as np
+
+    drawn = (min(int(got[5]), n), min(int(want[5]), n))
+    (g, gbad), (w, wbad) = refill_rows(got), refill_rows(want)
+    skip = np.union1d(gbad, wbad)
+
+    def kept(r):
+        return r[(r[:, 5] < min(drawn)) & ~np.isin(r[:, 5], skip)]
+
+    g, w = kept(g).astype(np.int64), kept(w).astype(np.int64)
+    same = g.shape == w.shape
+    equal = same and bool((g == w).all()) and g.shape[0] > 0
+    err = int(abs(g - w).max()) if same and g.size else (0 if equal else -1)
+    return equal, err, int(g.shape[0]), int(skip.size), drawn
+
+
+def check_refill(rec, count=257, lanes=64):
+    """K1's refill mode against its plain version on the card, at every
+    main-path launch on its own arguments (the whole table, its lanes and
+    caps; each timed over 5 launches), and on `count` reads spread over
+    the first launch's table, drawn by `lanes` lanes (several reads each).
+    Each read's seeds, in _demux_refill's order, must be equal; the bound
+    is the first launch's, from its own lane steps."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    checks = []
+    for i, (ph, args, kw) in enumerate(rec.calls):
+        n = args[1].shape[0]
+        got = fmm.seed_machine_refill(*args, **kw)
+        want, plain_ms = timed_once(
+            lambda: fmm.seed_machine_refill_plain(*args, **kw))
+        equal, err, rows, left_out, drawn = refill_equal(got, want, n)
+        c = dict(phase=ph, call=i, reads=n, lanes=int(args[2]),
+                 cap_s=kw["cap_s"], cap_r=kw["cap_r"], equal=equal, err=err,
+                 rows_checked=rows, reads_left_out=left_out, drawn=drawn,
+                 longest_lane_steps=int(got[2]), plain_ms=plain_ms,
+                 ms=cuda_time(lambda: fmm.seed_machine_refill(*args, **kw),
+                              5))
+        log(f"K1 refill check {c}")
+        checks.append(c)
+        if not equal:
+            fail(f"K1's refill mode disagrees with its plain version at "
+                 f"{ph}'s launch {i} (reads drawn {drawn})")
+    _, args, kw = rec.calls[0]
+    idx, table = args[0], args[1]
+    n = table.shape[0]
+    sel = torch.arange(0, n, max(1, n // count), device=table.device)[:count]
+    k = dict(kw, cap_s=2 * kw["cap_r"] * (-(-count // lanes) + 1))
+    a = (idx, table[sel], lanes, *args[3:])
+    equal, err, rows, left_out, drawn = refill_equal(
+        fmm.seed_machine_refill(*a, **k),
+        fmm.seed_machine_refill_plain(*a, **k), count)
+    extra = dict(reads=count, lanes=lanes, cap_s=k["cap_s"], equal=equal,
+                 err=err, rows_checked=rows, reads_left_out=left_out,
+                 drawn=drawn)
+    log(f"K1 refill check {extra}")
+    if not equal or min(drawn) < count:
+        fail(f"K1's refill mode disagrees with its plain version on {count} "
+             f"reads of mem_se_refill (reads drawn {drawn})")
+    full = fmm.seed_machine_refill(*args, **kw)
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    steps = int(full[4].to(torch.int64).sum())
+    nbytes = (occ.numel() * 4 + table.numel() * 4
+              + full[0].numel() * full[0].element_size()
+              + full[0].shape[0] * 9)
+    ops = steps * (2 * 12 * (nw / 2 + 1) + 64)
+    res = dict(phase=checks[0]["phase"], call=0, ms=checks[0]["ms"],
+               plain_ms=checks[0]["plain_ms"],
+               plain_shape="every main-path launch at its own shape; also "
+                           f"{count} reads on {lanes} lanes",
+               equal=True, err=max(c["err"] for c in checks),
+               main_path_checks=checks, small_check=extra,
+               shape=f"N={n} lanes={args[2]} L={(table.shape[1] - 2) // 2} "
+                     f"cap={kw['cap']} cap_s={kw['cap_s']}",
+               lane_steps=steps, longest_lane_steps=int(full[2]),
+               n_drawn=min(int(full[5]), n), bytes=int(nbytes),
+               ops=float(ops))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log(f"K1 refill {res}")
+    return res
+
+
+def pipeline_phase(d, prefix, name, fqs, extra, K, want):
+    """main_mem with -K K (four chunks or more) on the card: the
+    chunk_done_hook's (reads, seconds) of each chunk, and its SAM records
+    against `want`, the same command's single-chunk output."""
+    import torch
+
+    from bwa_tpu_torch.cli import main_mem
+
+    stamps = []
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    rc = main_mem([*extra, "-K", str(K), "--device", "cuda", prefix,
+                   *map(str, fqs)], out, chunk_done_hook=lambda n:
+                  stamps.append((n, time.perf_counter() - t0)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    info = dict(phase=name, K=K, chunks=len(stamps), chunk_done=stamps,
+                seconds=dt, launches=read_launches())
+    if rc != 0:
+        fail(f"{name}: main_mem exited {rc}")
+    if len(stamps) < 4:
+        fail(f"{name}: {len(stamps)} chunks, expected 4 or more")
+    same_sam(name, out.getvalue(), want, "the single-chunk run's")
+    info["equal_single_chunk"] = True
+    log(f"{name} {info}")
+    return info
+
+
+def seeding_route_phases(d, prefix, codes, pe, sam_se):
+    """Step 4d: the 24,576 x 150 bp SE reads with BWA_TPU_TRIP_SORT off,
+    force, force and off, the 12,288 pairs off and force, the SE reads with
+    BWA_TPU_SEED_REFILL=1 (and BWA_TPU_REFILL_LANES=1024), SAM equal to
+    the unsorted static run's; K8 and the refill mode held to their plain
+    versions; then main_mem in four chunks or more.  Returns (phases, K8's
+    row, the refill row, the steps of K1's launches)."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine
+
+    t0 = time.perf_counter()
+    reads = simulate(codes, 24576, 150, SEED + 12, 0.005, 0.0002, "t")[0]
+    recs = {"K1": Recorder(fm_machine, "seed_machine",
+                           keep=lambda out: out[2]),
+            "K8": Recorder(fm_ops, "probe_breaks"),
+            "K1 refill": Recorder(fm_machine, "seed_machine_refill",
+                                  keep=lambda out: out[5])}
+    runs = {}
+    try:
+        # off, force, force, off: the SE walls in turns
+        for name, rd, rd2, env in (
+                ("mem_se_tripsort_off", reads, None,
+                 dict(BWA_TPU_TRIP_SORT="off")),
+                ("mem_se_tripsort", reads, None,
+                 dict(BWA_TPU_TRIP_SORT="force")),
+                ("mem_se_tripsort_2", reads, None,
+                 dict(BWA_TPU_TRIP_SORT="force")),
+                ("mem_se_tripsort_off_2", reads, None,
+                 dict(BWA_TPU_TRIP_SORT="off")),
+                ("mem_pe_tripsort_off", pe[0], pe[1],
+                 dict(BWA_TPU_TRIP_SORT="off")),
+                ("mem_pe_tripsort", pe[0], pe[1],
+                 dict(BWA_TPU_TRIP_SORT="force")),
+                ("mem_se_refill", reads, None,
+                 dict(BWA_TPU_SEED_REFILL="1")),
+                ("mem_se_refill_1024", reads, None,
+                 dict(BWA_TPU_SEED_REFILL="1", BWA_TPU_REFILL_LANES="1024"))):
+            with env_set(**env):
+                runs[name] = main_path(d, prefix, name, rd, [], recs, rd2)
+    finally:
+        for r in recs.values():
+            r.restore()
+    info = {k: v[0] for k, v in runs.items()}
+    sam = {k: v[1] for k, v in runs.items()}
+    for name, ref in (("mem_se_tripsort", "mem_se_tripsort_off"),
+                      ("mem_se_tripsort_2", "mem_se_tripsort_off"),
+                      ("mem_se_tripsort_off_2", "mem_se_tripsort_off"),
+                      ("mem_pe_tripsort", "mem_pe_tripsort_off"),
+                      ("mem_se_refill", "mem_se_tripsort_off"),
+                      ("mem_se_refill_1024", "mem_se_tripsort_off")):
+        same_sam(name, sam[name], sam[ref], f"{ref}'s")
+        info[name][f"sam_equal_{ref}"] = True
+    for name, k8, k1, k1r in (
+            ("mem_se_tripsort", 1, 1, 0), ("mem_se_tripsort_off", 0, 1, 0),
+            ("mem_se_tripsort_2", 1, 1, 0),
+            ("mem_se_tripsort_off_2", 0, 1, 0),
+            ("mem_pe_tripsort", 1, 1, 0), ("mem_pe_tripsort_off", 0, 1, 0),
+            ("mem_se_refill", 0, 0, 1), ("mem_se_refill_1024", 0, 0, 1)):
+        c = info[name]["launches"]
+        if c["K8"] != k8 or (c["K1"] >= 1) != bool(k1) \
+                or (c["K1 refill"] >= 1) != bool(k1r):
+            fail(f"{name}: launches {c}: expected K8 {k8}, K1 "
+                 f"{'some' if k1 else 'none'}, K1 refill "
+                 f"{'some' if k1r else 'none'}")
+    for r in recs.values():
+        r.take_ms()
+    steps = {ph: k1_steps(recs["K1"], ph) for ph in (
+        "mem_se_tripsort_off", "mem_se_tripsort", "mem_se_tripsort_2",
+        "mem_se_tripsort_off_2", "mem_pe_tripsort_off", "mem_pe_tripsort")}
+    for sorted_ph in ("mem_se_tripsort", "mem_pe_tripsort"):
+        a = [s["longest_lane_steps"] for s in steps[sorted_ph]]
+        b = [s["longest_lane_steps"]
+             for s in steps[sorted_ph + "_off"]]
+        info[sorted_ph]["longest_lane_steps"] = a
+        info[sorted_ph]["longest_lane_steps_off"] = b
+        info[sorted_ph]["steps_change"] = sum(a) / max(1, sum(b)) - 1
+    refill_launches = [
+        dict(phase=ph, call=i, lanes=int(a[2]), reads=int(a[1].shape[0]),
+             cap_s=kw["cap_s"], n_drawn=min(int(rec), int(a[1].shape[0])),
+             event_ms=recs["K1 refill"].call_ms.get(i))
+        for i, ((ph, a, kw), rec) in enumerate(zip(recs["K1 refill"].calls,
+                                                   recs["K1 refill"].kept))]
+    for x in refill_launches:
+        log(f"K1 refill launch {x}")
+    main_s = time.perf_counter() - t0
+    k8 = check_k8(recs["K8"])
+    k1r = check_refill(recs["K1 refill"])
+    k1r["launches_on_main_path"] = refill_launches
+    # main_mem's reader/writer threads: SE against mem_se_150bp's output,
+    # PE (-I: no per-chunk insert-size estimate) against the one-chunk run
+    se_fq = [d / "mem_se_150bp.fq"]
+    pe_fq = [d / "mem_pe_150bp.fq", d / "mem_pe_150bp_2.fq"]
+    pe_want, _ = run_mem(prefix, pe_fq, ["-I", "350,40"])
+    pipes = [pipeline_phase(d, prefix, "mem_se_150bp_chunked", se_fq, [],
+                            150_000, sam_se),
+             pipeline_phase(d, prefix, "mem_pe_150bp_chunked", pe_fq,
+                            ["-I", "350,40"], 1_000_000, pe_want)]
+    log(f"step 4d: {main_s:.1f} s of phases, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    for ph in (*info.values(), *pipes):
+        print(json.dumps(ph), flush=True)
+    print(json.dumps(dict(k1_longest_lane_steps=steps)), flush=True)
+    return list(info.values()) + pipes, k8, k1r
+
+
+# --------------------------------------------------------------------------
+# --big-genome: trip-sort's auto gate at 210 Mbp
+# --------------------------------------------------------------------------
+
+BIG_GENOME_LEN = 210_000_000
+
+
+def big_genome_main() -> int:
+    """A 210 Mbp genome from the seed, indexed by the port's index_build
+    (build/big_genome, kept between runs of one checkout), then the
+    24,576 x 150 bp SE reads through `mem` with BWA_TPU_TRIP_SORT unset
+    (auto sorts at l_pac >= 200 Mbp, so K8 launches once) and with off, in
+    turns auto, off, auto, off, every SAM equal.  Prints the index build's
+    seconds, each phase's wall and K1 launches (longest lane's steps,
+    event ms), and K8 against its plain version."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    from bwa_tpu_torch.index.build import index_build
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.native.build import get_lib
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    card_line = (smi("--query-gpu=name,power.limit") or ["(no nvidia-smi)"])[0]
+    get_lib()
+    cuda_kernels.build_all()
+    d = REPO / "build" / "big_genome"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 20)
+    codes = rng.integers(0, 4, BIG_GENOME_LEN).astype(np.uint8)
+    fa = d / "big210.fa"
+    t0 = time.perf_counter()
+    if not (d / "big210.fa.sa").exists():
+        seq = np.frombuffer(b"ACGT", np.uint8)[codes]
+        lines = np.concatenate(
+            [seq[:len(seq) // 70 * 70].reshape(-1, 70),
+             np.full((len(seq) // 70, 1), ord("\n"), np.uint8)], axis=1)
+        with open(fa, "wb") as f:
+            f.write(b">synthetic_210m\n" + lines.tobytes()
+                    + seq[len(seq) // 70 * 70:].tobytes() + b"\n")
+        del seq, lines
+        index_build(str(fa))
+    index_s = time.perf_counter() - t0
+    fm = FMIndex.load(str(fa))
+    log(f"210 Mbp index built in {index_s:.1f} s (l_pac={fm.l_pac})")
+    if fm.l_pac < 200_000_000:
+        fail(f"l_pac {fm.l_pac} is below trip-sort's auto gate")
+    reads = simulate(codes, 24576, 150, SEED + 12, 0.005, 0.0002, "g")[0]
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine
+
+    recs = {"K1": Recorder(fm_machine, "seed_machine",
+                           keep=lambda out: out[2]),
+            "K8": Recorder(fm_ops, "probe_breaks")}
+    os.environ.pop("BWA_TPU_TRIP_SORT", None)
+    runs = []
+    try:  # auto, off, auto, off: the walls in turns
+        for i, mode in enumerate(("auto", "off", "auto", "off")):
+            name = "mem_se_big_genome" + ("_off" if mode == "off" else "") \
+                + ("_2" if i > 1 else "")
+            with env_set(**({"BWA_TPU_TRIP_SORT": "off"} if mode == "off"
+                             else {})):
+                runs.append(main_path(d, str(fa), name, reads, [], recs))
+    finally:
+        for r in recs.values():
+            r.restore()
+    info = runs[0][0]
+    info.update(index_build_seconds=index_s, genome_len=BIG_GENOME_LEN,
+                l_pac=int(fm.l_pac))
+    for (ph, sam), want_k8 in zip(runs, (1, 0, 1, 0)):
+        ph["k1_launches"] = k1_steps(recs["K1"], ph["phase"])
+        print(json.dumps(ph), flush=True)
+        same_sam(ph["phase"], sam, runs[1][1], "mem_se_big_genome_off's")
+        if ph["launches"]["K8"] != want_k8 or ph["launches"]["K1"] < 1:
+            fail(f"{ph['phase']}: launches {ph['launches']}: auto should "
+                 f"launch K8 once, off never")
+    k8 = check_k8(recs["K8"], "mem_se_big_genome")
+    print(json.dumps(dict(k8_big_genome=k8)), flush=True)
+    print(card_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# --------------------------------------------------------------------------
 # 4c. the resident daemon and shm on the card
 # --------------------------------------------------------------------------
 
@@ -2060,6 +2484,10 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
         dev = ["--device", device]
         reqs = [("mem_se_150bp", ["mem", *dev, fa, fq("mem_se_150bp")], {},
                  "sam"),
+                # the client's seeding switch applies in the daemon: K8
+                ("mem_se_150bp_tripsort", ["mem", *dev, fa,
+                                           fq("mem_se_150bp")],
+                 {"BWA_TPU_TRIP_SORT": "force"}, "sam"),
                 ("mem_pe_150bp", ["mem", *dev, fa, fq("mem_pe_150bp"),
                                   fq("mem_pe_150bp_2")], {}, "sam"),
                 ("mem_pacbio", ["mem", "-x", "pacbio", *dev, fa,
@@ -2070,7 +2498,8 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
                  {"BWA_TPU_ALN": "device"}, "sai"),
                 ("samse_100bp", ["samse", fa, sai, fq("aln_se_100bp")], {},
                  "samse")]
-        want = {"sam": lambda ph: records_of((d / f"{ph}.out").read_text()),
+        want = {"sam": lambda ph: records_of(
+                    (d / f"{ph.removesuffix('_tripsort')}.out").read_text()),
                 "text": lambda ph: (d / f"{ph}.out").read_text(),
                 "sai": lambda ph: sai.read_bytes(),
                 "samse": lambda ph: records_of(
@@ -2082,7 +2511,9 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
         info["requests"] = []
         # launches each request must show in the daemon (its wrappers
         # count only the card's kernels)
-        need = {"mem_se_150bp": ("K1",), "mem_pe_150bp": ("K1",),
+        need = {"mem_se_150bp": ("K1",),
+                "mem_se_150bp_tripsort": ("K1", "K8"),
+                "mem_pe_150bp": ("K1",),
                 "mem_pacbio": ("K1", "K2"), "fastmap_150bp": ("K1",),
                 "aln_se_100bp": ("K7", "K7w"), "samse_100bp": ()}
         if device != "cuda":
@@ -2111,6 +2542,9 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
                 for k in need.get(ph, ()):
                     if req["launches"][k] < 1:
                         fail(f"daemon: {ph} launched no {k} in the daemon")
+                if need and req["launches"]["K8"] != ("K8" in need.get(ph, ())):
+                    fail(f"daemon: {ph} launched K8 "
+                         f"{req['launches']['K8']} times in the daemon")
                 info["requests"].append(req)
                 log(f"daemon request {req}")
         # the cold one-shot of the same mem SE command: interpreter, torch,
@@ -2133,7 +2567,14 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
         if r1.returncode == 0 or r2.returncode == 0:
             fail(f"daemon: a bogus request exited {r1.returncode} (Python "
                  f"client), {r2.returncode} (native client)")
-        info["bogus_exit_codes"] = [r1.returncode, r2.returncode]
+        # a route the port has not yet is refused by the daemon's engine
+        r3, _ = client(["mem", *dev, fa, se], env, BWA_TPU_SEED_COMPACT="1")
+        if r3.returncode == 0 or b"[daemon] NotImplementedError" \
+                not in r3.stderr:
+            fail(f"daemon: BWA_TPU_SEED_COMPACT=1 exited {r3.returncode}: "
+                 f"{r3.stderr[-2000:]}")
+        info["bogus_exit_codes"] = [r1.returncode, r2.returncode,
+                                    r3.returncode]
         if proc.poll() is not None:
             fail(f"daemon died after the bogus requests: "
                  f"{dlog.read_text()[-2000:]}")
@@ -2227,6 +2668,8 @@ def main(argv) -> int:
         return aln_chunk_main()
     if argv[:1] == ["--k7-bench"]:
         return k7_bench_main()
+    if argv[:1] == ["--big-genome"]:
+        return big_genome_main()
     log_dir = None
     if "--log" in argv:
         log_dir = Path(argv[argv.index("--log") + 1])
@@ -2385,6 +2828,15 @@ def main(argv) -> int:
         lane_wide5 = k1_lane_wide(rec_new, "mem_pacbio_primary5")
         host5 += start_k1_host_plain(d, rec_new, lane_wide5, "k1_host_pb5")
 
+        # 4d. trip-sorted packing (K8), K1's refill mode, main_mem's
+        # reader/writer threads
+        route_phases, k8, k1r = seeding_route_phases(
+            d, str(fa), codes, (pe1, pe2), sam_se)
+        # the plain version of K1's lane-wide pacbio rung, on the host from
+        # here on (minutes of it; step 6 waits for it)
+        lane_wide = k1_lane_wide(recs["K1"])
+        host += start_k1_host_plain(d, recs["K1"], lane_wide)
+
         # 4b. aln: native and device search, samse and sampe; K7 and K7w
         # calls recorded
         from bwa_tpu_torch.aln import batch_search
@@ -2440,10 +2892,8 @@ def main(argv) -> int:
 
         # 6. every recorded call against the plain version; times of the
         # first call of each kernel and of K1's lane-wide rung, whose plain
-        # version runs on the host meanwhile
+        # version runs on the host since step 4d
         t0 = time.perf_counter()
-        lane_wide = k1_lane_wide(recs["K1"])
-        host = start_k1_host_plain(d, recs["K1"], lane_wide)
         k2 = time_k2(recs["K2"])
         # the wide path at the -w 1100 phase's first launch with a live job
         wide_i = next((i for i in wide if int(recs["K2"].kept[i])), wide[0])
@@ -2504,11 +2954,14 @@ def main(argv) -> int:
             proc.wait()
             err.close()
 
-    mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases)
+    mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases,
+             *route_phases)
     # each row's launches in one run's counts (the main path's phases, or
     # the daemon's requests): K2's warp path is its gather mode's launches
     # less the wide path's
     count = {"K1 seed_machine": lambda c: c["K1"],
+             "K1 seed_machine refill mode": lambda c: c["K1 refill"],
+             "K8 probe_breaks": lambda c: c["K8"],
              "K2 ksw_band": lambda c: c["K2"] - c["K2 wide"],
              "K2 ksw_band wide path (P > 1024)": lambda c: c["K2 wide"],
              "K2 ksw_band host-array mode": lambda c: c["K2 host-array"],
@@ -2519,6 +2972,12 @@ def main(argv) -> int:
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", k1, k1_par, mains,
              calls["K1"]),
+            ("K1 seed_machine refill mode",
+             "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm_machine.py:369", k1r, None, mains,
+             len(k1r["main_path_checks"])),
+            ("K8 probe_breaks", "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm.py:253", k8, None, mains, None),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
              "bwa_tpu/ops/ksw_pallas.py:380", k2, k2_par, mains,
              calls["K2"]),
@@ -2553,11 +3012,14 @@ def main(argv) -> int:
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
                                        "overflow_lanes",
                                        "longest_lane_steps", "ns_per_step",
+                                       "extending_positions", "breaks",
+                                       "n_drawn",
                                        "rows", "cells", "full_width_cells",
                                        "longest_rows", "ns_per_row")
                   if kk in k},
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
                                     "launches_on_main_path",
+                                    "main_path_checks", "small_check",
                                     "one_read_lanes", "design") if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
@@ -2566,9 +3028,8 @@ def main(argv) -> int:
     print(json.dumps(dict(
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
-                            for p in (phase_se, phase_pb, phase_pe,
-                                      phase_w, *new_phases, phase_entry,
-                                      phase_aln_se, phase_aln_pe)},
+                            for p in (*mains, phase_entry, phase_aln_se,
+                                      phase_aln_pe)},
         pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """The hand-written kernels against their plain PyTorch versions on a CUDA
-card: K1 (csrc/seed_machine.cu), K2 (csrc/ksw_band.cu, gather and
+card: K1 (csrc/seed_machine.cu, its refill mode too), K8 (the same
+source), K2 (csrc/ksw_band.cu, gather and
 host-array modes), K5 (csrc/ksw_full.cu) and K7/K7w (csrc/gap_machine.cu),
 exactly.  This file imports no
 JAX, so it runs on a card machine without it:
@@ -222,6 +223,96 @@ def test_k1_raises_and_launches_nothing(world, what):
     assert fmm.launches == n0
     _k1_vs_plain(_tree(world["fm"], "int32"), q[:8], ql[:8], None,
                  (19, 28, 10, 20), 16, 48, True)
+
+
+def _probe_rows(world):
+    """Reads for K8: the 64 simulated reads, every fifth with an N, and
+    an empty row."""
+    from bwa_tpu_torch.mem.batch_seed import _pad_reads
+
+    rng = np.random.default_rng(9)
+    codes = [c.copy() for c in world["short"]]
+    for c in codes[::5]:
+        c[int(rng.integers(0, len(c)))] = 4
+    q, ql, L = _pad_reads(codes + [np.zeros(0, np.uint8)])
+    return q, ql
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k8_matches_plain(world, repeat_world, occ_r, coords):
+    """K8 (probe_breaks) against its plain version on the same device
+    tensors, count for count: simulated reads with Ns and an empty row on
+    one genome, the tandem-array lanes on the other; one launch each."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    rfm, rq, rql = repeat_world
+    q, ql = _probe_rows(world)
+    for fm, qq, qql in ((world["fm"], q, ql), (rfm, rq, rql)):
+        tt = _tree(fm, coords, occ_r)
+        qd = torch.from_numpy(qq).cuda()
+        n0 = fm_ops.probe_launches
+        got = fm_ops.probe_breaks(tt, qd, torch.from_numpy(qql).cuda())
+        want = fm_ops.probe_breaks_plain(tt, qd)
+        torch.cuda.synchronize()
+        assert fm_ops.probe_launches == n0 + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want.cpu())
+    # the simulated reads' errors break intervals (the repeat genome's
+    # reads are exact copies)
+    assert int(fm_ops.probe_breaks_plain(_tree(world["fm"], coords, occ_r),
+                                         torch.from_numpy(q).cuda()).sum())
+
+
+def _refill_rows(out):
+    """A refill launch's seed rows of every read in a lane whose store did
+    not overflow, sorted as _demux_refill sorts them (sort_seeds in each
+    lane, then stably by read, start, end), and the reads drawn."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    s = fmm.sort_seeds(out[0], out[1], False).cpu().numpy()
+    sn = out[1].cpu().numpy().astype(np.int64)
+    sn[sn > s.shape[1]] = 0
+    rows = s[np.arange(s.shape[1])[None, :] < sn[:, None]]
+    return rows[np.lexsort((rows[:, 4], rows[:, 3], rows[:, 5]))], \
+        int(out[5])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lanes,cap_s", [(8, 240), (128, 96), (4, 26)])
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k1_refill_matches_plain(world, lanes, cap_s, occ_r, coords):
+    """K1's refill mode against its plain version: 8 lanes recycle through
+    65 reads, 128 lanes start with every read, and at cap_s 26 the lanes
+    fill (each stops drawing), so only the reads drawn are compared, as
+    the same set.  Each read's seeds, in _demux_refill's order, equal."""
+    from bwa_tpu_torch.mem.batch_seed import _pad_reads
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import _refill_table
+
+    q, ql, _ = _pad_reads(world["short"] + [np.zeros(0, np.uint8)])
+    table = _refill_table(torch.from_numpy(q).cuda(),
+                          torch.from_numpy(ql).cuda())
+    tt = _tree(world["fm"], coords, occ_r)
+    n0 = fmm.refill_launches
+    outs = [fn(tt, table, lanes, 19, 28, 10, 20, cap=16, cap_s=cap_s,
+               use_p3=True, cap_r=24)
+            for fn in (fmm.seed_machine_refill, fmm.seed_machine_refill_plain)]
+    torch.cuda.synchronize()
+    assert fmm.refill_launches == n0 + 1
+    assert outs[0][0].dtype == tt["cdt"] and outs[0][0].shape[2] == 6
+    (g, gn), (w, wn) = (_refill_rows(o) for o in outs)
+    if cap_s >= 96:
+        assert min(gn, wn) >= 65 and len(w) > 0
+        np.testing.assert_array_equal(g, w)
+    else:  # which reads were drawn follows the lanes' finishing order
+        assert wn < 65 and gn < 65
+        drawn = set(g[:, 5].tolist()) & set(w[:, 5].tolist())
+        assert drawn
+        keep = lambda r: r[np.isin(r[:, 5], list(drawn))]  # noqa: E731
+        np.testing.assert_array_equal(keep(g), keep(w))
 
 
 @pytest.fixture(scope="module")

@@ -250,6 +250,13 @@ def test_other_device_not_served(world, daemon):
         in daemon["log"].read_bytes()
 
 
+# the seeding switches of mem, applied per request as the others
+SEED_ROUTES = {"BWA_TPU_TRIP_SORT": "force", "BWA_TPU_SEED_REFILL": "1",
+               "BWA_TPU_REFILL_LANES": "1024",
+               "BWA_TPU_REFILL_BUCKET": "4096",
+               "BWA_TPU_SEED_MACHINE": "split", "BWA_TPU_SEED_COMPACT": "1"}
+
+
 class _Cli:
     """Stands in for the CLI module inside _serve_one: records the route
     switches each command sees."""
@@ -260,7 +267,7 @@ class _Cli:
     def main(self, argv, out_fp):
         self.seen.append({k: os.environ.get(k) for k in
                           ("BWA_TPU_ALN", "BWA_TPU_FINALIZE",
-                           "BWA_TPU_ALN_CAPS")})
+                           "BWA_TPU_ALN_CAPS", *SEED_ROUTES)})
         out_fp.write(b"x")
         return 0
 
@@ -298,17 +305,55 @@ def test_serve_one_device_and_route(monkeypatch):
     assert not cli.seen
     monkeypatch.setenv("BWA_TPU_FINALIZE", "python")
     monkeypatch.delenv("BWA_TPU_ALN", raising=False)
+    for k in SEED_ROUTES:
+        monkeypatch.delenv(k, raising=False)
     state, reply = _serve({"argv": ["samse", "p", "s", "r"],
                            "env": {"BWA_TPU_ALN": "device",
                                    "BWA_TPU_ALN_CAPS": CAPS,
-                                   "BWA_TPU_DAEMON_DIR": "/elsewhere"}},
+                                   "BWA_TPU_DAEMON_DIR": "/elsewhere",
+                                   **SEED_ROUTES}},
                           "cuda", cli)
     assert reply == b'{"ok": 0}\nx'
     assert cli.seen == [dict(BWA_TPU_ALN="device", BWA_TPU_FINALIZE=None,
-                             BWA_TPU_ALN_CAPS=CAPS)]
+                             BWA_TPU_ALN_CAPS=CAPS, **SEED_ROUTES)]
     assert os.environ.get("BWA_TPU_FINALIZE") == "python"
-    assert "BWA_TPU_ALN" not in os.environ
+    assert not {"BWA_TPU_ALN", *SEED_ROUTES} & set(os.environ)
     assert os.environ.get("BWA_TPU_DAEMON_DIR") != "/elsewhere"
+
+
+def test_serve_one_seeding_routes(world, monkeypatch):
+    """The port's own mem served through _serve_one on a CPU engine: a
+    request's BWA_TPU_TRIP_SORT=force sorts that request's reads (the
+    engine probes their trips, the SAM equals bwa_tpu's under force), the
+    next request without it does not, and BWA_TPU_SEED_COMPACT (not
+    ported) is answered with the engine's NotImplementedError."""
+    from bwa_tpu_torch import cli
+    from bwa_tpu_torch.ops import fm
+
+    monkeypatch.setenv("BWA_TPU_NO_DAEMON", "1")
+    for k in SEED_ROUTES:
+        monkeypatch.delenv(k, raising=False)
+    probed = []
+    real = fm.BatchedFMEngine.probe_trips
+    monkeypatch.setattr(fm.BatchedFMEngine, "probe_trips",
+                        lambda self, c: probed.append(len(c))
+                        or real(self, c))
+    argv = ["mem", "--device", "cpu", world["prefix"], str(world["se"])]
+    monkeypatch.setenv("BWA_TPU_TRIP_SORT", "force")
+    want = _records(_jax(argv[:1] + argv[3:]))
+    monkeypatch.delenv("BWA_TPU_TRIP_SORT")
+    for env, n_probed in (({"BWA_TPU_TRIP_SORT": "force"}, [48]),
+                          ({}, [48])):
+        state, reply = _serve({"argv": argv, "env": env}, "cpu", cli)
+        head, body = reply.split(b"\n", 1)
+        assert state == "serve" and json.loads(head) == {"ok": 0}, reply
+        assert _records(body) == want
+        assert probed == n_probed
+    state, reply = _serve({"argv": argv,
+                           "env": {"BWA_TPU_SEED_COMPACT": "1"}}, "cpu", cli)
+    assert state == "serve"
+    assert json.loads(reply)["error"].startswith("NotImplementedError(")
+    assert "BWA_TPU_SEED_COMPACT" not in os.environ
 
 
 class _Raises(_Cli):
