@@ -85,10 +85,16 @@ def _bind(libs) -> None:
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, i32,
                   vp, vp, vp, vp, vp, i32, i32, i64, i64, i32, i32, i32,
-                  i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+                  i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp]
     f = libs["seed_machine.cu"].bwa_probe_breaks
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp]
+    f = libs["seed_machine.cu"].bwa_seed_kernel_attrs
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, i32, i32, i32, i32, vp]
+    f = libs["seed_machine.cu"].bwa_seed_noop
+    f.restype = ctypes.c_int
+    f.argtypes = [vp]
     f = libs["ksw_band.cu"].bwa_ksw_band
     f.restype = ctypes.c_int
     f.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -128,21 +134,24 @@ def _check(rc: int, name: str) -> None:
 def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
                  hi3, min_seed_len, split_len, split_width, max_intv3, cap,
                  cap_s, use_p3, tagged, seeds, seed_n, ovf, done_step, steps,
-                 qmask, lanes=None, cap_r=0, qctr=None) -> None:
+                 qmask, lanes=None, cap_r=0, qctr=None, group=False) -> None:
     """Launch K1 (csrc/seed_machine.cu) on the current stream: one lane a
     row of q, or with qctr (an int32 [1] cursor) the refill mode, `lanes`
-    lanes drawing q's rows."""
+    lanes drawing q's rows, a warp a lane or with group its group form
+    (2R threads a lane; nv may be None: it finds each read's next base in
+    its codes)."""
     lib = build_all()["seed_machine.cu"]
     N, L = q.shape
     rc = lib.bwa_seed_machine(
         int(seeds.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
         _ptr(L2), int(primary), int(seq_len), _ptr(q),
         N if lanes is None else int(lanes), N, L, _ptr(qlen),
-        _ptr(nv), _ptr(job_lo), _ptr(hi1), _ptr(hi3), int(min_seed_len),
+        None if nv is None else _ptr(nv), _ptr(job_lo), _ptr(hi1),
+        _ptr(hi3), int(min_seed_len),
         int(split_len), int(split_width), int(max_intv3), int(cap),
         int(cap_s), int(use_p3), int(tagged), int(cap_r), _ptr(seeds),
         _ptr(seed_n), _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
-        None if qctr is None else _ptr(qctr), _stream(q))
+        None if qctr is None else _ptr(qctr), int(group), _stream(q))
     _check(rc, "seed_machine")
 
 
@@ -155,6 +164,34 @@ def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:
         int(coord64), _ptr(occtab), occtab.shape[1] - 4, _ptr(L2),
         int(primary), int(seq_len), _ptr(q), B, L, _ptr(out), _stream(q))
     _check(rc, "probe_breaks")
+
+
+SEED_KERNELS = ("K1", "K1 refill", "K8", "empty")
+
+
+def seed_kernel_attrs(kernel: str, coord64: bool, nw: int, cap: int,
+                      L: int) -> dict:
+    """Registers a thread, static and local bytes, and occupancy (resident
+    blocks and warps an SM at the launch's block and dynamic shared memory)
+    of a kernel of csrc/seed_machine.cu (SEED_KERNELS) at nw text words a
+    row, stack cap `cap` and reads of L codes."""
+    lib = build_all()["seed_machine.cu"]
+    out = (ctypes.c_int32 * 7)()
+    _check(lib.bwa_seed_kernel_attrs(SEED_KERNELS.index(kernel),
+                                     int(coord64), int(nw), int(cap), int(L),
+                                     ctypes.cast(out, ctypes.c_void_p)),
+           "seed_kernel_attrs")
+    return dict(zip(("registers", "static_shared_bytes", "local_bytes",
+                     "block_threads", "dynamic_shared_bytes",
+                     "blocks_per_sm", "warps_per_sm"), list(out)))
+
+
+def seed_noop() -> None:
+    """One launch of csrc/seed_machine.cu's empty kernel on the current
+    stream."""
+    lib = build_all()["seed_machine.cu"]
+    _check(lib.bwa_seed_noop(torch.cuda.current_stream().cuda_stream),
+           "seed_noop")
 
 
 def _mat(mat) -> ctypes.c_void_p:

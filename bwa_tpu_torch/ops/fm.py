@@ -189,6 +189,200 @@ def _refill_table(q, qlen):
                      dim=1)
 
 
+def _top_bits(bits):
+    """The top `bits` bits of a 32-bit word (none for bits <= 0, all for
+    bits >= 32), as int64."""
+    b = bits.clamp(0, 32)
+    return (_MFF << (32 - b)) & _MFF
+
+
+def _quad_bits(words, c):
+    """A thread's four words [N, G, 4] as glookup pairs them: bit 2f set
+    where field f holds base c (eq) or a base above it (gt), word 2v in the
+    even bits and word 2v + 1 in the odd bits.  Returns (e01, e23, g01,
+    g23), each [N, G]."""
+    w = _u32(words)
+    c = c[:, None, None]
+    x = ~(w ^ (c * 0x55555555)) & _MFF
+    e = x & (x >> 1) & _M55
+    gx, gy, gz = (torch.where(m, _MFF, 0) for m in (c < 2, c == 0, c == 2))
+    g = (((w >> 1) & (gx | (w & gz))) | (w & gy)) & _M55
+    return (e[..., 0] | (e[..., 1] << 1), e[..., 2] | (e[..., 3] << 1),
+            g[..., 0] | (g[..., 1] << 1), g[..., 2] | (g[..., 3] << 1))
+
+
+def _quad_count(q, bits, above):
+    """Each thread's count of base c (low 16 bits) and, with above, of the
+    bases above it (high 16 bits) among its first bits / 2 positions."""
+    e01, e23, g01, g23 = q
+    m01 = (_top_bits(bits) & _M55) | (_top_bits(bits - 32) & ~_M55 & _MFF)
+    m23 = (_top_bits(bits - 64) & _M55) | (_top_bits(bits - 96) & ~_M55
+                                            & _MFF)
+    n = _popc32(e01 & m01) + _popc32(e23 & m23)
+    if above:
+        n = n | ((_popc32(g01 & m01) + _popc32(g23 & m23)) << 16)
+    return n
+
+
+def group_lookup(idx, k1, k2, c, above: bool = True):
+    """glookup of csrc/seed_machine.cu (K8 and K1's refill mode) in plain
+    PyTorch, the way the G = 2R threads of a group do it: thread g holds
+    text words 4g..4g+3 of a row and loads them only where one of them lies
+    at or below its end (a row that holds both ends is loaded once, for
+    both); words not loaded count as zeros.  Each thread counts base c
+    (and, with above, the bases above it) in its words up to each end, by
+    top-bit masks and popcounts of two words a register; the group sums by
+    shuffles.  k1, k2 [N] coordinates, c [N] bases.  Returns o1, o2 [N]
+    (occ(k1)[c], occ(k2)[c]), ab [N] (the sum over c' > c of occ(k2)[c']
+    - occ(k1)[c'], zeros without above) and loads [N, G, 2] (thread g
+    loaded its words of k1's row, of k2's), all int64.  Nothing on the
+    main path calls it; the tests hold it to _occ4."""
+    i64 = torch.int64
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    G = nw // 4
+    rb = (nw // 8).bit_length() - 1
+    pr = 128 << rb
+    seq_len, primary = idx["seq_len"], idx["primary"]
+    L2 = idx["L2"].to(i64)
+    k1, k2, c = k1.to(i64), k2.to(i64), c.to(i64)
+    z1 = (k1 == -1) | (k1 == seq_len)
+    z2 = (k2 == -1) | (k2 == seq_len)
+
+    def pos(k):
+        return (k - (k >= primary).to(i64)).clamp(0, seq_len - 1)
+
+    kk1, kk2 = pos(k1), pos(k2)
+    r1, r2 = kk1 >> (7 + rb), kk2 >> (7 + rb)
+    same = (r1 == r2) & ~z1 & ~z2
+    row1, row2 = occ[r1], occ[r2]
+    g = torch.arange(G, device=k1.device)[None, :]
+    b1 = 2 * ((kk1 & (pr - 1))[:, None] + 1 - 64 * g)
+    b2 = 2 * ((kk2 & (pr - 1))[:, None] + 1 - 64 * g)
+    ld1 = ~z1[:, None] & ((b1 > 0) | (same[:, None] & (b2 > 0)))
+    ld2 = ~z2[:, None] & ~same[:, None] & (b2 > 0)
+    w1 = torch.where(ld1[..., None], row1[:, 4:].reshape(-1, G, 4), 0)
+    w2 = torch.where(ld2[..., None], row2[:, 4:].reshape(-1, G, 4), 0)
+    q1 = _quad_bits(w1, c)
+    # the group's sums (the shuffles)
+    n1 = torch.where(z1, 0, _quad_count(q1, b1, above).sum(dim=1))
+    n2 = torch.where(same, _quad_count(q1, b2, above).sum(dim=1),
+                     torch.where(z2, 0, _quad_count(_quad_bits(w2, c), b2,
+                                                    above).sum(dim=1)))
+    cnt1 = torch.where(z1[:, None], 0, _u32(row1[:, :4]))
+    cnt2 = torch.where(same[:, None], cnt1,
+                       torch.where(z2[:, None], 0, _u32(row2[:, :4])))
+    col = torch.arange(4, device=k1.device)[None, :]
+
+    def of_c(cnt):
+        return cnt.gather(1, c[:, None]).squeeze(1)
+
+    def over_c(cnt):
+        return (cnt * (col > c[:, None])).sum(dim=1)
+
+    tot_c = L2[c + 1] - L2[c]
+    tot_above = L2[4] - L2[c + 1]
+    o1 = torch.where(k1 == seq_len, tot_c, of_c(cnt1) + (n1 & 0xFFFF))
+    o2 = torch.where(k2 == seq_len, tot_c, of_c(cnt2) + (n2 & 0xFFFF))
+    if above:
+        a1 = torch.where(k1 == seq_len, tot_above, over_c(cnt1) + (n1 >> 16))
+        a2 = torch.where(k2 == seq_len, tot_above, over_c(cnt2) + (n2 >> 16))
+        ab = a2 - a1
+    else:
+        ab = torch.zeros_like(o1)
+    return o1, o2, ab, torch.stack([ld1, ld2], dim=2)
+
+
+def narrow_ends(idx, x1, x2):
+    """Where K8 takes glookup_narrow (csrc/seed_machine.cu): a one-row
+    interval (x2 == 1) whose ends k1 = x1 - 1 and k2 = x1 are neighbouring
+    text positions of one occtab row (k2 neither the $ row nor seq_len)."""
+    pr = 16 * (idx["occtab"].shape[1] - 4)
+    primary, seq_len = idx["primary"], idx["seq_len"]
+    kk2 = x1 - (x1 > primary).to(x1.dtype)
+    return (x2 == 1) & (x1 != primary) & (x1 != seq_len) \
+        & ((kk2 & (pr - 1)) != 0)
+
+
+def group_lookup_narrow(idx, k1, c):
+    """glookup_narrow of csrc/seed_machine.cu in plain PyTorch: for ends
+    k1 and k1 + 1 that narrow_ends admits, the group counts base c up to
+    k1 as group_lookup does and reads the code at k1 + 1 from the eq bits
+    of the thread whose words hold it.  Returns o1 = occ(k1)[c] and
+    sz = occ(k1 + 1)[c] - o1, [N] int64."""
+    i64 = torch.int64
+    occ = idx["occtab"]
+    nw = occ.shape[1] - 4
+    G = nw // 4
+    rb = (nw // 8).bit_length() - 1
+    pr = 128 << rb
+    k1, c = k1.to(i64), c.to(i64)
+    kk1 = k1 - (k1 >= idx["primary"]).to(i64)
+    p1 = kk1 & (pr - 1)
+    p2 = p1 + 1
+    row = occ[kk1 >> (7 + rb)]
+    g = torch.arange(G, device=k1.device)[None, :]
+    b1 = 2 * (p1[:, None] + 1 - 64 * g)
+    owner = (p2 >> 6)[:, None] == g
+    w = torch.where(((b1 > 0) | owner)[..., None],
+                    row[:, 4:].reshape(-1, G, 4), 0)
+    q = _quad_bits(w, c)
+    n = _quad_count(q, b1, False).sum(dim=1)
+    u, f = ((p2 >> 4) & 3)[:, None], (p2 & 15)[:, None]
+    bit = (torch.where(u < 2, q[0], q[1]) >> (2 * (15 - f) + (u & 1))) & 1
+    o1 = _u32(row[:, :4]).gather(1, c[:, None]).squeeze(1) + n
+    return o1, (bit * owner).sum(dim=1)
+
+
+def probe_breaks_group(idx, q):
+    """K8's loop (csrc/seed_machine.cu, probe_breaks_kernel) in plain
+    PyTorch: a lookup (group_lookup, base 3 - c's count only, or
+    group_lookup_narrow where every extending row's ends are neighbours,
+    as a warp's are when all its reads' are) only where the interval
+    extends, the reverse start never formed, 16 codes at a time with a run
+    of no base only ending the interval.  Nothing on the
+    main path calls it; the tests hold it to probe_breaks_plain."""
+    B, L = q.shape
+    i64 = torch.int64
+    L2 = idx["L2"].to(i64)
+    x1 = torch.ones(B, dtype=i64, device=q.device)
+    x2 = torch.zeros(B, dtype=i64, device=q.device)
+    started = torch.zeros(B, dtype=torch.bool, device=q.device)
+    brk = torch.zeros(B, dtype=torch.int32, device=q.device)
+    qpad = torch.full((B, -(-L // 16) * 16), 4, dtype=q.dtype,
+                      device=q.device)
+    qpad[:, :L] = q
+    for x0 in range(0, qpad.shape[1], 16):
+        chunk = qpad[:, x0:x0 + 16].to(i64)
+        live = (chunk < 4).any(dim=1)
+        started = started & live
+        for t in range(16):
+            c = chunk[:, t]
+            good = live & (c < 4)
+            ext = started & good
+            restart = good.clone()
+            e = ext.nonzero().flatten()
+            if e.numel():
+                ce = c[e]
+                if bool(narrow_ends(idx, x1[e], x2[e]).all()):
+                    o1, sz = group_lookup_narrow(idx, x1[e] - 1, 3 - ce)
+                else:
+                    o1, o2, _, _ = group_lookup(idx, x1[e] - 1,
+                                                x1[e] - 1 + x2[e], 3 - ce,
+                                                above=False)
+                    sz = o2 - o1
+                ok = sz >= 1
+                brk[e[~ok]] += 1
+                x1[e[ok]] = L2[3 - ce[ok]] + 1 + o1[ok]
+                x2[e[ok]] = sz[ok]
+                restart[e[ok]] = False
+            cr = c.clamp(0, 3)
+            x1 = torch.where(restart, L2[3 - cr] + 1, x1)
+            x2 = torch.where(restart, L2[cr + 1] - L2[cr], x2)
+            started = torch.where(live, good, started)
+    return brk
+
+
 # launches of kernel K8 (the CUDA wrapper of probe_breaks adds one a launch)
 probe_launches = 0
 
@@ -200,7 +394,8 @@ def probe_breaks(idx, q, qlen):
     fails; a read's machine trips follow its restart count (corr 0.97 in
     the JAX package's measurements).  A CUDA q launches K8
     (csrc/seed_machine.cu); a CPU q runs probe_breaks_plain.  qlen is not
-    read: the pad codes (4) end an interval as an N does."""
+    read: the pad codes (4) end an interval as an N does, and K8 passes a
+    run of 16 codes with no base without a lookup."""
     if q.is_cuda:
         return _probe_breaks_cuda(idx, q)
     return probe_breaks_plain(idx, q, qlen)
@@ -249,7 +444,8 @@ def probe_breaks_plain(idx, q, qlen=None):
 
 
 def _probe_breaks_cuda(idx, q):
-    """Kernel K8 launch: a group of 2R threads a read, L steps."""
+    """Kernel K8 launch: a group of 2R threads a read, a lookup only where
+    the read's interval extends."""
     global probe_launches
     from bwa_tpu_torch.ops import cuda_kernels
 

@@ -13,8 +13,12 @@ included (segmented runs for tail compaction are not ported).  The CUDA
 kernel (csrc/seed_machine.cu, kernel K1) runs the same machine with a warp
 per lane until the lane is done, extending all entries of a backward row
 at once; bwd_row_resolve is the plain form of how it orders that row's
-pushes and emit.  seed_machine and seed_machine_refill dispatch: a CUDA
-tensor launches K1, a CPU tensor takes the plain version.
+pushes and emit.  Its refill mode runs a warp a lane below twice the lanes
+resident at once, and from there in a group form, 2R threads a lane
+taking one plain step at a time (a backward row one entry a step:
+bwd_row_serial).
+seed_machine and seed_machine_refill dispatch: a CUDA tensor launches K1,
+a CPU tensor takes the plain version.
 
 Emission order within a lane differs from the reference's collection
 order; sort_seeds (stable by (start, end)) makes the result identical.
@@ -418,6 +422,45 @@ def bwd_row_resolve(ob2, keep, n0: int, last_x2: int, cap: int,
                 emit=emit, ovf=ovf, n=int(n0) + n_push, last_x2=last)
 
 
+def bwd_row_serial(ob2, keep, n0: int, last_x2: int, cap: int,
+                   emit_ok: bool, rev: bool):
+    """One backward row the way K1's refill mode takes it (csrc/
+    seed_machine.cu, seed_refill_kernel: a group of 2R threads a lane, one
+    entry a step): entry j reads stack slot clamp(pn - 1 - j if rev else j,
+    0, cap - 1); a kept entry emits while the target stack is empty and
+    emit_ok holds (then no longer: call_last_start becomes i + 1); an unkept
+    one is pushed when the target stack is empty or its size differs from
+    the last push's, into slot min(n, cap - 1), the push past cap flagging
+    overflow.  Arguments and the returned dict are bwd_row_resolve's.
+    Nothing on the main path calls it; the tests hold it to the
+    one-j-at-a-time rule and to bwd_row_resolve."""
+    i64 = torch.int64
+    ob2 = [int(v) for v in torch.as_tensor(ob2).to(i64)]
+    keep = [bool(v) for v in torch.as_tensor(keep)]
+    pn = len(ob2)
+    read_slot = torch.tensor([min(max(pn - 1 - j if rev else j, 0), cap - 1)
+                              for j in range(pn)], dtype=i64)
+    push = torch.zeros(pn, dtype=torch.bool)
+    slot = torch.zeros(pn, dtype=i64)
+    owner = {}  # slot -> the entry whose row it keeps
+    n, lx, ok, emit, ovf = int(n0), int(last_x2), bool(emit_ok), -1, False
+    for j in range(pn):
+        if keep[j]:
+            if n == 0 and ok:
+                emit, ok = j, False
+        elif n == 0 or ob2[j] != lx:
+            s = min(n, cap - 1)
+            ovf |= n >= cap
+            push[j], slot[j] = True, s
+            owner[s] = j
+            n, lx = n + 1, ob2[j]
+    wins = torch.zeros(pn, dtype=torch.bool)
+    for j in owner.values():
+        wins[j] = True
+    return dict(read_slot=read_slot, push=push, slot=slot, wins=wins,
+                emit=emit, ovf=ovf, n=n, last_x2=lx)
+
+
 # launches of the K1 kernel (the CUDA wrapper below adds one per launch)
 launches = 0
 
@@ -474,10 +517,11 @@ def _seed_machine_cuda(idx, q, qlen, next_valid, min_seed_len, split_len,
 
 def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
                split_width, max_intv3, cap, cap_s, use_p3, lanes=None,
-               cap_r=0, qctr=None):
+               cap_r=0, qctr=None, group=False):
     """K1 on q's rows, one a lane, or in refill mode (qctr given) on
-    `lanes` lanes drawing q's rows from the cursor qctr.  Returns (seeds,
-    seed_n, steps, ovf, done_step)."""
+    `lanes` lanes drawing q's rows from the cursor qctr, a warp a lane or
+    (group) 2R threads a lane; the group form reads no next-valid table.
+    Returns (seeds, seed_n, steps, ovf, done_step)."""
     from bwa_tpu_torch.ops import cuda_kernels
 
     refill = qctr is not None
@@ -487,7 +531,7 @@ def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
     if "occtab" not in idx:
         raise ValueError("K1 reads the fused occtab; this index has none")
     occtab = idx["occtab"]
-    for t in (q, qlen, next_valid, occtab):
+    for t in (q, qlen, occtab) + (() if group else (next_valid,)):
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError("K1 inputs must be contiguous CUDA tensors")
     if occtab.dtype != torch.int32 or occtab.data_ptr() % 16 \
@@ -505,7 +549,7 @@ def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
         hi1 = hi3 = qlen.to(i32)
     q8 = q.to(torch.uint8).contiguous()
     ql = qlen.to(i32).contiguous()
-    nv = next_valid.to(i32).contiguous()
+    nv = None if group else next_valid.to(i32).contiguous()
     # no zeroing: the kernel writes every seed slot (the unreached ones with
     # zeros) and reads qmask only where it wrote it
     seeds = torch.empty((B, cap_s, ncol), dtype=cdt, device=dev)
@@ -520,17 +564,20 @@ def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
         job_lo.contiguous(), hi1.contiguous(), hi3.contiguous(),
         int(min_seed_len), int(split_len), int(split_width),
         int(max_intv3), cap, cap_s, bool(use_p3), tagged, seeds, seed_n,
-        ovf, done_step, steps, qmask, lanes=B, cap_r=int(cap_r), qctr=qctr)
+        ovf, done_step, steps, qmask, lanes=B, cap_r=int(cap_r), qctr=qctr,
+        group=group)
     return seeds, seed_n, steps, ovf.bool(), done_step
 
 
-# launches of K1's refill mode (its CUDA wrapper adds one a launch)
+# launches of K1's refill mode in either form (its CUDA wrapper adds one a
+# launch), and those of them in the group form (seed_refill_kernel)
 refill_launches = 0
+refill_group_launches = 0
 
 
 def seed_machine_refill(idx, table, lanes: int, min_seed_len, split_len,
                         split_width, max_intv3, cap: int, cap_s: int,
-                        use_p3: bool, cap_r: int):
+                        use_p3: bool, cap_r: int, group: bool | None = None):
     """Retire-and-refill seeding of the N reads of `table` (ops/fm.py::
     _refill_table) on `lanes` lanes: lane b starts on read b (lanes past N
     start done), the shared cursor starts at min(lanes, N).  Returns
@@ -540,13 +587,39 @@ def seed_machine_refill(idx, table, lanes: int, min_seed_len, split_len,
     which read depends on the order lanes finish, so only the seeds of
     each read, sorted by (start, end), are the same on both devices.
 
-    A CUDA table launches K1's refill mode; a CPU table runs the plain
-    version."""
+    A CUDA table launches K1's refill mode, in the form refill_group_form
+    picks unless `group` says which; a CPU table runs the plain version."""
     args = (idx, table, lanes, min_seed_len, split_len, split_width,
             max_intv3, cap, cap_s, use_p3, cap_r)
     if table.is_cuda:
-        return _seed_machine_refill_cuda(*args)
+        return _seed_machine_refill_cuda(*args, group=group)
     return seed_machine_refill_plain(*args)
+
+
+def refill_group_form(idx, lanes: int, cap: int, L: int) -> bool:
+    """Whether a refill launch of `lanes` lanes runs in its group form (2R
+    threads a lane): when they are at least twice the lanes resident at
+    once as a warp each (K1's registers and stacks, this card's SMs).  A
+    warp a lane steps faster (it extends a backward row's entries at once
+    and its lanes never wait on each other's phases), but past its
+    resident lanes the rest start after the queue has drained and draw
+    nothing; the group form holds 32 / 2R lanes a warp resident.  At 150 bp
+    on an H100 (2,640 resident): the warp form wins at 3,072 and 4,096
+    lanes, the group form at 6,144 and 12,288 (PERF.md section 6)."""
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    key = (str(idx["cdt"]), int(idx["occtab"].shape[1] - 4), int(cap),
+           int(L), idx["occtab"].device.index)
+    if key not in _warp_lanes:
+        a = cuda_kernels.seed_kernel_attrs("K1", key[0] == "torch.int64",
+                                           key[1], cap, L)
+        sms = torch.cuda.get_device_properties(
+            idx["occtab"].device).multi_processor_count
+        _warp_lanes[key] = a["warps_per_sm"] * sms
+    return lanes >= 2 * _warp_lanes[key]
+
+
+_warp_lanes: dict = {}
 
 
 def seed_machine_refill_plain(idx, table, lanes, min_seed_len, split_len,
@@ -572,21 +645,24 @@ def seed_machine_refill_plain(idx, table, lanes, min_seed_len, split_len,
 
 def _seed_machine_refill_cuda(idx, table, lanes, min_seed_len, split_len,
                               split_width, max_intv3, cap, cap_s, use_p3,
-                              cap_r):
-    """K1's refill mode: a warp per lane, a lane whose read is done draws
-    the next one with an atomic add on the queue cursor."""
-    global refill_launches
+                              cap_r, group=None):
+    """K1's refill mode: a lane whose read is done draws the next one with
+    an atomic add on the queue cursor; a warp a lane, or its group form."""
+    global refill_launches, refill_group_launches
     N = table.shape[0]
     L = (table.shape[1] - 2) // 2
     i32 = torch.int32
+    if group is None:
+        group = refill_group_form(idx, lanes, cap, L)
     q = table[:, 1:L + 1].to(torch.uint8).contiguous()
     qlen = table[:, 0].contiguous()
-    nv = table[:, L + 1:].contiguous()
+    nv = None if group else table[:, L + 1:].contiguous()
     qctr = torch.full((1,), min(lanes, N), dtype=i32, device=table.device)
     out = _launch_k1(idx, q, qlen, nv, None, min_seed_len, split_len,
                      split_width, max_intv3, cap, cap_s, use_p3,
-                     lanes=lanes, cap_r=cap_r, qctr=qctr)
+                     lanes=lanes, cap_r=cap_r, qctr=qctr, group=group)
     refill_launches += 1
+    refill_group_launches += int(group)
     return (*out, qctr)
 
 

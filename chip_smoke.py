@@ -90,11 +90,13 @@ Without, in order:
      reads with BWA_TPU_SEED_REFILL=1, then also BWA_TPU_REFILL_LANES=1024
      (SAM equal to the unsorted static run's, K1 launched only in its
      refill mode); prints each K1 launch's longest lane's steps with and
-     without the sort and each refill launch's reads drawn and event ms;
-     holds K8's launch to its plain version on all 24,576 rows, and every
-     refill launch of the main path on its own arguments (12,288 and 1,024
-     lanes) and 257 of the reads drawn by 64 lanes to the plain version on
-     the card, each timed beside its bound;
+     without the sort and each refill launch's form (from the group
+     form's own count), reads drawn and event ms; holds K8's launch to its
+     plain version on all 24,576 rows, every refill launch of the main
+     path on its own arguments (12,288 and 1,024 lanes), in its form, at
+     int32 and int64, with every read drawn, and 257 of the reads drawn by
+     128 lanes in both forms, to the plain version, each timed beside its
+     bound; both forms must have run on the main path;
      then main_mem with -K in four chunks or more (SE against
      mem_se_150bp's SAM; PE with -I 350,40 against the one-chunk run with
      -I), printing each chunk's chunk_done_hook time;
@@ -130,6 +132,7 @@ Any failure exits non-zero before the last line.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -707,6 +710,7 @@ def zero_launches():
                                    ksw_full)
 
     fm_machine.launches = fm_machine.refill_launches = fm.probe_launches = 0
+    fm_machine.refill_group_launches = 0
     ksw_band.launches = ksw_band.wide_launches = 0
     ksw_band.array_launches = ksw_full.launches = 0
     gap_machine.launches = gap_machine.width_launches = 0
@@ -1990,13 +1994,53 @@ def k1_steps(rec, phase):
             for i, (ph, a, _) in enumerate(rec.calls) if ph == phase]
 
 
+def k8_ends(idx, q):
+    """The counts K8's function needs on the rows q, from the intervals as
+    the plain version forms them: (positions that extend an interval of
+    two rows or more, which count one base at both ends; positions that
+    extend a one-row interval, which count it at k1's end and read the one
+    code at k2; breaks)."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    B, L = q.shape
+    i64 = torch.int64
+    L2 = idx["L2"].to(i64)
+    x1 = torch.ones(B, dtype=i64, device=q.device)
+    x2 = torch.zeros(B, dtype=i64, device=q.device)
+    started = torch.zeros(B, dtype=torch.bool, device=q.device)
+    bidx = torch.arange(B, device=q.device)
+    two = one = breaks = 0
+    for x in range(L):
+        c = q[:, x].to(i64)
+        good = c < 4
+        ext = started & good
+        one += int((ext & (x2 == 1)).sum())
+        two += int((ext & (x2 != 1)).sum())
+        cf = (3 - c).clamp(0, 3)
+        o1 = fm_ops._occ4(idx, x1 - 1).to(i64)[bidx, cf]
+        sz = fm_ops._occ4(idx, x1 - 1 + x2).to(i64)[bidx, cf] - o1
+        ok = ext & (sz >= 1)
+        breaks += int((ext & (sz < 1)).sum())
+        _, s1, s2 = (v.to(i64) for v in fm_ops._set_intv(idx, c))
+        restart = good & ~ok
+        x1 = torch.where(ok, L2[cf] + 1 + o1, torch.where(restart, s1, x1))
+        x2 = torch.where(ok, sz, torch.where(restart, s2, x2))
+        started = good
+    return two, one, breaks
+
+
 def check_k8(rec, phase="mem_se_tripsort"):
     """K8's main-path launch in `phase` (all rows) against the plain
     version on the card, its time over 5 launches, and its bound: the
-    codes, the occtab and the counts once; an occ4 pair (24 integer ops a
-    text word scanned, nw / 2 + 1 words on average, as K1's) at each
-    position that extends (its base and the one before are bases), 16 ops
-    at every position."""
+    codes, the occtab and the counts once; one base's count (5 integer ops
+    a text word: the pattern's xor, a shift, the and of the two bit
+    planes, a popcount, an add; nw / 2 + 1 words on average) at both ends
+    where the position extends an interval of two rows or more, at k1's
+    end alone where it extends a one-row interval (k8_ends), 16 ops at
+    every position; on an int32 tree also the int64 instantiation on the
+    same rows, held and timed."""
     import torch
 
     from bwa_tpu_torch.ops import fm as fm_ops
@@ -2009,17 +2053,31 @@ def check_k8(rec, phase="mem_se_tripsort"):
     ms = cuda_time(lambda: fm_ops.probe_breaks(idx, q, qlen), 5)
     occ = idx["occtab"]
     nw = occ.shape[1] - 4
-    ext = int(((q[:, 1:] < 4) & (q[:, :-1] < 4)).sum())
+    two, one, brk = k8_ends(idx, q)
+    if brk != int(want.sum()):
+        fail(f"k8_ends counts {brk} breaks, the plain version "
+             f"{int(want.sum())}")
     nbytes = q.numel() + occ.numel() * 4 + q.shape[0] * 4
-    ops = ext * 2 * 12 * (nw / 2 + 1) + q.numel() * 16
+    ops = (2 * two + one) * 5 * (nw / 2 + 1) + q.numel() * 16
     res = dict(phase=phase, call=i, ms=ms, plain_ms=plain_ms,
                event_ms=rec.call_ms.get(i), equal=err == 0, err=err,
                rows=int(q.shape[0]), shape=f"B={q.shape[0]} L={q.shape[1]}",
-               extending_positions=ext, breaks=int(want.sum()),
-               bytes=int(nbytes), ops=float(ops))
+               extending_positions=two + one, one_row_extensions=one,
+               breaks=int(want.sum()), bytes=int(nbytes), ops=float(ops))
     res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    if idx["cdt"] == torch.int32:  # the int64 instantiation, same rows
+        t64 = coord_tree(idx, "int64")
+        got64 = fm_ops.probe_breaks(t64, q, qlen)
+        want64, plain64 = timed_once(
+            lambda: fm_ops.probe_breaks_plain(t64, q))
+        err64 = int((got64.long() - want64.long()).abs().max())
+        res["int64"] = dict(ms=cuda_time(
+            lambda: fm_ops.probe_breaks(t64, q, qlen), 5), plain_ms=plain64,
+            equal=err64 == 0, err=err64)
+        res["err"] = max(err, err64)
+        res["equal"] = res["err"] == 0
     log(f"K8 {res}")
-    if err:
+    if res["err"]:
         fail(f"K8 disagrees with its plain version on {phase}'s rows")
     return res
 
@@ -2065,73 +2123,199 @@ def refill_equal(got, want, n):
     return equal, err, int(g.shape[0]), int(skip.size), drawn
 
 
-def check_refill(rec, count=257, lanes=64):
-    """K1's refill mode against its plain version on the card, at every
-    main-path launch on its own arguments (the whole table, its lanes and
-    caps; each timed over 5 launches), and on `count` reads spread over
-    the first launch's table, drawn by `lanes` lanes (several reads each).
-    Each read's seeds, in _demux_refill's order, must be equal; the bound
-    is the first launch's, from its own lane steps."""
+def refill_checked(c, got, want, got64):
+    """A main-path refill launch's check, at int32 (got) and int64 (got64;
+    the same coordinates on a tree below 2^31) against one plain run: each
+    read's rows equal, and every read drawn."""
+    n = c["reads"]
+    for key, out in (("", got), ("int64_", got64)):
+        equal, err, rows, left_out, drawn = refill_equal(out, want, n)
+        c.update({f"{key}equal": equal, f"{key}err": err,
+                  f"{key}rows_checked": rows,
+                  f"{key}reads_left_out": left_out, f"{key}drawn": drawn})
+        if not equal or drawn != (n, n):
+            log(f"K1 refill check {c}")
+            fail(f"K1's refill mode {'at int64 ' if key else ''}in its "
+                 f"{c['form']} form disagrees with its plain version at "
+                 f"{c['phase']}'s launch {c['call']}, or left reads undrawn "
+                 f"(reads drawn {drawn} of {n})")
+    c["err"] = max(c["err"], c["int64_err"])
+    log(f"K1 refill check {c}")
+
+
+def start_refill_host_plain(d: Path, i, args, kw):
+    """The plain version of recorded refill launch i on the host, in a
+    subprocess that sees no card; returns the job for finish_refill."""
+    import torch
+
+    idx = {k: (v.cpu() if torch.is_tensor(v) else v)
+           for k, v in args[0].items()}
+    inp, out = d / f"refill_host_{i}.pt", d / f"refill_host_{i}_plain.pt"
+    torch.save(dict(args=[idx, args[1].cpu(), *args[2:]], kw=kw), inp)
+    err = open(d / f"refill_host_{i}.log", "w")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--refill-plain",
+         str(inp), str(out)], cwd=REPO, env=env, stdout=err,
+        stderr=subprocess.STDOUT)
+    return proc, err, out, t0
+
+
+def refill_plain_host(inp: str, out: str) -> int:
+    """Subprocess of start_refill_host_plain: the plain version on the
+    host."""
     import torch
 
     from bwa_tpu_torch.ops import fm_machine as fmm
 
-    checks = []
+    torch.set_num_threads(1)
+    a = torch.load(inp, weights_only=False)
+    res = fmm.seed_machine_refill_plain(*a["args"], **a["kw"])
+    torch.save([torch.as_tensor(x) for x in res], out)
+    return 0
+
+
+def finish_refill(rows, pending):
+    """Wait for the main-path refill launches held on the host and check
+    them (refill_checked); their host seconds go to plain_host_s, and a
+    form's row whose first launch was held there takes them as its
+    plain_ms."""
+    import torch
+
+    for c, (proc, err, out, t0), got, got64 in pending:
+        if proc.wait() != 0:
+            fail(f"the refill host plain version exited {proc.returncode} "
+                 f"(see {err.name})")
+        err.close()
+        c["plain_host_s"] = time.perf_counter() - t0
+        want = torch.load(out)
+        refill_checked(c, got, (*want[:2], int(want[2]), *want[3:]), got64)
+    for row in rows.values():
+        if row["plain_ms"] is None:
+            row["plain_ms"] = row["main_path_checks"][0]["plain_host_s"] * 1e3
+            row["plain_shape"] = (
+                f"this launch's plain version on the host CPU, one thread, "
+                f"beside the run; {row['plain_shape']}")
+        row["err"] = max(c["err"] for c in row["main_path_checks"])
+
+
+def refill_work(idx, table, out):
+    """(bytes, integer ops, lane steps) a refill launch's bound counts: the
+    occtab, the table and the outputs once; per lane step (its lanes'
+    done_step, as this run's data took them) a lookup at both ends that
+    counts two masks, base c and the bases above it (5 integer ops a
+    mask and text word, nw / 2 + 1 words on average), and ~64 ops of
+    state update."""
+    import torch
+
+    nw = idx["occtab"].shape[1] - 4
+    steps = int(out[4].to(torch.int64).sum())
+    nbytes = (idx["occtab"].numel() * 4 + table.numel() * 4
+              + out[0].numel() * out[0].element_size() + out[0].shape[0] * 9)
+    return nbytes, steps * (2 * 2 * 5 * (nw / 2 + 1) + 64), steps
+
+
+def check_refill(rec, host_dir, forms, count=257, lanes=128):
+    """K1's refill mode against its plain version at every main-path
+    launch on its own arguments and in the form it ran there (`forms`,
+    from the launch's own count): the whole table, its lanes and caps,
+    each timed over 5 launches at int32 and int64, both held to one plain
+    run and every read drawn; the first launch's plain run on the card,
+    the later ones on the host in subprocesses (host_dir) that
+    finish_refill waits for with the pending list returned beside the
+    rows; and `count` reads spread over the first launch's table, drawn by
+    `lanes` lanes (several reads each), in both forms at both coordinate
+    types.  Each read's seeds, in _demux_refill's order, must be equal.
+    Returns a row for each form (the kernels line's), from that form's
+    first main-path launch, its bound from its own lane steps; a form
+    that no main-path launch ran fails the run."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    checks, pending = [], []
     for i, (ph, args, kw) in enumerate(rec.calls):
-        n = args[1].shape[0]
-        got = fmm.seed_machine_refill(*args, **kw)
-        want, plain_ms = timed_once(
-            lambda: fmm.seed_machine_refill_plain(*args, **kw))
-        equal, err, rows, left_out, drawn = refill_equal(got, want, n)
-        c = dict(phase=ph, call=i, reads=n, lanes=int(args[2]),
-                 cap_s=kw["cap_s"], cap_r=kw["cap_r"], equal=equal, err=err,
-                 rows_checked=rows, reads_left_out=left_out, drawn=drawn,
-                 longest_lane_steps=int(got[2]), plain_ms=plain_ms,
-                 ms=cuda_time(lambda: fmm.seed_machine_refill(*args, **kw),
-                              5))
-        log(f"K1 refill check {c}")
+        k = dict(kw, group=forms[i] == "group")
+        a64 = (coord_tree(args[0], "int64"), *args[1:])
+        got = fmm.seed_machine_refill(*args, **k)
+        got64 = fmm.seed_machine_refill(*a64, **k)
+        nbytes, ops, steps = refill_work(args[0], args[1], got)
+        c = dict(phase=ph, call=i, reads=int(args[1].shape[0]),
+                 lanes=int(args[2]), form=forms[i], cap_s=kw["cap_s"],
+                 cap_r=kw["cap_r"], longest_lane_steps=int(got[2]),
+                 lane_steps=steps, bytes=int(nbytes), ops=float(ops),
+                 ms=cuda_time(lambda: fmm.seed_machine_refill(*args, **k),
+                              5),
+                 int64_ms=cuda_time(
+                     lambda: fmm.seed_machine_refill(*a64, **k), 5),
+                 int64_longest_lane_steps=int(got64[2]), err=0)
         checks.append(c)
-        if not equal:
-            fail(f"K1's refill mode disagrees with its plain version at "
-                 f"{ph}'s launch {i} (reads drawn {drawn})")
+        if i == 0:  # the first launch's plain version on the card, timed
+            want, c["plain_ms"] = timed_once(
+                lambda: fmm.seed_machine_refill_plain(*args, **kw))
+            refill_checked(c, got, want, got64)
+        else:  # the rest on the host meanwhile (finish_refill waits)
+            pending.append((c, start_refill_host_plain(host_dir, i, args,
+                                                       kw), got, got64))
     _, args, kw = rec.calls[0]
     idx, table = args[0], args[1]
     n = table.shape[0]
     sel = torch.arange(0, n, max(1, n // count), device=table.device)[:count]
     k = dict(kw, cap_s=2 * kw["cap_r"] * (-(-count // lanes) + 1))
     a = (idx, table[sel], lanes, *args[3:])
-    equal, err, rows, left_out, drawn = refill_equal(
-        fmm.seed_machine_refill(*a, **k),
-        fmm.seed_machine_refill_plain(*a, **k), count)
-    extra = dict(reads=count, lanes=lanes, cap_s=k["cap_s"], equal=equal,
-                 err=err, rows_checked=rows, reads_left_out=left_out,
-                 drawn=drawn)
-    log(f"K1 refill check {extra}")
-    if not equal or min(drawn) < count:
-        fail(f"K1's refill mode disagrees with its plain version on {count} "
-             f"reads of mem_se_refill (reads drawn {drawn})")
-    full = fmm.seed_machine_refill(*args, **kw)
-    occ = idx["occtab"]
-    nw = occ.shape[1] - 4
-    steps = int(full[4].to(torch.int64).sum())
-    nbytes = (occ.numel() * 4 + table.numel() * 4
-              + full[0].numel() * full[0].element_size()
-              + full[0].shape[0] * 9)
-    ops = steps * (2 * 12 * (nw / 2 + 1) + 64)
-    res = dict(phase=checks[0]["phase"], call=0, ms=checks[0]["ms"],
-               plain_ms=checks[0]["plain_ms"],
-               plain_shape="every main-path launch at its own shape; also "
-                           f"{count} reads on {lanes} lanes",
-               equal=True, err=max(c["err"] for c in checks),
-               main_path_checks=checks, small_check=extra,
-               shape=f"N={n} lanes={args[2]} L={(table.shape[1] - 2) // 2} "
-                     f"cap={kw['cap']} cap_s={kw['cap_s']}",
-               lane_steps=steps, longest_lane_steps=int(full[2]),
-               n_drawn=min(int(full[5]), n), bytes=int(nbytes),
-               ops=float(ops))
-    res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
-    log(f"K1 refill {res}")
-    return res
+
+    def small(a):
+        """Both forms on the subset against one plain run."""
+        want = fmm.seed_machine_refill_plain(*a, **k)
+        out = {}
+        for form in ("warp", "group"):
+            equal, err, rows, left_out, drawn = refill_equal(
+                fmm.seed_machine_refill(*a, **k, group=form == "group"),
+                want, count)
+            out[form] = dict(equal=equal and drawn == (count, count),
+                             err=err, rows_checked=rows,
+                             reads_left_out=left_out, drawn=drawn)
+        return out
+
+    extra = dict(reads=count, lanes=lanes, cap_s=k["cap_s"], int32=small(a),
+                 int64=small((coord_tree(idx, "int64"), *a[1:])))
+    log(f"K1 refill small check {extra}")
+    for coords in ("int32", "int64"):
+        for form in ("warp", "group"):
+            if not extra[coords][form]["equal"]:
+                fail(f"K1's refill mode at {coords} in its {form} form "
+                     f"disagrees with its plain version on {count} reads "
+                     f"of mem_se_refill (reads drawn "
+                     f"{extra[coords][form]['drawn']})")
+    rows = {}
+    for form in ("group", "warp"):
+        cs = [c for c in checks if c["form"] == form]
+        if not cs:
+            fail(f"no main-path launch ran K1's refill mode in its {form} "
+                 f"form")
+        c = cs[0]
+        _, a0, kw0 = rec.calls[c["call"]]
+        rows[form] = dict(
+            phase=c["phase"], call=c["call"], ms=c["ms"],
+            plain_ms=c.get("plain_ms"),
+            plain_shape=f"each main-path launch at its own shape, the first "
+                        f"on the card, the rest on the host; also {count} "
+                        f"reads on {lanes} lanes",
+            equal=True, err=c["err"], main_path_checks=cs,
+            small_check=extra,
+            shape=f"N={c['reads']} lanes={c['lanes']} "
+                  f"L={(a0[1].shape[1] - 2) // 2} cap={kw0['cap']} "
+                  f"cap_s={kw0['cap_s']}",
+            lane_steps=c["lane_steps"],
+            longest_lane_steps=c["longest_lane_steps"], n_drawn=c["reads"],
+            bytes=c["bytes"], ops=c["ops"],
+            int64=dict(ms=c["int64_ms"],
+                       longest_lane_steps=c["int64_longest_lane_steps"]))
+        rows[form]["bound_ms"], rows[form]["bound_by"] = bound(c["bytes"],
+                                                               c["ops"])
+        log(f"K1 refill {form} form {rows[form]}")
+    return rows, pending
 
 
 def pipeline_phase(d, prefix, name, fqs, extra, K, want):
@@ -2169,7 +2353,7 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
     BWA_TPU_SEED_REFILL=1 (and BWA_TPU_REFILL_LANES=1024), SAM equal to
     the unsorted static run's; K8 and the refill mode held to their plain
     versions; then main_mem in four chunks or more.  Returns (phases, K8's
-    row, the refill row, the steps of K1's launches)."""
+    row, the refill row, its launches pending on the host)."""
     from bwa_tpu_torch.ops import fm as fm_ops
     from bwa_tpu_torch.ops import fm_machine
 
@@ -2179,7 +2363,9 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
                            keep=lambda out: out[2]),
             "K8": Recorder(fm_ops, "probe_breaks"),
             "K1 refill": Recorder(fm_machine, "seed_machine_refill",
-                                  keep=lambda out: out[5])}
+                                  keep=lambda out: (
+                                      out[5],
+                                      fm_machine.refill_group_launches))}
     runs = {}
     try:
         # off, force, force, off: the SE walls in turns
@@ -2239,18 +2425,26 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
         info[sorted_ph]["longest_lane_steps"] = a
         info[sorted_ph]["longest_lane_steps_off"] = b
         info[sorted_ph]["steps_change"] = sum(a) / max(1, sum(b)) - 1
-    refill_launches = [
-        dict(phase=ph, call=i, lanes=int(a[2]), reads=int(a[1].shape[0]),
-             cap_s=kw["cap_s"], n_drawn=min(int(rec), int(a[1].shape[0])),
-             event_ms=recs["K1 refill"].call_ms.get(i))
-        for i, ((ph, a, kw), rec) in enumerate(zip(recs["K1 refill"].calls,
-                                                   recs["K1 refill"].kept))]
-    for x in refill_launches:
-        log(f"K1 refill launch {x}")
+    # each refill launch's form, from the group form's count after it (the
+    # counts start at 0 with each phase)
+    refill_launches, after = [], {}
+    for i, ((ph, a, kw), (qctr, n_group)) in enumerate(
+            zip(recs["K1 refill"].calls, recs["K1 refill"].kept)):
+        form = "group" if n_group > after.get(ph, 0) else "warp"
+        after[ph] = n_group
+        refill_launches.append(dict(
+            phase=ph, call=i, form=form, lanes=int(a[2]),
+            reads=int(a[1].shape[0]), cap_s=kw["cap_s"],
+            n_drawn=min(int(qctr), int(a[1].shape[0])),
+            event_ms=recs["K1 refill"].call_ms.get(i)))
+        log(f"K1 refill launch {refill_launches[-1]}")
     main_s = time.perf_counter() - t0
     k8 = check_k8(recs["K8"])
-    k1r = check_refill(recs["K1 refill"])
-    k1r["launches_on_main_path"] = refill_launches
+    k1r, k1r_pending = check_refill(recs["K1 refill"], d,
+                                    [x["form"] for x in refill_launches])
+    for form, row in k1r.items():
+        row["launches_on_main_path"] = [x for x in refill_launches
+                                        if x["form"] == form]
     # main_mem's reader/writer threads: SE against mem_se_150bp's output,
     # PE (-I: no per-chunk insert-size estimate) against the one-chunk run
     se_fq = [d / "mem_se_150bp.fq"]
@@ -2265,7 +2459,7 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
     for ph in (*info.values(), *pipes):
         print(json.dumps(ph), flush=True)
     print(json.dumps(dict(k1_longest_lane_steps=steps)), flush=True)
-    return list(info.values()) + pipes, k8, k1r
+    return list(info.values()) + pipes, k8, k1r, k1r_pending
 
 
 # --------------------------------------------------------------------------
@@ -2282,7 +2476,8 @@ def big_genome_main() -> int:
     (auto sorts at l_pac >= 200 Mbp, so K8 launches once) and with off, in
     turns auto, off, auto, off, every SAM equal.  Prints the index build's
     seconds, each phase's wall and K1 launches (longest lane's steps,
-    event ms), and K8 against its plain version."""
+    event ms), K8 against its plain version, and a fresh process's first
+    K8 launch at this genome, whole and split (first_launch_main)."""
     import numpy as np
     import torch
 
@@ -2317,6 +2512,9 @@ def big_genome_main() -> int:
     log(f"210 Mbp index built in {index_s:.1f} s (l_pac={fm.l_pac})")
     if fm.l_pac < 200_000_000:
         fail(f"l_pac {fm.l_pac} is below trip-sort's auto gate")
+    # a cold process's first K8 launch at this genome, whole and in parts
+    first = [first_launch(variant, ["--big"])
+             for variant in ("direct", "torch_first", "split")]
     reads = simulate(codes, 24576, 150, SEED + 12, 0.005, 0.0002, "g")[0]
     from bwa_tpu_torch.ops import fm as fm_ops
     from bwa_tpu_torch.ops import fm_machine
@@ -2348,10 +2546,259 @@ def big_genome_main() -> int:
                  f"launch K8 once, off never")
     k8 = check_k8(recs["K8"], "mem_se_big_genome")
     print(json.dumps(dict(k8_big_genome=k8)), flush=True)
+    for f in first:
+        print(json.dumps(f), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# --------------------------------------------------------------------------
+# --seed-bench: K8 and K1's refill mode alone; a cold process's first launch
+# --------------------------------------------------------------------------
+
+SEED_BENCH_LANES = ((12288, 96), (1024, 600))  # (lanes, cap_s), step 4d's
+# (lanes, stack cap) of --switch: the refill route's lane counts (12,288 at
+# L <= 256, 6,144 at 512, 3,072 at 1,024; fewer reads: a power of two from
+# 256) at its ladder's stack caps
+SWITCH_SWEEP = ((1024, 16), (2048, 16), (2560, 16), (3072, 16), (4096, 16),
+                (6144, 16), (12288, 16), (3072, 32), (6144, 32), (12288, 32),
+                (3072, 64), (6144, 64), (12288, 64))
+
+
+def seed_inputs(big=False, table=True):
+    """The smoke genome's index on the card (the engine's tree, occtab R =
+    4), step 4d's 24,576 x 150 bp reads as K8 gets them (_pad_reads: 192
+    columns) and their refill table (or None), the index's FASTA; with
+    big, the 210 Mbp genome that --big-genome built and its reads."""
+    import numpy as np
+    import torch
+
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.mem.batch_seed import _pad_reads
+    from bwa_tpu_torch.ops.fm import BatchedFMEngine, _refill_table
+
+    if big:
+        fa = REPO / "build" / "big_genome" / "big210.fa"
+        if not (REPO / "build" / "big_genome" / "big210.fa.sa").exists():
+            fail("--big needs the index that --big-genome builds")
+        codes = np.random.default_rng(SEED + 20).integers(
+            0, 4, BIG_GENOME_LEN).astype(np.uint8)
+    else:
+        d = REPO / "build" / "smoke"
+        d.mkdir(parents=True, exist_ok=True)
+        fa, codes = make_genome(d)
+    reads = simulate(codes, 24576, 150, SEED + 12, 0.005, 0.0002,
+                     "g" if big else "t")[0]
+    q, ql, _ = _pad_reads([r for _, r in reads])
+    idx = BatchedFMEngine(FMIndex.load(str(fa)), "cuda").idx
+    qd, qld = torch.from_numpy(q).cuda(), torch.from_numpy(ql).cuda()
+    return idx, qd, qld, _refill_table(qd, qld) if table else None, fa
+
+
+def coord_tree(idx, coords):
+    """The tree as is, or as the 2*l_pac+2 >= 2^31 code path takes it."""
+    import torch
+
+    return idx if coords == "int32" else dict(idx, cdt=torch.int64,
+                                              L2=idx["L2"].long())
+
+
+def refill_args(idx, table, lanes, cap_s, cap=16):
+    """K1's refill mode as mem_se_refill launches it: mem's default
+    options, stack cap `cap` (16; the ladder's 32 and 64), a read's share
+    cap_r = 24 of a lane's store."""
+    from bwa_tpu_torch.options import MemOptions
+
+    opt = MemOptions()
+    return ((idx, table, lanes, opt.min_seed_len,
+             int(opt.min_seed_len * opt.split_factor + 0.499),
+             opt.split_width, opt.max_mem_intv),
+            dict(cap=cap, cap_s=cap_s, use_p3=bool(opt.max_mem_intv > 0),
+                 cap_r=24))
+
+
+def seed_attrs(nw, L, cap=16):
+    """Step 0 of the seed kernels: registers, shared and local bytes and
+    occupancy of K1, its refill mode and K8 at both coordinate types."""
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    return {f"{k} {c}": cuda_kernels.seed_kernel_attrs(k, c == "int64", nw,
+                                                       cap, L)
+            for k in cuda_kernels.SEED_KERNELS[:3]
+            for c in ("int32", "int64")}
+
+
+def seed_bench_main(argv) -> int:
+    """K8 and K1's refill mode alone at step 4d's shapes, on the tree of
+    --root DIR (a checkout of another commit) or this one: the kernels'
+    registers and occupancy (where the tree exports them), K8 at int32
+    and int64 coordinates (20 launches each, equal to the plain version),
+    the refill mode at 12,288 and 1,024 lanes at both, in the form the
+    route picks and in each form (5 launches each; reads drawn, lane
+    steps); then, with --first-launch, fresh processes
+    that time a process's first K8 launch whole and split into its parts.
+    With --switch, instead of K8 and those launches: both refill forms at
+    each (lanes, stack cap) of SWITCH_SWEEP, with the route's seed store
+    (_se_flat_refill's cs_tot) and its pick (refill_group_form), at both
+    coordinate types.  One JSON line each."""
+    root = Path(argv[argv.index("--root") + 1]).resolve() \
+        if "--root" in argv else REPO
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    card = (smi("--query-gpu=name,power.limit") or ["(no nvidia-smi)"])[0]
+    t0 = time.perf_counter()
+    cuda_kernels.build_all()
+    big = "--big" in argv
+    idx, q, ql, table, fa = seed_inputs(big)
+    head = dict(card=card, root=str(root), genome=fa.name,
+                setup_s=time.perf_counter() - t0)
+    for ln in cuda_kernels.build_log.get("seed_machine.cu", "").splitlines():
+        log(f"ptxas {ln.strip()}")  # registers and spills of each kernel
+    print(json.dumps(dict(seed_bench=head)), flush=True)
+    nw = int(idx["occtab"].shape[1] - 4)
+    if hasattr(cuda_kernels, "seed_kernel_attrs"):
+        print(json.dumps(dict(attrs=seed_attrs(nw, q.shape[1]))), flush=True)
+    if "--switch" in argv:
+        return refill_switch(idx, table)
+    for coords in ("int32", "int64"):
+        t = coord_tree(idx, coords)
+        got = fm_ops.probe_breaks(t, q, ql)
+        want, plain_ms = timed_once(lambda: fm_ops.probe_breaks_plain(t, q))
+        print(json.dumps(dict(k8=dict(
+            coords=coords, ms=cuda_time(
+                lambda: fm_ops.probe_breaks(t, q, ql), 20),
+            equal=bool(torch.equal(got, want)), breaks=int(want.sum()),
+            plain_ms=plain_ms))), flush=True)
+    forms = ((None, False, True) if "group" in inspect.signature(
+        fmm.seed_machine_refill).parameters else (None,))
+    for coords in () if big else ("int32", "int64"):
+        t = coord_tree(idx, coords)
+        for lanes, cap_s in SEED_BENCH_LANES:
+            for group in forms:  # as the route picks it, then each form
+                a, kw = refill_args(t, table, lanes, cap_s)
+                if group is not None:
+                    kw["group"] = group
+                out, once = timed_once(
+                    lambda: fmm.seed_machine_refill(*a, **kw))
+                print(json.dumps(dict(refill=dict(
+                    coords=coords, lanes=lanes, cap_s=cap_s,
+                    form={None: "route", False: "warp",
+                          True: "group"}[group], first_ms=once,
+                    ms=cuda_time(lambda: fmm.seed_machine_refill(*a, **kw),
+                                 5),
+                    n_drawn=min(int(out[5]), table.shape[0]),
+                    longest_lane_steps=int(out[2]),
+                    lane_steps=int(out[4].to(torch.int64).sum())))),
+                    flush=True)
+    if "--first-launch" in argv:
+        for variant in ("direct", "torch_first") + (
+                ("split",) if hasattr(cuda_kernels, "seed_noop") else ()):
+            print(json.dumps(first_launch(
+                variant, ["--root", str(root)] + (["--big"] if big else []))),
+                flush=True)
+    return 0
+
+
+def refill_switch(idx, table) -> int:
+    """seed_bench_main --switch: both refill forms at SWITCH_SWEEP."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    n, L = table.shape[0], (table.shape[1] - 2) // 2
+    for coords in ("int32", "int64"):
+        t = coord_tree(idx, coords)
+        for lanes, cap in SWITCH_SWEEP:
+            # the ladder doubles the store at cap 32 and quadruples that at 64
+            cap_s = max(4 * 24, (-(-n // lanes) + 1) * 24) * \
+                {16: 1, 32: 2, 64: 8}[cap]
+            a, kw = refill_args(t, table, lanes, cap_s, cap)
+            row = dict(coords=coords, lanes=lanes, cap=cap, cap_s=cap_s,
+                       route="group" if fmm.refill_group_form(t, lanes, cap, L)
+                       else "warp")
+            for form in ("warp", "group"):
+                k = dict(kw, group=form == "group")
+                out = fmm.seed_machine_refill(*a, **k)
+                row[form] = dict(
+                    ms=cuda_time(lambda: fmm.seed_machine_refill(*a, **k), 5),
+                    n_drawn=min(int(out[5]), n),
+                    longest_lane_steps=int(out[2]),
+                    lane_steps=int(out[4].to(torch.int64).sum()))
+            print(json.dumps(dict(switch=row)), flush=True)
+    return 0
+
+
+def first_launch(variant, extra):
+    """first_launch_main's line from a fresh process."""
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--first-launch", variant, *extra],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"--first-launch {variant}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def first_launch_main(argv) -> int:
+    """A fresh process's first K8 launch on the smoke genome's tree (or,
+    with --big, the 210 Mbp one), after the index is on the card and the
+    reads uploaded: `direct` launches K8 first; `torch_first` runs one of
+    PyTorch's own kernels before it; `split` also reads K8's attributes
+    (which loads the module's kernel), launches the module's empty kernel
+    and then K8 on one read before it.  Each part timed by the host clock
+    to a synchronize, the K8 launches also by CUDA events.  One JSON
+    line."""
+    variant = argv[1]
+    root = Path(argv[argv.index("--root") + 1]).resolve() \
+        if "--root" in argv else REPO
+    sys.path.insert(0, str(root))
+    import torch
+
+    from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    t0 = time.perf_counter()
+    cuda_kernels.build_all()  # loads the .so files: no module is loaded yet
+    # copies only: no kernel of PyTorch's or the port's runs before K8
+    idx, q, ql, _, fa = seed_inputs("--big" in argv, table=False)
+    torch.cuda.synchronize()
+    res = dict(variant=variant, genome=str(fa.name),
+               occtab_bytes=int(idx["occtab"].numel() * 4),
+               setup_s=time.perf_counter() - t0)
+
+    def wall(fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    if variant in ("torch_first", "split"):
+        res["torch_kernel_ms"] = wall(
+            lambda: torch.ones(1, device="cuda").add_(1))
+    if variant == "split":
+        nw = int(idx["occtab"].shape[1] - 4)
+        res["attrs_ms"] = wall(lambda: cuda_kernels.seed_kernel_attrs(
+            "K8", idx["cdt"] == torch.int64, nw, 16, q.shape[1]))
+        res["empty_kernel_ms"] = wall(cuda_kernels.seed_noop)
+        res["empty_kernel_2_ms"] = wall(cuda_kernels.seed_noop)
+        # K8 itself on one read: a first launch that touches a row or two
+        res["k8_one_read_ms"] = wall(
+            lambda: fm_ops.probe_breaks(idx, q[:1], ql[:1]))
+    for n in ("first", "second"):
+        t = time.perf_counter()
+        _, ev = timed_once(lambda: fm_ops.probe_breaks(idx, q, ql))
+        res[f"k8_{n}_event_ms"] = ev
+        res[f"k8_{n}_wall_ms"] = (time.perf_counter() - t) * 1e3
+    print(json.dumps(dict(first_launch=res)), flush=True)
     return 0
 
 
@@ -2658,6 +3105,8 @@ def bound(nbytes, ops):
 # --------------------------------------------------------------------------
 
 def main(argv) -> int:
+    if argv[:1] == ["--refill-plain"]:  # of start_refill_host_plain
+        return refill_plain_host(*argv[1:3])
     if argv[:1] == ["--k1-plain"]:  # a subprocess of start_k1_host_plain
         return k1_plain_host(*argv[1:3])
     if argv[:1] == ["--aln-ladder"]:  # a subprocess of start_aln_ladder
@@ -2670,6 +3119,10 @@ def main(argv) -> int:
         return k7_bench_main()
     if argv[:1] == ["--big-genome"]:
         return big_genome_main()
+    if argv[:1] == ["--seed-bench"]:
+        return seed_bench_main(argv)
+    if argv[:1] == ["--first-launch"]:
+        return first_launch_main(argv)
     log_dir = None
     if "--log" in argv:
         log_dir = Path(argv[argv.index("--log") + 1])
@@ -2711,6 +3164,10 @@ def main(argv) -> int:
         fail(f"native build failed: {errs[0]}")
     build_s = time.perf_counter() - t0
     log(f"kernels and native library built in {build_s:.1f} s")
+    # step 0 of K1, its refill mode and K8 at step 4d's launches (occtab R =
+    # 4, stack cap 16, 192 codes a read)
+    attrs = seed_attrs(32, 192)
+    log(f"seed kernels' registers and occupancy {attrs}")
     if log_dir:
         (log_dir / "nvcc_build.log").write_text(
             "\n".join(f"== {k}\n{v}" for k, v in
@@ -2749,7 +3206,7 @@ def main(argv) -> int:
     phases = (("mem_se_150bp", reads150, None, []),
               ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
               ("mem_pe_150bp", pe1, pe2, []))
-    cpu, host, host5, ladder, k7_host = {}, [], [], [], []
+    cpu, host, host5, ladder, k7_host, refill = {}, [], [], [], [], []
     try:
         ladder.append(start_aln_ladder(d, str(fa), aln_se[:LADDER_READS]))
         for ph, reads, _, extra in phases[:2]:
@@ -2830,8 +3287,9 @@ def main(argv) -> int:
 
         # 4d. trip-sorted packing (K8), K1's refill mode, main_mem's
         # reader/writer threads
-        route_phases, k8, k1r = seeding_route_phases(
+        route_phases, k8, k1r, k1r_pending = seeding_route_phases(
             d, str(fa), codes, (pe1, pe2), sam_se)
+        refill += [job for _, job, *_ in k1r_pending]
         # the plain version of K1's lane-wide pacbio rung, on the host from
         # here on (minutes of it; step 6 waits for it)
         lane_wide = k1_lane_wide(recs["K1"])
@@ -2937,6 +3395,7 @@ def main(argv) -> int:
                      f"path's shape")
         log(f"main-path calls checked and timed in "
             f"{time.perf_counter() - t0:.1f} s")
+        finish_refill(k1r, k1r_pending)
         for (info, sam), (_, reads, _, _) in zip(ran[:2], phases):
             check_first64(info, sam, cpu[info["phase"]],
                           {n for n, _ in reads[:64]})
@@ -2948,7 +3407,7 @@ def main(argv) -> int:
             print(json.dumps(ph), flush=True)
     finally:
         for proc, err, *_ in [*cpu.values(), *host, *host5, *ladder,
-                              *k7_host]:
+                              *k7_host, *refill]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -2956,11 +3415,18 @@ def main(argv) -> int:
 
     mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases,
              *route_phases)
+    # the warp form of the refill mode is K1's kernel; the group form its own
+    for k, name in ((k1, "K1"), (k1r["warp"], "K1"),
+                    (k1r["group"], "K1 refill"), (k8, "K8")):
+        k["attrs"] = {c: attrs[f"{name} {c}"] for c in ("int32", "int64")}
     # each row's launches in one run's counts (the main path's phases, or
     # the daemon's requests): K2's warp path is its gather mode's launches
     # less the wide path's
     count = {"K1 seed_machine": lambda c: c["K1"],
-             "K1 seed_machine refill mode": lambda c: c["K1 refill"],
+             "K1 seed_machine refill mode, a warp a lane":
+             lambda c: c["K1 refill"] - c["K1 refill group"],
+             "K1 seed_refill, the refill mode's group form":
+             lambda c: c["K1 refill group"],
              "K8 probe_breaks": lambda c: c["K8"],
              "K2 ksw_band": lambda c: c["K2"] - c["K2 wide"],
              "K2 ksw_band wide path (P > 1024)": lambda c: c["K2 wide"],
@@ -2972,10 +3438,14 @@ def main(argv) -> int:
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", k1, k1_par, mains,
              calls["K1"]),
-            ("K1 seed_machine refill mode",
+            ("K1 seed_machine refill mode, a warp a lane",
              "bwa_tpu_torch/csrc/seed_machine.cu",
-             "bwa_tpu/ops/fm_machine.py:369", k1r, None, mains,
-             len(k1r["main_path_checks"])),
+             "bwa_tpu/ops/fm_machine.py:369", k1r["warp"], None, mains,
+             len(k1r["warp"]["main_path_checks"])),
+            ("K1 seed_refill, the refill mode's group form",
+             "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm_machine.py:369", k1r["group"], None, mains,
+             len(k1r["group"]["main_path_checks"])),
             ("K8 probe_breaks", "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm.py:253", k8, None, mains, None),
             ("K2 ksw_band", "bwa_tpu_torch/csrc/ksw_band.cu",
@@ -3012,7 +3482,8 @@ def main(argv) -> int:
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
                                        "overflow_lanes",
                                        "longest_lane_steps", "ns_per_step",
-                                       "extending_positions", "breaks",
+                                       "extending_positions",
+                                       "one_row_extensions", "breaks",
                                        "n_drawn",
                                        "rows", "cells", "full_width_cells",
                                        "longest_rows", "ns_per_row")
@@ -3020,7 +3491,8 @@ def main(argv) -> int:
             **{kk: k[kk] for kk in ("pacbio_lane_wide",
                                     "launches_on_main_path",
                                     "main_path_checks", "small_check",
-                                    "one_read_lanes", "design") if kk in k},
+                                    "one_read_lanes", "design", "int64",
+                                    "attrs") if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
                 if e["kernel"] == ("K5" if k is k5 else "K2 host-array")]}

@@ -283,11 +283,13 @@ def _refill_rows(out):
 @pytest.mark.parametrize("lanes,cap_s", [(8, 240), (128, 96), (4, 26)])
 @pytest.mark.parametrize("occ_r", [1, 4])
 @pytest.mark.parametrize("coords", ["int32", "int64"])
-def test_k1_refill_matches_plain(world, lanes, cap_s, occ_r, coords):
-    """K1's refill mode against its plain version: 8 lanes recycle through
-    65 reads, 128 lanes start with every read, and at cap_s 26 the lanes
-    fill (each stops drawing), so only the reads drawn are compared, as
-    the same set.  Each read's seeds, in _demux_refill's order, equal."""
+@pytest.mark.parametrize("group", [False, True])
+def test_k1_refill_matches_plain(world, lanes, cap_s, occ_r, coords, group):
+    """K1's refill mode, a warp a lane and its group form, against its plain
+    version: 8 lanes recycle through 65 reads, 128 lanes start with every
+    read, and at cap_s 26 the lanes fill (each stops drawing), so only the
+    reads drawn are compared, as the same set.  Each read's seeds, in
+    _demux_refill's order, equal."""
     from bwa_tpu_torch.mem.batch_seed import _pad_reads
     from bwa_tpu_torch.ops import fm_machine as fmm
     from bwa_tpu_torch.ops.fm import _refill_table
@@ -296,12 +298,16 @@ def test_k1_refill_matches_plain(world, lanes, cap_s, occ_r, coords):
     table = _refill_table(torch.from_numpy(q).cuda(),
                           torch.from_numpy(ql).cuda())
     tt = _tree(world["fm"], coords, occ_r)
-    n0 = fmm.refill_launches
-    outs = [fn(tt, table, lanes, 19, 28, 10, 20, cap=16, cap_s=cap_s,
-               use_p3=True, cap_r=24)
-            for fn in (fmm.seed_machine_refill, fmm.seed_machine_refill_plain)]
+    n0, g0 = fmm.refill_launches, fmm.refill_group_launches
+    outs = [fmm.seed_machine_refill(tt, table, lanes, 19, 28, 10, 20, cap=16,
+                                    cap_s=cap_s, use_p3=True, cap_r=24,
+                                    group=group),
+            fmm.seed_machine_refill_plain(tt, table, lanes, 19, 28, 10, 20,
+                                          cap=16, cap_s=cap_s, use_p3=True,
+                                          cap_r=24)]
     torch.cuda.synchronize()
     assert fmm.refill_launches == n0 + 1
+    assert fmm.refill_group_launches == g0 + int(group)
     assert outs[0][0].dtype == tt["cdt"] and outs[0][0].shape[2] == 6
     (g, gn), (w, wn) = (_refill_rows(o) for o in outs)
     if cap_s >= 96:
@@ -313,6 +319,75 @@ def test_k1_refill_matches_plain(world, lanes, cap_s, occ_r, coords):
         assert drawn
         keep = lambda r: r[np.isin(r[:, 5], list(drawn))]  # noqa: E731
         np.testing.assert_array_equal(keep(g), keep(w))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("occ_r", [1, 4])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k8_byte_rows_match_plain(world, occ_r, coords):
+    """K8's codes a byte at a time: rows of 150 codes (not a multiple of
+    16) and the same rows one byte off 16-byte alignment, qlen < L where an
+    N run ends a read early; equal to the plain version, one launch each."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    q, ql = _probe_rows(world)
+    q = q[:, :150].copy()
+    ql = np.minimum(ql, 150)
+    for r in range(0, len(q) - 1, 7):  # reads cut short: pads past qlen
+        ql[r] = min(ql[r], 120)
+        q[r, ql[r]:] = 4
+    tt = _tree(world["fm"], coords, occ_r)
+    buf = torch.zeros(q.size + 1, dtype=torch.uint8, device="cuda")
+    buf[1:] = torch.from_numpy(q.reshape(-1)).cuda()
+    for qd in (torch.from_numpy(q).cuda(), buf[1:].view(q.shape)):
+        n0 = fm_ops.probe_launches
+        got = fm_ops.probe_breaks(tt, qd, torch.from_numpy(ql).cuda())
+        want = fm_ops.probe_breaks_plain(tt, qd)
+        torch.cuda.synchronize()
+        assert fm_ops.probe_launches == n0 + 1
+        assert torch.equal(got.cpu(), want.cpu())
+        assert int(want.sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap,L", [(2, 192), (3, 150), (16, 150)])
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+@pytest.mark.parametrize("group", [False, True])
+def test_k1_refill_overflow_matches_plain(world, cap, L, coords, group):
+    """The refill mode at R = 4, both forms, with stacks of 2 and 3 (rows
+    longer than the stack) and reads of 150 codes (staged a byte at a
+    time): on 128 lanes, more lanes than the 65 reads, lane b seeds read b
+    alone, so every lane's seeds, seed_n and overflow flag equal the plain
+    version's; on 40 lanes with stacks of 16 (no overflow) each read's
+    seeds, in _demux_refill's order, equal."""
+    from bwa_tpu_torch.mem.batch_seed import _pad_reads
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import _refill_table
+
+    q, ql, _ = _pad_reads(world["short"] + [np.zeros(0, np.uint8)])
+    q = np.ascontiguousarray(q[:, :L])
+    table = _refill_table(torch.from_numpy(q).cuda(),
+                          torch.from_numpy(ql).cuda())
+    tt = _tree(world["fm"], coords, 4)
+    lanes = 128 if cap < 16 else 40
+    kw = dict(cap=cap, cap_s=96, use_p3=True, cap_r=24)
+    got = fmm.seed_machine_refill(tt, table, lanes, 19, 28, 10, 20, **kw,
+                                  group=group)
+    want = fmm.seed_machine_refill_plain(tt, table, lanes, 19, 28, 10, 20,
+                                         **kw)
+    torch.cuda.synchronize()
+    if cap < 16:
+        assert bool(want[3].any())
+        for i in (1, 3, 4):  # seed_n, ovf, done_step
+            assert torch.equal(got[i].cpu(), want[i].cpu()), i
+        assert int(got[2]) == int(want[2])
+        assert torch.equal(fmm.sort_seeds(got[0], got[1], False).cpu(),
+                           fmm.sort_seeds(want[0], want[1], False).cpu())
+    else:
+        assert not bool(want[3].any()) and not bool(got[3].any())
+        (g, gn), (w, wn) = (_refill_rows(o) for o in (got, want))
+        assert min(gn, wn) >= 65 and len(w) > 0
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.fixture(scope="module")

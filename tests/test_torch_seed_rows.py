@@ -1,14 +1,15 @@
 """The parallel form of a backward row (ops/fm_machine.py::bwd_row_resolve,
 the way kernel K1 resolves a row's pushes, slots, emit and overflow for all
-its entries at once) against the plain machine's rule, one entry at a time
-(the P_BWD micro-op of seed_machine_seg).  Rows are made from a seed with
-numpy; equality is exact."""
+its entries at once) and the group form (bwd_row_serial, K1's refill mode:
+one entry a step) against the plain machine's rule, one entry at a time
+(the P_BWD micro-op of seed_machine_seg), and against each other.  Rows
+are made from a seed with numpy; equality is exact."""
 
 import numpy as np
 import pytest
 import torch
 
-from bwa_tpu_torch.ops.fm_machine import bwd_row_resolve
+from bwa_tpu_torch.ops.fm_machine import bwd_row_resolve, bwd_row_serial
 
 
 def sequential_row(ob2, keep, n0, last_x2, cap, emit_ok, rev):
@@ -113,3 +114,39 @@ def test_bwd_row_resolve_emits_only_at_the_first_entry():
                               0, lx, cap, ok, rev, 4)
         first = bool(ok and len(keep) and keep[0])
         assert got["emit"] == (0 if first else -1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_row_serial_matches_sequential_and_resolve(case):
+    """The group form's row, entry by entry, against the one-j-at-a-time
+    rule and against the parallel form, field by field (rows longer than
+    the stack cap among them: pn_over_cap, longer_than_a_warp)."""
+    seen = dict(push=0, ovf=0)
+    for ob2, keep, n0, lx, cap, ok, rev in random_rows(*CASES[case]):
+        want = sequential_row(ob2, keep, n0, lx, cap, ok, rev)
+        got = bwd_row_serial(torch.from_numpy(ob2), torch.from_numpy(keep),
+                             n0, lx, cap, ok, rev)
+        par = bwd_row_resolve(torch.from_numpy(ob2), torch.from_numpy(keep),
+                              n0, lx, cap, ok, rev)
+        np.testing.assert_array_equal(got["read_slot"].numpy(),
+                                      want["read_slot"])
+        push = got["push"].numpy()
+        np.testing.assert_array_equal(push, want["push"])
+        np.testing.assert_array_equal(got["slot"].numpy()[push],
+                                      want["slot"][push])
+        wins = got["wins"].numpy()
+        assert {int(s_): int(j) for j, s_ in zip(np.flatnonzero(wins),
+                                                 got["slot"].numpy()[wins])} \
+            == want["stack"]
+        for k in ("emit", "ovf", "n", "last_x2"):
+            assert got[k] == want[k] == par[k], k
+        for k in ("read_slot", "push", "wins"):
+            assert torch.equal(got[k], par[k].cpu()), k
+        assert torch.equal(got["slot"][got["push"]],
+                           par["slot"][par["push"]].cpu())
+        seen["push"] += int(push.sum())
+        seen["ovf"] += want["ovf"]
+    if case == "pn_over_cap":
+        assert seen["ovf"] > 0
+    if case in ("reversed", "forward"):
+        assert seen["push"] > 0
