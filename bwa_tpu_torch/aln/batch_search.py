@@ -7,7 +7,11 @@ needs, in the reference's order.  Lanes whose stack/result buffers
 overflow the device caps climb a retry ladder (cap 1024 -> 8192 -> 65536)
 and finally fall back to the host executable spec (aln/search.py), so
 every read's result is exact however pathological its search tree is.  A
-rung reruns only the lanes that overflowed the one before it.
+rung reruns only the lanes that overflowed the one before it.  On an
+engine with a mesh (parallel/mesh.py), a rung whose lane count the mesh's
+size divides splits its lanes over the shards (gap_machine_sharded), K7
+running once a shard on its device's tree; K7w runs once a chunk on the
+engine's first device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,24 +93,31 @@ def _prep_chunk(pk, opt: GapOpt):
 
 
 def _run_lanes(engine, opt: GapOpt, lanes, dq, wb0, sb, use_seed, cap,
-               cap_a, max_steps, n_lists, idx=None):
+               cap_a, max_steps, n_lists, idx=None, trees=None):
     """One gap machine launch over the lanes `lanes` (indices into the
-    chunk's device arrays dq) on the tree idx (the engine's by default);
-    returns (rows, n_aln, ovf): rows [tot, 8] int64 on the host, the
-    records of every lane that did not overflow, lane by lane in lane
-    order."""
+    chunk's device arrays dq) on the tree idx (the engine's by default),
+    or with trees (device -> tree) one a shard of the engine's mesh, the
+    lanes split in order; returns (rows, n_aln, ovf): rows [tot, 8] int64
+    on the host, the records of every lane that did not overflow, lane by
+    lane in lane order."""
     dev = engine.device
     li = torch.as_tensor(lanes, device=dev)
     scal = tuple(int(getattr(opt, k)) for k in gm.SCALARS)
-    out = gm.gap_machine(
-        engine.idx if idx is None else idx, dq["qc"][li], dq["lens"][li],
-        dq["md"][li], dq["mg"][li], dq["seed_en"][li], sb[li], wb0[li],
-        torch.ones(len(lanes), dtype=torch.bool, device=dev), scal, cap=cap,
-        cap_a=cap_a, use_seed=use_seed,
-        f_gape=bool(opt.mode & BWA_MODE_GAPE),
-        f_nonstop=bool(opt.mode & BWA_MODE_NONSTOP),
-        f_loggap=bool(opt.mode & BWA_MODE_LOGGAP), max_steps=max_steps,
-        n_lists=n_lists)
+    flags = dict(cap=cap, cap_a=cap_a, use_seed=use_seed,
+                 f_gape=bool(opt.mode & BWA_MODE_GAPE),
+                 f_nonstop=bool(opt.mode & BWA_MODE_NONSTOP),
+                 f_loggap=bool(opt.mode & BWA_MODE_LOGGAP))
+    args = (dq["qc"][li], dq["lens"][li], dq["md"][li], dq["mg"][li],
+            dq["seed_en"][li], sb[li], wb0[li],
+            torch.ones(len(lanes), dtype=torch.bool, device=dev), scal)
+    if trees is not None:
+        from bwa_tpu_torch.parallel.mesh import gap_machine_sharded
+
+        out = gap_machine_sharded(engine.mesh, **flags)(
+            trees, *args, max_steps=max_steps, n_lists=n_lists)
+    else:
+        out = gm.gap_machine(engine.idx if idx is None else idx, *args,
+                             max_steps=max_steps, n_lists=n_lists, **flags)
     meta = torch.stack([out["n_aln"], out["ovf"].to(torch.int32)]).cpu() \
         .numpy()
     n_aln, ovf = meta[0], meta[1] != 0
@@ -137,27 +148,29 @@ def _host_fallback(engine, opt: GapOpt, orig_row, qlen, md_i, mg_i):
     return match_gap(host, q, w, seed_w, local)
 
 
-def search_tree(engine, fm):
-    """The index tree K7 and K7w read on a CUDA engine: the engine's, with
-    an occtab of R = 1 rows (8 text words) where the engine's is re-tiled
-    R = 4 (genomes past 2^16 blocks, for the seeding kernel).  A lookup
-    then reads 48 bytes, not 144, and a group of 2 threads (not 8) makes
-    it, so a warp carries 16 searches (PERF.md §6).  Built once an
-    engine; a CPU engine's tree is its own."""
+def search_tree(engine, fm, device=None):
+    """The index tree K7 and K7w read on a CUDA engine: the engine's (on a
+    mesh, its tree on `device`), with an occtab of R = 1 rows (8 text
+    words) where the engine's is re-tiled R = 4 (genomes past 2^16
+    blocks, for the seeding kernel).  A lookup then reads 48 bytes, not
+    144, and a group of 2 threads (not 8) makes it, so a warp carries 16
+    searches (PERF.md §6).  Built once an engine and device; a CPU
+    engine's tree is its own."""
     from bwa_tpu_torch.index.fmindex import _i32_bits, build_occtab
 
-    idx = engine.idx
+    idx = engine.idx if device is None else engine.trees[device]
     occ = idx.get("occtab")
     if occ is None or not occ.is_cuda or occ.shape[1] == 12:
         return idx
-    tree = getattr(engine, "k7_tree", None)
+    trees = engine.__dict__.setdefault("k7_trees", {})
+    tree = trees.get(occ.device)
     if tree is None:
         occ1 = build_occtab(fm, 1)
         if occ1 is None:
             return idx
         tree = dict(idx, occtab=torch.from_numpy(_i32_bits(occ1))
                     .to(occ.device))
-        engine.k7_tree = tree
+        trees[occ.device] = tree
     return tree
 
 
@@ -166,9 +179,13 @@ def aln_batch_device(fm, engine, pk, opt: GapOpt):
     rows: [tot, 8] int64 = (n_mm, n_gapo, n_gape, score, n_ins, n_del,
     k, l) per alignment, reference order.  BWA_TPU_ALN_LANES, when set,
     cuts the chunk into buckets of that many reads; a rung's launches are
-    cut to SCRATCH_BYTES."""
+    cut to SCRATCH_BYTES, a device's budget: on a mesh, each launch gives
+    every shard that many lanes."""
     n = pk.n
     idx = search_tree(engine, fm)
+    mesh = getattr(engine, "mesh", None)
+    trees = None if mesh is None else {
+        d: search_tree(engine, fm, d) for d in mesh.distinct()}
     dev = engine.device
     cdt = idx["cdt"]
     L, md, mg, orig, qc, seed_en, use_seed, swin, skip = \
@@ -206,11 +223,16 @@ def aln_batch_device(fm, engine, pk, opt: GapOpt):
             lanes = np.flatnonzero(todo)
             todo = np.zeros(nb, bool)
             per = max(1, SCRATCH_BYTES // (cap * gm.slot_bytes(cdt, wide)))
-            for g in range(0, lanes.size, per):
-                part = lanes[g:g + per]
+            # on a mesh: shard s takes the s-th block of the rung's lanes,
+            # `per` of them a launch (a launch's lanes, shard by shard)
+            k = 1 if trees is None or lanes.size % mesh.size else mesh.size
+            blk = lanes.reshape(k, -1)
+            for g in range(0, blk.shape[1], per):
+                part = blk[:, g:g + per].reshape(-1)
                 rows, n_aln, ovf = _run_lanes(
                     engine, opt, part, dq, wb0, sb, use_seed, cap,
-                    cap_a0 * (1 << ci), max_steps, n_lists, idx)
+                    cap_a0 * (1 << ci), max_steps, n_lists, idx,
+                    trees if k > 1 else None)
                 done = lo + part[~ovf]
                 out_n[done] = n_aln[~ovf]
                 part_ids.append(np.repeat(done, n_aln[~ovf]))

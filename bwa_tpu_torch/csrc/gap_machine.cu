@@ -454,7 +454,7 @@ struct GapArgs {
   uint4 *pool;      // [B, cap] records
   int32_t *aln_m;   // [B, cap_a, 6] mm, go, ge, score, ins, del
   C *aln_kl;        // [B, cap_a, 2]
-  int32_t *n_aln, *n_stk, *done_step, *n_occ;
+  int32_t *n_aln, *n_stk, *done_step, *n_occ, *n_walk;
   int32_t *steps;   // [2]: the longest lane's steps, the next lane
   uint8_t *ovf;
   int lane_smem;    // shared memory bytes a lane
@@ -545,7 +545,7 @@ __global__ void __launch_bounds__(K_THREADS, 16)
   int wi = 0;
   Held<C, WIDE> wm;  // the entry the walk started from
   C best_cnt = 0;
-  int n_aln = 0, done_step = 0, n_occ = 0;
+  int n_aln = 0, done_step = 0, n_occ = 0, n_walk = 0;
   bool ovf = false;
   int32_t *am = nullptr;
   C *akl = nullptr, *wb = nullptr;
@@ -622,6 +622,7 @@ __global__ void __launch_bounds__(K_THREADS, 16)
         a.n_stk[b] = n_stk;
         a.done_step[b] = done_step;
         a.n_occ[b] = n_occ;
+        a.n_walk[b] = n_walk;
         atomicMax(a.steps, steps);
       }
       int nb_ = 0;
@@ -645,7 +646,8 @@ __global__ void __launch_bounds__(K_THREADS, 16)
       lists.reset(nb, w0);
       __syncwarp(gm);
       n_stk = 0; seqc = 1; lo = nb; ft = 0; hw = 0; gfree = -1;
-      steps = 0; n_aln = 0; done_step = 0; n_occ = 0; ovf = false;
+      steps = 0; n_aln = 0; done_step = 0; n_occ = 0; n_walk = 0;
+      ovf = false;
       best_cnt = 0; wk = wl = 0; wi = 0;
       best_score =
           (md + 1) * s_mm + (mg + 1) * s_gapo + (max_gape + 1) * s_gape;
@@ -718,6 +720,7 @@ __global__ void __launch_bounds__(K_THREADS, 16)
       if (walk) {
         // one character of bwt_match_exact_alt (bwt.c:241-256)
         ++n_occ;
+        ++n_walk;
         const int j = wi - 1;
         next = P_RUN;
         if (qc <= 3) {
@@ -989,8 +992,8 @@ int gap_launch(const Fm<C> &fm, const uint8_t *q, int B, int L,
                int cap, int cap_a, int nb, int flags, int wide,
                int32_t *heads, uint32_t *bits, void *pool, int32_t *aln_m,
                void *aln_kl, int32_t *n_aln, int32_t *n_stk,
-               int32_t *done_step, int32_t *n_occ, uint8_t *ovf,
-               int32_t *steps, cudaStream_t s) {
+               int32_t *done_step, int32_t *n_occ, int32_t *n_walk,
+               uint8_t *ovf, int32_t *steps, cudaStream_t s) {
   GapArgs<C> a{fm, q, B, L, qlen, md, mg, seed_en, active,
                (const C *)sb, SL, (C *)wb,
                scal[0], scal[1], scal[2], scal[3], scal[4], scal[5],
@@ -999,7 +1002,7 @@ int gap_launch(const Fm<C> &fm, const uint8_t *q, int B, int L,
                (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
                (flags & 8) != 0,
                heads, bits, (uint4 *)pool, aln_m, (C *)aln_kl,
-               n_aln, n_stk, done_step, n_occ, steps, ovf,
+               n_aln, n_stk, done_step, n_occ, n_walk, steps, ovf,
                lane_smem_bytes(wide != 0, nb)};
   if (!wide && (L > PACK_L || nb > 32 * NBW || scal[3] > PACK_D))
     return (int)cudaErrorInvalidValue;
@@ -1034,8 +1037,9 @@ extern "C" int bwa_cal_width(int coord64, const uint32_t *occtab, int nw,
 // max_del_occ, indel_end_skip, max_top2, seed_len (host array); nb score
 // lists; wide: the wide-record variant, with heads [B, nb] and bits
 // [B, (nb + 31) / 32] (else unused); pool [B, cap] records of 32 bytes
-// (wide: 48 or 64); n_occ [B]: each lane's steps that read an occ4 pair
-// (a bound counts them); steps [2] zeroed: the longest lane's steps and
+// (wide: 48 or 64); n_occ [B]: each lane's steps that read an occ4 pair,
+// n_walk [B]: those of them that walk (one base's count at two ends is
+// all the walk needs; a bound counts both); steps [2] zeroed: the longest lane's steps and
 // the lane counter of the persistent grid
 extern "C" int bwa_gap_machine(
     int coord64, const uint32_t *occtab, int nw, const int64_t *L2,
@@ -1045,8 +1049,8 @@ extern "C" int bwa_gap_machine(
     const uint8_t *active, const int32_t *scal, int max_steps, int cap,
     int cap_a, int nb, int flags, int wide, int32_t *heads, uint32_t *bits,
     void *pool, int32_t *aln_m, void *aln_kl, int32_t *n_aln, int32_t *n_stk,
-    int32_t *done_step, int32_t *n_occ, uint8_t *ovf, int32_t *steps,
-    void *stream) {
+    int32_t *done_step, int32_t *n_occ, int32_t *n_walk, uint8_t *ovf,
+    int32_t *steps, void *stream) {
   if (nw != 8 && nw != 32) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   if (cap < 1 || cap_a < 1 || nb < 1 || L < 1 || SL < 1)
@@ -1057,10 +1061,10 @@ extern "C" int bwa_gap_machine(
                       B, L, qlen, md, mg, seed_en, sb, SL, wb, active, scal,
                       max_steps, cap, cap_a, nb, flags, wide, heads, bits,
                       pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ,
-                      ovf, steps, s);
+                      n_walk, ovf, steps, s);
   return gap_launch(make_fm<int32_t>(occtab, nw, L2, primary, seq_len), q, B,
                     L, qlen, md, mg, seed_en, sb, SL, wb, active, scal,
                     max_steps, cap, cap_a, nb, flags, wide, heads, bits,
-                    pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ, ovf,
-                    steps, s);
+                    pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ,
+                    n_walk, ovf, steps, s);
 }

@@ -87,6 +87,50 @@ class FMIndex:
     def build(cls, fasta_path, prefix=None) -> "FMIndex":
         return cls.load(index_build(fasta_path, prefix))
 
+    @classmethod
+    def build_in_memory(cls, fwd_codes: np.ndarray,
+                        name: str = "ref") -> "FMIndex":
+        """A whole index of one contig from its forward 2-bit codes, with
+        no file written (the dry run's and the tests' small genomes); the
+        dense rank -> position SA rides along as `sad`."""
+        from bwa_tpu_torch.index.build import (SA_INTV, bwt_from_sa,
+                                               occ_checkpoints,
+                                               pack_bwt_words)
+        from bwa_tpu_torch.index.pack import Contig, pack_codes
+        from bwa_tpu_torch.native.build import suffix_array
+
+        fwd = np.ascontiguousarray(fwd_codes, dtype=np.uint8)
+        code2 = np.concatenate([fwd, (3 - fwd)[::-1]])
+        n = code2.shape[0]
+        sa = suffix_array(code2)
+        bwt_str, primary = bwt_from_sa(code2, sa)
+        L2 = np.zeros(5, dtype=np.int64)
+        np.cumsum(np.bincount(code2, minlength=4), out=L2[1:])
+        words_flat = pack_bwt_words(bwt_str)
+        words = np.zeros(((n + 127) // 128, 8), dtype=np.uint32)
+        words.reshape(-1)[: words_flat.shape[0]] = words_flat
+        rows_sa = np.empty(n + 1, dtype=np.int64)
+        rows_sa[0] = n
+        rows_sa[1:] = sa
+        ssa = rows_sa[np.arange((n + SA_INTV) // SA_INTV,
+                                dtype=np.int64) * SA_INTV].copy()
+        ssa[0] = -1
+        cdt = np.int32 if n + 2 < 2**31 else np.int64
+        bnt = Bnt(l_pac=len(fwd), seed=11,
+                  contigs=[Contig(name=name, anno="(null)", offset=0,
+                                  length=len(fwd), n_ambs=0)],
+                  holes=[])
+        pac_full = pack_codes(fwd)
+        pac = np.zeros(len(fwd) // 4 + 1, dtype=np.uint8)
+        pac[: pac_full.shape[0]] = pac_full[: pac.shape[0]]
+        fmi = cls(primary=primary, L2=L2, seq_len=n,
+                  ckpt=occ_checkpoints(bwt_str).astype(cdt), words=words,
+                  sa_intv=SA_INTV, ssa=ssa.astype(cdt), bnt=bnt, pac=pac)
+        sad = rows_sa.astype(cdt, copy=True)
+        sad[0] = -1
+        fmi.__dict__["sad"] = sad
+        return fmi
+
     @cached_property
     def sad(self):
         """Dense rank->position SA (the .sad.npy sidecar) or None."""

@@ -5,8 +5,10 @@ with a plain C interface, at first use, into the repository's
 build/kernels directory (git-ignored), keyed by a hash of the source and
 the shared headers (csrc/*.cuh); all sources compile in parallel.  The
 libraries are loaded with ctypes; pointers and the stream are passed as
-Python ints.  Every entry point launches on PyTorch's current stream,
-allocates nothing, and raises if the launch is refused.
+Python ints.  Every entry point launches on the current stream of its
+tensors' device, under that device (_call: the C side sets kernel
+attributes and reads SM counts and occupancy on the thread's current
+device), allocates nothing, and raises if the launch is refused.
 """
 
 from __future__ import annotations
@@ -115,7 +117,7 @@ def _bind(libs) -> None:
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, vp,
                   vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp,
-                  vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+                  vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -131,6 +133,15 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+def _call(fn, name: str, device, *args) -> None:
+    """fn(*args) with `device` the thread's current device, so that the
+    launch setup and the launch itself happen on the device whose stream
+    the arguments name; raises if the launch was refused."""
+    with torch.cuda.device(device):
+        rc = fn(*args)
+    _check(rc, name)
+
+
 def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
                  hi3, min_seed_len, split_len, split_width, max_intv3, cap,
                  cap_s, use_p3, tagged, seeds, seed_n, ovf, done_step, steps,
@@ -142,7 +153,8 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
     its codes)."""
     lib = build_all()["seed_machine.cu"]
     N, L = q.shape
-    rc = lib.bwa_seed_machine(
+    _call(
+        lib.bwa_seed_machine, "seed_machine", q.device,
         int(seeds.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
         _ptr(L2), int(primary), int(seq_len), _ptr(q),
         N if lanes is None else int(lanes), N, L, _ptr(qlen),
@@ -152,7 +164,6 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
         int(cap_s), int(use_p3), int(tagged), int(cap_r), _ptr(seeds),
         _ptr(seed_n), _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
         None if qctr is None else _ptr(qctr), int(group), _stream(q))
-    _check(rc, "seed_machine")
 
 
 def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:
@@ -160,38 +171,37 @@ def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:
     int32) on the current stream."""
     lib = build_all()["seed_machine.cu"]
     B, L = q.shape
-    rc = lib.bwa_probe_breaks(
-        int(coord64), _ptr(occtab), occtab.shape[1] - 4, _ptr(L2),
-        int(primary), int(seq_len), _ptr(q), B, L, _ptr(out), _stream(q))
-    _check(rc, "probe_breaks")
+    _call(lib.bwa_probe_breaks, "probe_breaks", q.device,
+          int(coord64), _ptr(occtab), occtab.shape[1] - 4, _ptr(L2),
+          int(primary), int(seq_len), _ptr(q), B, L, _ptr(out), _stream(q))
 
 
 SEED_KERNELS = ("K1", "K1 refill", "K8", "empty")
 
 
 def seed_kernel_attrs(kernel: str, coord64: bool, nw: int, cap: int,
-                      L: int) -> dict:
+                      L: int, device=None) -> dict:
     """Registers a thread, static and local bytes, and occupancy (resident
     blocks and warps an SM at the launch's block and dynamic shared memory)
     of a kernel of csrc/seed_machine.cu (SEED_KERNELS) at nw text words a
-    row, stack cap `cap` and reads of L codes."""
+    row, stack cap `cap` and reads of L codes, on `device` (the current
+    one by default)."""
     lib = build_all()["seed_machine.cu"]
     out = (ctypes.c_int32 * 7)()
-    _check(lib.bwa_seed_kernel_attrs(SEED_KERNELS.index(kernel),
-                                     int(coord64), int(nw), int(cap), int(L),
-                                     ctypes.cast(out, ctypes.c_void_p)),
-           "seed_kernel_attrs")
+    _call(lib.bwa_seed_kernel_attrs, "seed_kernel_attrs", device,
+          SEED_KERNELS.index(kernel), int(coord64), int(nw), int(cap),
+          int(L), ctypes.cast(out, ctypes.c_void_p))
     return dict(zip(("registers", "static_shared_bytes", "local_bytes",
                      "block_threads", "dynamic_shared_bytes",
                      "blocks_per_sm", "warps_per_sm"), list(out)))
 
 
-def seed_noop() -> None:
+def seed_noop(device=None) -> None:
     """One launch of csrc/seed_machine.cu's empty kernel on the current
-    stream."""
+    stream of `device` (the current device by default)."""
     lib = build_all()["seed_machine.cu"]
-    _check(lib.bwa_seed_noop(torch.cuda.current_stream().cuda_stream),
-           "seed_noop")
+    _call(lib.bwa_seed_noop, "seed_noop", device,
+          torch.cuda.current_stream(device).cuda_stream)
 
 
 def _mat(mat) -> ctypes.c_void_p:
@@ -214,12 +224,12 @@ def ksw_band(pac, l_pac, qflat, qbase, qdir, qlen, tbase, tdir, tlen, w,
     wide path's (buffer, bytes a problem), or None."""
     lib = build_all()["ksw_band.cu"]
     n = qbase.shape[0]
-    rc = lib.bwa_ksw_band(
+    _call(
+        lib.bwa_ksw_band, "ksw_band", qbase.device,
         _ptr(pac), int(l_pac), _ptr(qflat), qflat.shape[0], _ptr(qbase),
         _ptr(qdir), _ptr(qlen), _ptr(tbase), _ptr(tdir), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
         int(zdrop), int(P), n, *_scratch(scratch), _ptr(out), _stream(qbase))
-    _check(rc, "ksw_band")
 
 
 def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
@@ -228,11 +238,11 @@ def ksw_band_arrays(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins,
     current stream."""
     lib = build_all()["ksw_band.cu"]
     n, Q = qs.shape
-    rc = lib.bwa_ksw_band_arrays(
+    _call(
+        lib.bwa_ksw_band_arrays, "ksw_band_arrays", qs.device,
         _ptr(qs), Q, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
         int(zdrop), int(P), n, *_scratch(scratch), _ptr(out), _stream(qs))
-    _check(rc, "ksw_band_arrays")
 
 
 def ksw_full(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins, e_ins,
@@ -243,12 +253,12 @@ def ksw_full(qs, ts, qlen, tlen, w, h0, mat, o_del, e_del, o_ins, e_ins,
     lib = build_all()["ksw_full.cu"]
     n, QP = qs.shape
     cnt = (ctypes.c_int * len(counts))(*counts)
-    rc = lib.bwa_ksw_full(
+    _call(
+        lib.bwa_ksw_full, "ksw_full", qs.device,
         _ptr(qs), QP, _ptr(ts), ts.shape[1], _ptr(qlen), _ptr(tlen), _ptr(w),
         _ptr(h0), _mat(mat), int(o_del), int(e_del), int(o_ins), int(e_ins),
         int(zdrop), n, _ptr(perm), _ptr(pw), ctypes.cast(cnt, ctypes.c_void_p),
         int(p_wide), *_scratch(scratch), _ptr(out), _stream(qs))
-    _check(rc, "ksw_full")
 
 
 def cal_width(occtab, L2, primary, seq_len, q, out) -> None:
@@ -256,17 +266,17 @@ def cal_width(occtab, L2, primary, seq_len, q, out) -> None:
     coordinates) on the current stream."""
     lib = build_all()["gap_machine.cu"]
     B, L = q.shape
-    rc = lib.bwa_cal_width(
-        int(out.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
-        _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(out),
-        _stream(q))
-    _check(rc, "cal_width")
+    _call(lib.bwa_cal_width, "cal_width", q.device,
+          int(out.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
+          _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(out),
+          _stream(q))
 
 
 def gap_machine(occtab, L2, primary, seq_len, q, qlen, md, mg, seed_en, sb,
                 wb, active, scal, max_steps, cap, cap_a, use_seed, f_gape,
                 f_nonstop, f_loggap, wide, n_lists, heads, bits, pool, aln_m,
-                aln_kl, n_aln, n_stk, done_step, n_occ, ovf, steps) -> None:
+                aln_kl, n_aln, n_stk, done_step, n_occ, n_walk, ovf,
+                steps) -> None:
     """Launch K7 (csrc/gap_machine.cu) on the current stream; scal: the
     ten integer options (host ints); n_lists score lists; the stack
     scratch: pool [B, cap, 8] int32 (a 32-byte record a slot), or with
@@ -278,13 +288,13 @@ def gap_machine(occtab, L2, primary, seq_len, q, qlen, md, mg, seed_en, sb,
     sc = (ctypes.c_int32 * 10)(*scal)
     flags = int(f_gape) | int(f_nonstop) << 1 | int(f_loggap) << 2 \
         | int(use_seed) << 3
-    rc = lib.bwa_gap_machine(
+    _call(
+        lib.bwa_gap_machine, "gap_machine", q.device,
         int(wb.dtype == torch.int64), _ptr(occtab), occtab.shape[1] - 4,
         _ptr(L2), int(primary), int(seq_len), _ptr(q), B, L, _ptr(qlen),
         _ptr(md), _ptr(mg), _ptr(seed_en), _ptr(sb), sb.shape[1], _ptr(wb),
         _ptr(active), ctypes.cast(sc, ctypes.c_void_p), int(max_steps),
         int(cap), int(cap_a), int(n_lists), flags, int(wide), _ptr(heads),
         _ptr(bits), _ptr(pool), _ptr(aln_m), _ptr(aln_kl), _ptr(n_aln),
-        _ptr(n_stk), _ptr(done_step), _ptr(n_occ), _ptr(ovf), _ptr(steps),
-        _stream(q))
-    _check(rc, "gap_machine")
+        _ptr(n_stk), _ptr(done_step), _ptr(n_occ), _ptr(n_walk), _ptr(ovf),
+        _ptr(steps), _stream(q))

@@ -12,7 +12,8 @@ int32 when 2*l_pac+2 < 2^31 and int64 otherwise.
 
 BatchedFMEngine drives the seeding machine (ops/fm_machine.py) for
 mem/batch_seed.py: a CUDA engine launches kernel K1, a CPU engine runs
-its plain version.
+its plain version; an engine on a mesh (parallel/mesh.py) splits each
+batch's lanes over the mesh's devices.
 """
 
 from __future__ import annotations
@@ -480,19 +481,32 @@ def unported_routes() -> None:
 
 class BatchedFMEngine:
     """Batched device engine with the method set mem/batch_seed.py calls,
-    on one device (`mesh` is None: one GPU)."""
+    on one device, or with `mesh` (parallel/mesh.py) over its devices: one
+    index tree a distinct device (`trees`; two shards on one card share
+    its tree), each batch of lanes that the mesh's size divides split
+    over the shards (others run on the first device), and `device` the
+    mesh's first device, where the seed extension and the per-batch
+    tensors of the other routes stay."""
 
-    mesh = None
-
-    def __init__(self, fm: FMIndex, device: str | torch.device = "cuda"):
+    def __init__(self, fm: FMIndex, device: str | torch.device = "cuda",
+                 mesh=None):
         self.fm = fm
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else torch.device(device)
+        devices = mesh.distinct() if mesh is not None else (self.device,)
+        if any(d.type == "cuda" for d in devices) \
+                and not torch.cuda.is_available():
             raise RuntimeError("BatchedFMEngine: CUDA device requested but "
                                "torch.cuda.is_available() is false")
         light = fm.words.shape[0] > (1 << 20)
-        self.dev = DeviceFMIndex(fm, light=light, device=self.device)
-        self.idx = self.dev.tree()
+        self.trees = {}
+        for d in devices:
+            dv = DeviceFMIndex(fm, light=light, device=d)
+            if d == self.device:
+                self.dev = dv
+            self.trees[d] = dv.tree()
+        self.idx = self.trees[self.device]
         self._host = None
 
     @property
@@ -548,9 +562,28 @@ class BatchedFMEngine:
                                shard=None):
         """Upload a bucket and queue the seeding machine + sort on the
         device's current stream without waiting; a CUDA event marks the
-        end.  Pair with collect_seeds_wait; the host is free in between."""
+        end.  On a mesh whose size divides the lanes, each shard's block
+        goes to its own device (parallel/mesh.machine_sharded), with an
+        event a shard.  Pair with collect_seeds_wait; the host is free in
+        between."""
         B, L = q_pad.shape
         split_len, stack_cap, use_p3 = self._consts(opt, L, stack_cap)
+        if self.mesh is not None and B % self.mesh.size == 0:
+            from bwa_tpu_torch.parallel.mesh import guard, machine_sharded
+
+            fn = machine_sharded(
+                self.trees, self.mesh, opt.min_seed_len, split_len,
+                opt.split_width, opt.max_mem_intv, cap=stack_cap,
+                cap_s=cap_s, use_p3=use_p3, tagged=shard is not None)
+            seeds, metas, evs = [], [], []
+            for dev, (sd, seed_n, ovf, ds, st) in zip(
+                    self.mesh.devices,
+                    fn.launch(q_pad, qlen.astype(np.int32), *(shard or ()))):
+                with guard(dev):
+                    seeds.append(sd)
+                    metas.append(_pack_meta(seed_n, ovf, ds, st))
+                    evs.append(self._event(dev))
+            return (seeds, metas, cap_s, evs)
         qd = torch.from_numpy(np.ascontiguousarray(q_pad)).to(self.device)
         qld = torch.from_numpy(qlen.astype(np.int32)).to(self.device)
         seeds, meta = self._run_machine(qd, qld, opt, cap_s, stack_cap,
@@ -628,7 +661,7 @@ class BatchedFMEngine:
         if ev is not None:
             ev.synchronize()
         meta = meta.cpu().numpy()
-        return (self._fetch_seeds(seeds, meta[0], meta[1] != 0, cap_s),
+        return (self._fetch_seeds([seeds], meta[0], meta[1] != 0, cap_s),
                 int(meta[4, 0]))
 
     def collect_seeds_refill(self, q_all, qlen_all, opt, cap_s: int,
@@ -638,20 +671,26 @@ class BatchedFMEngine:
                                                cap_r, lanes, stack_cap)
         return self.collect_seeds_refill_wait(h)
 
-    def _event(self):
-        if self.device.type != "cuda":
+    def _event(self, device=None):
+        device = self.device if device is None else device
+        if device.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(torch.cuda.current_stream(device))
         return ev
 
     def collect_seeds_wait(self, handle):
-        """Blocking half: wait for the dispatch's event, pull the packed
-        small outputs, then the seed rows narrowed to the batch's need."""
+        """Blocking half: wait for the dispatch's event (on a mesh, every
+        shard's), pull the packed small outputs in one copy (a shard),
+        then the seed rows narrowed to the batch's need, joined in shard
+        order."""
         seeds, meta, cap_s, ev = handle
-        if ev is not None:
-            ev.synchronize()
-        meta = meta.cpu().numpy()
+        if not isinstance(seeds, list):  # one device
+            seeds, meta, ev = [seeds], [meta], [ev]
+        for e in ev:
+            if e is not None:
+                e.synchronize()
+        meta = np.concatenate([m.cpu().numpy() for m in meta], axis=1)
         return self._fetch_seeds(seeds, meta[0], meta[1] != 0, cap_s)
 
     def collect_seeds(self, q_pad: np.ndarray, qlen: np.ndarray, opt,
@@ -663,15 +702,16 @@ class BatchedFMEngine:
         return self.collect_seeds_wait(h)
 
     def _fetch_seeds(self, seeds, sn, ovf, cap_s: int):
-        """Seed transfer narrowed to a bucketed max(seed_n); an overflowing
-        lane reports seed_n = cap_s + 1 to force the caller's retry."""
+        """Seed transfer (seeds: one array a shard) narrowed to a bucketed
+        max(seed_n); an overflowing lane reports seed_n = cap_s + 1 to
+        force the caller's retry."""
         m = int(sn.max(initial=0))
         lvl = cap_s
         for cand in (4, 8, 12, 16, 24, 32):
             if m <= cand < cap_s:
                 lvl = cand
                 break
-        sd = seeds[:, :lvl].cpu().numpy()
+        sd = np.concatenate([s[:, :lvl].cpu().numpy() for s in seeds])
         sn = np.where(ovf, cap_s + 1, sn)
         out = (sd[:, :, 0], sd[:, :, 1], sd[:, :, 2],
                sd[:, :, 3].astype(np.int32), sd[:, :, 4].astype(np.int32),

@@ -611,10 +611,10 @@ def refill_group_form(idx, lanes: int, cap: int, L: int) -> bool:
     key = (str(idx["cdt"]), int(idx["occtab"].shape[1] - 4), int(cap),
            int(L), idx["occtab"].device.index)
     if key not in _warp_lanes:
+        dev = idx["occtab"].device
         a = cuda_kernels.seed_kernel_attrs("K1", key[0] == "torch.int64",
-                                           key[1], cap, L)
-        sms = torch.cuda.get_device_properties(
-            idx["occtab"].device).multi_processor_count
+                                           key[1], cap, L, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _warp_lanes[key] = a["warps_per_sm"] * sms
     return lanes >= 2 * _warp_lanes[key]
 

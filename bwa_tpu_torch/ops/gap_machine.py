@@ -218,8 +218,9 @@ def gap_machine(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal, *,
     (an inactive lane ends at once with no hits); scal: the ints named in
     SCALARS.  Returns aln_m [B, cap_a, 6] int32 (mm, go, ge, score, ins,
     del), aln_kl [B, cap_a, 2] coord dtype, n_aln, n_stk, done_step,
-    n_occ [B] int32 (n_occ: the lane's steps that read an occ4 pair, its
-    walk and expansion steps), ovf [B] bool and steps [1] int32 (the
+    n_occ, n_walk [B] int32 (n_occ: the lane's steps that read an occ4
+    pair, its walk and expansion steps; n_walk: its walk steps, which
+    need one base's count), ovf [B] bool and steps [1] int32 (the
     longest lane's).
 
     A CUDA q launches kernel K7, with n_lists stack lists (score_lists of
@@ -288,6 +289,7 @@ def gap_machine_plain(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
     ovf = torch.zeros(B, dtype=torch.bool, device=dev)
     done_step = z(B)
     n_occ = z(B)
+    n_walk = z(B)
     steps = 0
     ar_L = torch.arange(L, device=dev)[None, :]
     jv4 = torch.arange(1, 5, device=dev)[None, :]
@@ -347,6 +349,7 @@ def gap_machine_plain(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
             exact_c = live & ~hit0 & (m == 0)
         exp = live & ~hit0 & ~exact_c
         n_occ = n_occ + (wstep | exp).to(i64)
+        n_walk = n_walk + wstep.to(i64)
 
         # start the exact-match walk next step (bwt.c:241-256)
         wk = W(exact_c, e_k, wk)
@@ -534,7 +537,8 @@ def gap_machine_plain(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
     i32 = torch.int32
     return dict(aln_m=aln_m.to(i32), aln_kl=aln_kl.to(cdt),
                 n_aln=n_aln.to(i32), n_stk=n_stk.to(i32),
-                done_step=done_step.to(i32), n_occ=n_occ.to(i32), ovf=ovf,
+                done_step=done_step.to(i32), n_occ=n_occ.to(i32),
+                n_walk=n_walk.to(i32), ovf=ovf,
                 steps=torch.tensor([steps], dtype=i32, device=dev))
 
 
@@ -627,6 +631,7 @@ def _gap_machine_cuda(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
     n_stk = torch.empty(B, dtype=i32, device=dev)
     done_step = torch.empty(B, dtype=i32, device=dev)
     n_occ = torch.empty(B, dtype=i32, device=dev)
+    n_walk = torch.empty(B, dtype=i32, device=dev)
     ovf = torch.empty(B, dtype=torch.uint8, device=dev)
     steps = torch.zeros(2, dtype=i32, device=dev)  # + the lane counter
     ev = kernel_events is not None
@@ -642,14 +647,15 @@ def _gap_machine_cuda(idx, q, qlen, md, mg, seed_en, sb, wb, active, scal,
         active.to(torch.uint8).contiguous(), [int(x) for x in scal],
         min(int(max_steps), 2**31 - 1), cap, cap_a, bool(use_seed),
         bool(f_gape), bool(f_nonstop), bool(f_loggap), wide, n_lists, heads,
-        bits, pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ, ovf,
-        steps)
+        bits, pool, aln_m, aln_kl, n_aln, n_stk, done_step, n_occ, n_walk,
+        ovf, steps)
     if ev:
         e1.record()
         kernel_events.append((e0, e1))
     launches += 1
     return dict(aln_m=aln_m, aln_kl=aln_kl, n_aln=n_aln, n_stk=n_stk,
-                done_step=done_step, n_occ=n_occ, ovf=ovf.bool(),
+                done_step=done_step, n_occ=n_occ, n_walk=n_walk,
+                ovf=ovf.bool(),
                 steps=steps[:1])
 
 

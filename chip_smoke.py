@@ -100,6 +100,20 @@ Without, in order:
      then main_mem with -K in four chunks or more (SE against
      mem_se_150bp's SAM; PE with -I 350,40 against the one-chunk run with
      -I), printing each chunk's chunk_done_hook time;
+  4e. (run right after 4b) the mesh, every visible card or, with one,
+     two shards on cuda:0 (the log says which), as the CLI's engine
+     (cli._ENGINE_CACHE, where the daemon keeps its own): mem on step 4d's
+     24,576 SE reads and 12,288 pairs (SAM equal to the single-device
+     engine's runs of them in step 4d) and aln with the device search on
+     step 4b's 65,536 reads (.sai equal to step 4b's); each phase's wall,
+     each kernel's launches and event ms a shard; each shard's first K1
+     launch held to the plain version on a lane subset, its first K7
+     launch on 32 lanes and its longest in a host subprocess that step 6
+     waits for; dryrun_multichip on the mesh's size; two
+     `python -m bwa_tpu_torch.parallel.multihost --device cuda` processes
+     over gloo on 127.0.0.1 (rank r on cuda:(r mod cards)) on the SE reads
+     in four --chunk-size batches, host 0's merged SAM equal to one
+     process's (step 4d's), each host's wall;
   5. drives the kernel entry point through bwa_tpu_torch.bench_kernel at
      its three shapes (K2 host-array mode and K5, launches counted), and
      past the widths the first kernels refused (K5 at QP = 6016 with
@@ -1216,7 +1230,7 @@ def k7_steps(out, max_steps):
 
 
 K7_KEYS = ("aln_m", "aln_kl", "n_aln", "n_stk", "ovf", "done_step", "n_occ",
-           "steps")
+           "n_walk", "steps")
 
 
 def plain_kw(kw):
@@ -1253,26 +1267,27 @@ def k7_equal(got, want, full, r):
     return equal, err
 
 
-def start_k7_host_plain(d: Path, rec):
-    """The first launch of the second rung (the lanes that overflowed cap
-    1024, at cap 8192) on 32 of its lanes plus its longest, held to the
-    plain version on the host in a subprocess that sees no card (it takes
-    as many steps as that lane) while the other checks run.  Returns the
-    job for wait_k7_host_plain."""
+def start_k7_host_plain(d: Path, rec, i=None, tag="k7_host"):
+    """Recorded K7 call i (by default the first launch of the second rung,
+    the lanes that overflowed cap 1024, at cap 8192) on 32 of its lanes
+    plus its longest, held to the plain version on the host in a
+    subprocess that sees no card (it takes as many steps as that lane)
+    while the other checks run.  Returns the job for wait_k7_host_plain."""
     import torch
 
-    i = next((i for i, (_, _, k) in enumerate(rec.calls)
-              if k["cap"] != rec.calls[0][2]["cap"]), None)
+    if i is None:
+        i = next((i for i, (_, _, k) in enumerate(rec.calls)
+                  if k["cap"] != rec.calls[0][2]["cap"]), None)
     if i is None:
         fail("no K7 launch of the second rung on the main path")
     ph, args, kw = rec.calls[i]
     full, r, sub, got = k7_subset(args, kw, 32)
     idx = {k: (v.cpu() if torch.is_tensor(v) else v)
            for k, v in args[0].items()}
-    inp, out = d / "k7_host.pt", d / "k7_host_plain.pt"
+    inp, out = d / f"{tag}.pt", d / f"{tag}_plain.pt"
     torch.save(dict(idx=idx, args=[a.cpu() for a in sub[1:9]],
                     scal=sub[9], kw=plain_kw(kw)), inp)
-    err = open(d / "k7_host.log", "w")
+    err = open(d / f"{tag}.log", "w")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
@@ -1315,10 +1330,9 @@ def wait_k7_host_plain(job):
     want = torch.load(out)
     equal, e = k7_equal(got, want, full, r)
     info.update(equal=equal, err=e, plain_host_s=took["s"])
-    log(f"K7 second rung {info}")
+    log(f"K7 call {info}")
     if not equal:
-        fail(f"K7 disagrees with its plain version at the second rung: "
-             f"{info}")
+        fail(f"K7 disagrees with its plain version: {info}")
     return info
 
 
@@ -1340,20 +1354,26 @@ def time_k7(rec, reps=3):
     nw = occ.shape[1] - 4
     lane_steps = int(k7_steps(full, kw["max_steps"]).sum())
     occ_pairs = int(full["n_occ"].sum())
+    walks = int(full["n_walk"].sum())
     longest = int(full["steps"][0])
     # each input read once (the occtab whole) and each output written
-    # once; a step pops and tests an entry (about 40 integer ops), and a
-    # walk or expansion step (n_occ) also looks up an occ4 pair (about 12
-    # ops a text word over nw/2 + 1 words each) and pushes or walks
-    # (about 80 more)
+    # once; a step pops and tests an entry (about 40 integer ops); an
+    # expansion step (n_occ - n_walk) also needs every base's count at both
+    # ends, bwt_2occ4 (the four counts of a word from the hi and lo bit
+    # planes: mask, shift, two ands, three popcounts, three adds, about 12
+    # ops a text word over nw/2 + 1 words each), a walk step (n_walk) one
+    # base's, bwt_2occ in bwt_match_exact_alt (5 ops a word); either then
+    # pushes or walks (about 80 more)
     nbytes = tensor_bytes(occ, *args[1:9], *full.values())
-    ops = lane_steps * 40 + occ_pairs * (2 * 12 * (nw / 2 + 1) + 80)
+    ops = lane_steps * 40 + (occ_pairs - walks) * (2 * 12 * (nw / 2 + 1)
+                                                   + 80) \
+        + walks * (2 * 5 * (nw / 2 + 1) + 80)
     res = dict(phase=ph, ms=ms, plain_ms=plain_ms, equal=bool(equal),
                err=err, shape=f"B={args[1].shape[0]} L={args[1].shape[1]} "
                               f"cap={kw['cap']} cap_a={kw['cap_a']}",
                plain_shape=f"{len(r)} of the launch's lanes",
                lane_steps=lane_steps, occ_pair_steps=occ_pairs,
-               longest_lane_steps=longest,
+               walk_steps=walks, longest_lane_steps=longest,
                checked_lanes_steps=int(got["steps"][0]),
                ns_per_step=per_unit(ms, longest), bytes=int(nbytes),
                ops=float(ops),
@@ -1422,11 +1442,12 @@ def time_k7w(rec, reps=5):
     pos = q.numel()
     good = int((q < 4).sum())
     # the occtab, the codes and the table, each once; a position: about
-    # 12 ops, and a base (code < 4; padding and N reset the interval) an
-    # occ4 pair as well (about 12 ops a text word over nw/2 + 1 words each)
+    # 12 ops, and a base (code < 4; padding and N reset the interval) the
+    # count of that one base at k - 1 and at l as well, bwt_2occ (5 ops a
+    # text word over nw/2 + 1 words each)
     nbytes = tensor_bytes(occ, q) + pos * 2 * \
         (8 if idx["cdt"] == torch.int64 else 4)
-    ops = pos * 12 + good * 2 * 12 * (nw / 2 + 1)
+    ops = pos * 12 + good * 2 * 5 * (nw / 2 + 1)
     res = dict(ms=ms, plain_ms=plain_ms, equal=True, err=err,
                shape=f"B={q.shape[0]} L={q.shape[1]}", bytes=int(nbytes),
                ops=float(ops), occ_pair_positions=good, calls=checked)
@@ -1728,8 +1749,11 @@ def k1_equal(got, want):
 def k1_work(args, seeds, done_step):
     """(bytes, integer ops, lane steps) a bound counts for a K1 call: each
     input and output once; per lane step (done_step: each lane's steps, as
-    this run's data took them) two occ4 lookups scanning on average
-    nw/2 + 1 words at ~12 integer ops a word, plus ~64 ops of state
+    this run's data took them) what the step's function needs: it extends
+    one entry by one base (bwt_extend's count of that base and of the bases
+    above it, at both ends: two masks at 5 integer ops a mask and text
+    word, xor, shift, and, popcount, add, over nw/2 + 1 words on average,
+    as refill_work counts the refill mode's step), plus ~64 ops of state
     update."""
     import torch
 
@@ -1740,7 +1764,7 @@ def k1_work(args, seeds, done_step):
     nbytes = (occ.numel() * 4 + q.numel() + nv.numel() * 4
               + q.shape[0] * 4 * 4 + seeds.numel() * seeds.element_size()
               + q.shape[0] * 9)
-    return nbytes, steps * (2 * 12 * (nw / 2 + 1) + 64), steps
+    return nbytes, steps * (2 * 2 * 5 * (nw / 2 + 1) + 64), steps
 
 
 def k1_first_launch(rec, phase, count=256):
@@ -2460,6 +2484,255 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
         print(json.dumps(ph), flush=True)
     print(json.dumps(dict(k1_longest_lane_steps=steps)), flush=True)
     return list(info.values()) + pipes, k8, k1r, k1r_pending
+
+
+# --------------------------------------------------------------------------
+# 4e. the mesh (every card, or two shards on one) and two hosts
+# --------------------------------------------------------------------------
+
+# step 4d's and 4b's inputs and the single-device engine's outputs of them
+MESH_RUNS = (("mesh_mem_se", ("mem_se_tripsort_off.fq",),
+              "mem_se_tripsort_off.out"),
+             ("mesh_mem_pe", ("mem_pe_tripsort_off.fq",
+                              "mem_pe_tripsort_off_2.fq"),
+              "mem_pe_tripsort_off.out"),
+             ("mesh_aln_se", ("aln_se_100bp.fq",), "aln_se_100bp.sai"))
+# --chunk-size of the two hosts: the 24,576 x 150 bp reads in four batches
+HOST_CHUNK = 24576 * 150 // 4
+
+
+def the_mesh():
+    """Every visible card when there are two or more, else two shards on
+    cuda:0: (mesh, how it was chosen)."""
+    import torch
+
+    from bwa_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh(), f"every visible card ({n})"
+    return make_mesh(devices=["cuda:0", "cuda:0"]), \
+        "two shards on cuda:0 (one card visible)"
+
+
+def per_shard(rec, shard_of, phase, n, every=True):
+    """A recorder's calls in `phase` by shard (shard_of: call index ->
+    shard; "one" for a launch outside a sharded step): launches and
+    summed event ms; with every, each of the n shards must have
+    launched."""
+    out = {}
+    for i, (ph, _, _) in enumerate(rec.calls):
+        if ph != phase:
+            continue
+        row = out.setdefault(shard_of.get(i, "one"),
+                             dict(launches=0, event_ms=0.0))
+        row["launches"] += 1
+        row["event_ms"] += rec.call_ms.get(i, 0.0)
+    if every and sorted(k for k in out if k != "one") != list(range(n)):
+        fail(f"{phase}: launches by shard {out}: not every shard launched")
+    return out
+
+
+def shard_marks(recs: dict, cls):
+    """Wrap cls.launch (a sharded step of parallel/mesh.py, which calls
+    its kernel's wrapper once a shard, in shard order) so that the
+    recorders' calls it makes are marked with their shard: returns
+    ({recorder name: {call index: shard}}, a function that restores
+    cls.launch)."""
+    real = cls.launch
+    marks = {k: {} for k in recs}
+
+    def launch(self, *args, **kw):
+        first = {k: len(r.calls) for k, r in recs.items()}
+        out = real(self, *args, **kw)
+        for k, r in recs.items():
+            for s, i in enumerate(range(first[k], len(r.calls))):
+                marks[k][i] = s
+        return out
+
+    cls.launch = launch
+    return marks, lambda: setattr(cls, "launch", real)
+
+
+def start_hosts(d: Path, prefix: str, fq: Path):
+    """Two `python -m bwa_tpu_torch.parallel.multihost --device cuda`
+    processes over gloo on 127.0.0.1 (rank r on cuda:(r mod cards)), the
+    reads in four --chunk-size batches, host 0 merging: [(process, log, a
+    dict that a waiter thread fills with its wall)], and the merged
+    file's path."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    shards, merged = d / "hosts", d / "hosts_merged.sam"
+    shutil.rmtree(shards, ignore_errors=True)
+    merged.unlink(missing_ok=True)
+    procs = []
+    for rank in range(2):
+        err = open(d / f"host{rank}.log", "w")
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                   OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bwa_tpu_torch.parallel.multihost",
+             prefix, str(fq), "--shard-dir", str(shards), "--device", "cuda",
+             "--chunk-size", str(HOST_CHUNK)]
+            + (["--out", str(merged)] if rank == 0 else []),
+            cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT)
+        took = {}
+        threading.Thread(target=lambda p=proc, t=took, t0=t0: t.setdefault(
+            "s", (p.wait(), time.perf_counter() - t0)[1]),
+            daemon=True).start()
+        procs.append((proc, err, took))
+    return procs, merged
+
+
+def wait_hosts(procs, merged: Path, want: str, timeout=300) -> list:
+    """Each host's wall; host 0's merged file against `want`."""
+    walls = []
+    for rank, (proc, err, took) in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        err.close()
+        if rc != 0:
+            fail(f"multihost rank {rank} exited {rc} (see {err.name})")
+        while "s" not in took:
+            time.sleep(0.01)
+        walls.append(took["s"])
+    got = merged.read_text()
+    if got != records_of(want):
+        fail(f"two hosts: the merged SAM differs from one process's "
+             f"({records_differ(got, want)})")
+    return walls
+
+
+def mesh_phases(d: Path, prefix: str, bg: list):
+    """Step 4e: the mesh (every visible card, or two shards on cuda:0) as
+    the CLI's engine (cli._ENGINE_CACHE, where the daemon keeps its own):
+    mem on step 4d's 24,576 SE reads and 12,288 pairs, SAM equal to the
+    single-device engine's runs of step 4d; aln on step 4b's 65,536 reads
+    with the device search, .sai equal to step 4b's (the single-device
+    engine's, equal to the native search's); each shard's first K1 launch
+    held to the plain version on a lane subset here, its first K7 launch
+    in a host subprocess (returned, for step 6); the dry run
+    (dryrun_multichip) on the mesh's size; two multihost processes on the
+    SE reads, host 0's merged SAM equal to one process's (their processes
+    go into bg, which the caller stops on any exit).  Returns (the phases,
+    the K1 checks, the K7 jobs)."""
+    import torch
+
+    from bwa_tpu_torch import cli
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.ops import fm_machine, gap_machine
+    from bwa_tpu_torch.parallel import mesh as mesh_mod
+    from bwa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_all = time.perf_counter()
+    mesh, how = the_mesh()
+    n = mesh.size
+    log(f"step 4e: the mesh is {how}: {mesh}")
+    # the hosts first: their processes start while the mesh runs here
+    want_se = (d / MESH_RUNS[0][2]).read_text()
+    hosts, merged = start_hosts(d, prefix, d / MESH_RUNS[0][1][0])
+    bg += hosts
+    t0 = time.perf_counter()
+    fm = FMIndex.load(prefix)
+    engine = make_engine(fm, "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    recs = {"K1": Recorder(fm_machine, "seed_machine"),
+            "K7": Recorder(gap_machine, "gap_machine"),
+            "K7w": Recorder(gap_machine, "cal_width")}
+    # each call's shard: K1's from the sharded seeding step, K7's from the
+    # sharded search (K7w runs once a chunk on the first device)
+    k1_shard, undo_k1 = shard_marks({"K1": recs["K1"]},
+                                    mesh_mod.ShardedMachine)
+    k7_shard, undo_k7 = shard_marks({"K7": recs["K7"]},
+                                    mesh_mod.ShardedGap)
+    shard_of = {**k1_shard, **k7_shard, "K7w": {}}
+    key = os.path.realpath(prefix)
+    phases = []
+    try:
+        cli._ENGINE_CACHE[key] = (fm, engine, "cuda")
+        for name, fqs, ref in MESH_RUNS:
+            for r in recs.values():
+                r.events = []
+                r.phase = name
+            zero_launches()
+            paths = [d / f for f in fqs]
+            if name.startswith("mesh_aln"):
+                out, dt = run_aln(prefix, paths[0], True)
+                if out != (d / ref).read_bytes():
+                    fail(f"{name}: the mesh's .sai differs from the "
+                         f"single-device engine's")
+            else:
+                out, dt = run_mem(prefix, paths, [])
+                same_sam(name, out, (d / ref).read_text(),
+                         "the single-device engine's")
+            info = dict(phase=name, mesh=str(mesh), seconds=dt,
+                        launches=read_launches(),
+                        kernel_event_ms={k: r.take_ms()
+                                         for k, r in recs.items()},
+                        equal_single_device=True)
+            for k, r in recs.items():
+                if any(ph == name for ph, _, _ in r.calls):
+                    info[f"{k}_by_shard"] = per_shard(r, shard_of[k], name,
+                                                      n, k != "K7w")
+            need = ("K7", "K7w") if name.startswith("mesh_aln") else ("K1",)
+            for k in need:
+                if info["launches"][k] < 1:
+                    fail(f"{name}: kernel {k} was not launched")
+            log(f"{name} {info}")
+            phases.append(info)
+    finally:
+        cli._ENGINE_CACHE.pop(key, None)
+        undo_k1()
+        undo_k7()
+        for r in recs.values():
+            r.restore()
+    # each shard's first K1 launch on a lane subset against the plain
+    # version here, its first K7 launch in a host subprocess
+    t0 = time.perf_counter()
+    checks, k7_jobs = [], []
+    for s in range(n):
+        i = next(j for j, (ph, _, _) in enumerate(recs["K1"].calls)
+                 if ph == "mesh_mem_se" and k1_shard["K1"].get(j) == s)
+        _, args, kw = recs["K1"].calls[i]
+        got, want, info = k1_subset(args, kw, longest=False)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        checks.append(dict(kernel="K1", shard=s, call=i, equal=ok, **info))
+        if not ok:
+            fail(f"K1 disagrees with its plain version at shard {s}: {info}")
+        i = next(j for j, (ph, _, _) in enumerate(recs["K7"].calls)
+                 if ph == "mesh_aln_se" and k7_shard["K7"].get(j) == s)
+        k7_jobs.append(start_k7_host_plain(d, recs["K7"], i,
+                                           f"k7_host_shard{s}"))
+    check_s = time.perf_counter() - t0
+    log(f"step 4e: K1 shards checked {checks}")
+    # the dry run on the mesh's size
+    zero_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(n, "cuda")
+    torch.cuda.synchronize()
+    phases.append(dict(phase="mesh_dryrun", shards=n,
+                       seconds=time.perf_counter() - t0,
+                       launches=read_launches()))
+    log(f"mesh_dryrun {phases[-1]}")
+    walls = wait_hosts(hosts, merged, want_se)
+    phases.append(dict(phase="two_hosts", chunk_size=HOST_CHUNK,
+                       host_walls=walls, merged_equal_one_process=True))
+    log(f"two_hosts {phases[-1]}")
+    for ph in phases:
+        print(json.dumps(ph), flush=True)
+    log(f"step 4e: {time.perf_counter() - t_all:.1f} s in all (engine "
+        f"{setup_s:.1f} s, K1 checks {check_s:.1f} s)")
+    return phases, checks, k7_jobs
 
 
 # --------------------------------------------------------------------------
@@ -3207,6 +3480,7 @@ def main(argv) -> int:
               ("mem_pacbio", pacbio, None, ["-x", "pacbio"]),
               ("mem_pe_150bp", pe1, pe2, []))
     cpu, host, host5, ladder, k7_host, refill = {}, [], [], [], [], []
+    hosts = []  # step 4e's multihost processes
     try:
         ladder.append(start_aln_ladder(d, str(fa), aln_se[:LADDER_READS]))
         for ph, reads, _, extra in phases[:2]:
@@ -3318,6 +3592,11 @@ def main(argv) -> int:
         log(f"aln phases done in {time.perf_counter() - t0:.1f} s")
         k7_host.append(start_k7_host_plain(d, arecs["K7"]))
 
+        # 4e. the mesh as the CLI's engine (step 4d's and 4b's inputs
+        # against their single-device outputs), the dry run, two hosts
+        mesh_ph, mesh_k1, mesh_k7 = mesh_phases(d, str(fa), hosts)
+        k7_host += mesh_k7
+
         # 4c. the resident daemon on the card, serving the smoke's own
         # inputs through both clients; then shm
         t0 = time.perf_counter()
@@ -3368,6 +3647,9 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         k7 = time_k7(arecs["K7"])
         k7["second_rung"] = wait_k7_host_plain(k7_host[0])
+        k7["mesh_shard_checks"] = [wait_k7_host_plain(j)
+                                   for j in k7_host[1:]]
+        k1["mesh_shard_checks"] = mesh_k1
         k7["design"] = K7_DESIGN
         k7w = time_k7w(arecs["K7w"])
         k7w["design"] = K7W_DESIGN
@@ -3407,7 +3689,7 @@ def main(argv) -> int:
             print(json.dumps(ph), flush=True)
     finally:
         for proc, err, *_ in [*cpu.values(), *host, *host5, *ladder,
-                              *k7_host, *refill]:
+                              *k7_host, *refill, *hosts]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -3415,6 +3697,8 @@ def main(argv) -> int:
 
     mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases,
              *route_phases)
+    # step 4e's runs on the mesh engine (and the dry run's)
+    mesh_mains = tuple(p for p in mesh_ph if "launches" in p)
     # the warp form of the refill mode is K1's kernel; the group form its own
     for k, name in ((k1, "K1"), (k1r["warp"], "K1"),
                     (k1r["group"], "K1 refill"), (k8, "K8")):
@@ -3467,9 +3751,11 @@ def main(argv) -> int:
              "bwa_tpu/ops/gap_machine.py:100", k7w, None,
              (phase_aln_se, phase_aln_pe), k7w["calls"])):
         b_ms, b_by = bound(k["bytes"], k["ops"])
+        on_mesh = sum(count[name](p["launches"]) for p in mesh_mains)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
-            launches=sum(count[name](p["launches"]) for p in n),
+            launches=sum(count[name](p["launches"]) for p in n) + on_mesh,
+            mesh_launches=on_mesh,
             # the daemon's own launches in step 4c (its wrappers' counts)
             daemon_launches=sum(count[name](r["launches"])
                                 for r in phase_daemon["requests"]),
@@ -3480,6 +3766,8 @@ def main(argv) -> int:
             plain_shape=k.get("plain_shape"),
             entry_shapes=k.get("shapes"),
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
+                                       "occ_pair_steps", "walk_steps",
+                                       "occ_pair_positions",
                                        "overflow_lanes",
                                        "longest_lane_steps", "ns_per_step",
                                        "extending_positions",
@@ -3492,7 +3780,8 @@ def main(argv) -> int:
                                     "launches_on_main_path",
                                     "main_path_checks", "small_check",
                                     "one_read_lanes", "design", "int64",
-                                    "attrs") if kk in k},
+                                    "attrs", "mesh_shard_checks")
+               if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
                 if e["kernel"] == ("K5" if k is k5 else "K2 host-array")]}
@@ -3501,7 +3790,7 @@ def main(argv) -> int:
         build_seconds=build_s,
         launches_per_phase={p["phase"]: p["launches"]
                             for p in (*mains, phase_entry, phase_aln_se,
-                                      phase_aln_pe)},
+                                      phase_aln_pe, *mesh_mains)},
         pe_first256=pe_info,
         total_seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

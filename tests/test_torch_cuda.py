@@ -800,7 +800,7 @@ def _k7_vs_plain(tt, codes, cap, cap_a, max_steps, flags, **opt_kw):
     assert (gm.launches, gm.width_launches) == (k0 + 1, w0 + 2)
     want = gm.gap_machine_plain(*args, **kw)
     for k in ("aln_m", "aln_kl", "n_aln", "n_stk", "ovf", "done_step",
-              "n_occ", "steps"):
+              "n_occ", "n_walk", "steps"):
         assert got[k].dtype == want[k].dtype, k
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
     return {k: v.cpu() for k, v in got.items()}
@@ -948,6 +948,201 @@ def test_k7_refused_launch_raises(aln_reads):
         cuda_kernels.gap_machine(
             tt["occtab"], tt["L2"].long(), tt["primary"], tt["seq_len"], q,
             z, z, z, u, wb, wb.clone(), u, [1] * 10, 10, 0, 1, False, False,
-            False, False, False, 4, z, z, z, z, wb, z, z, z, z, u, z)
+            False, False, False, 4, z, z, z, z, wb, z, z, z, z, z, u, z)
     assert gm.launches == n0
     _k7_vs_plain(tt, codes[:8], 64, 32, 200000, 0x9)
+
+
+# ------------------------------------------------- the mesh; a second card
+
+def _k7_args(tt, codes, dev):
+    """K7's arguments for `codes` (default options, every lane live) on
+    dev, its width tables made by K7w there."""
+    import types
+
+    from bwa_tpu_torch.aln.batch_search import _prep_chunk
+    from bwa_tpu_torch.aln.opts import GapOpt
+    from bwa_tpu_torch.ops import gap_machine as gm
+
+    opt = GapOpt()
+    lens = np.array([len(c) for c in codes], np.int32)
+    off = np.zeros(len(codes) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    pk = types.SimpleNamespace(n=len(codes), lens=lens, codes_off=off,
+                               codes_flat=np.concatenate(codes))
+    _, md, mg, orig, qc, seed_en, use_seed, swin, _ = _prep_chunk(pk, opt)
+    d = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        qc=qc, orig=orig, lens=lens, md=md, mg=mg, seed_en=seed_en,
+        swin=swin).items()}
+    wb = gm.cal_width(tt, d["orig"])
+    sb = gm.cal_width(tt, d["swin"])
+    live = torch.ones(len(codes), dtype=torch.bool, device=dev)
+    scal = tuple(getattr(opt, k) for k in gm.SCALARS)
+    return (d["qc"], d["lens"], d["md"], d["mg"], d["seed_en"], sb, wb,
+            live, scal), dict(cap=64, cap_a=32, use_seed=use_seed,
+                              f_gape=True, f_nonstop=False, f_loggap=False)
+
+
+def _k1_consts():
+    from bwa_tpu_torch.options import MemOptions
+
+    o = MemOptions()
+    return (o.min_seed_len, int(o.min_seed_len * o.split_factor + 0.499),
+            o.split_width, o.max_mem_intv)
+
+
+def _pe_reads(n_pairs):
+    g = random_genome(150_000, seed=41, n_contigs=2)
+    r1, r2 = simulate_reads(g, n_pairs, read_len=150, seed=12, paired=True)
+    return [r for pair in zip(r1, r2) for r in pair]
+
+
+@pytest.mark.requires_cuda
+def test_mesh_two_shards_on_one_card_match_single_engine(world, aln_reads):
+    """A mesh of two shards on cuda:0 (one index tree) against the single
+    engine: K1's outputs through machine_sharded (a launch a shard), K7's
+    through gap_machine_sharded, SE and PE SAM bytes and aln .sai bytes."""
+    import io
+    import types
+
+    from bwa_tpu_torch.aln.batch_search import aln_batch_device
+    from bwa_tpu_torch.aln.opts import GapOpt
+    from bwa_tpu_torch.aln.sai import SaiWriter
+    from bwa_tpu_torch.engine import make_engine
+    from bwa_tpu_torch.mem.pipeline import process_seqs
+    from bwa_tpu_torch.mem.types import Read
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops import gap_machine as gm
+    from bwa_tpu_torch.ops.fm import BatchedFMEngine, _next_valid_device
+    from bwa_tpu_torch.options import MEM_F_PE, MemOptions
+    from bwa_tpu_torch.parallel.mesh import (gap_machine_sharded,
+                                             machine_sharded, make_mesh)
+
+    fm = world["fm"]
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    em = make_engine(fm, "cuda", mesh=mesh)
+    e1 = BatchedFMEngine(fm, device="cuda:0")
+    assert em.mesh is mesh and list(em.trees) == [torch.device("cuda", 0)]
+    # K1
+    q, ql, _ = _lanes(world, "pack2")
+    consts = _k1_consts()
+    kw = dict(cap=16, cap_s=48, use_p3=True)
+    qd, qld = torch.from_numpy(q).cuda(), torch.from_numpy(ql).cuda()
+    s, n, st, o, ds = fmm.seed_machine(e1.idx, qd, qld,
+                                       _next_valid_device(qd, qld), *consts,
+                                       **kw)
+    n0 = fmm.launches
+    got = machine_sharded(em.trees, mesh, *consts, tagged=False, **kw)(q, ql)
+    assert fmm.launches == n0 + 2
+    for g, w in zip(got[:4], (fmm.sort_seeds(s, n, False), n, o, ds)):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert got[4] == int(st)
+    # K7 on the R = 1 tree
+    fm7, codes = aln_reads
+    tt = _tree(fm7, "int32")
+    args, flags = _k7_args(tt, codes, "cuda")
+    want = gm.gap_machine(tt, *args, max_steps=200000, **flags)
+    k0 = gm.launches
+    got = gap_machine_sharded(mesh, **flags)(
+        {torch.device("cuda", 0): tt}, *args, max_steps=200000)
+    assert gm.launches == k0 + 2
+    for k in ("aln_m", "aln_kl", "n_aln", "n_stk", "ovf", "done_step",
+              "n_occ", "n_walk", "steps"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+    # SAM, SE and PE
+    g = random_genome(150_000, seed=41, n_contigs=2)
+    for rs, pe in ((simulate_reads(g, 128, read_len=150, seed=11), False),
+                   (_pe_reads(64), True)):
+        sams = []
+        for eng in (em, e1):
+            opt = MemOptions()
+            if pe:
+                opt.flag |= MEM_F_PE
+            reads = [Read(name=a, seq=b, qual=c) for a, b, c in rs]
+            process_seqs(opt, eng, fm, reads, 0, None, None)
+            sams.append("".join(r.sam for r in reads))
+        assert sams[0] == sams[1] and sams[0].count("\n") >= len(rs)
+    # aln .sai
+    lens = np.array([len(c) for c in codes], np.int32)
+    pk = types.SimpleNamespace(
+        n=len(codes), lens=lens, codes_flat=np.concatenate(codes),
+        codes_off=np.concatenate([[0], np.cumsum(lens)]).astype(np.int64))
+    sai = []
+    for eng in (em, e1):
+        out_n, rows = aln_batch_device(fm7, eng, pk, GapOpt())
+        b = io.BytesIO()
+        SaiWriter(b, GapOpt()).write_batch_raw(out_n, rows)
+        sai.append(b.getvalue())
+    assert sai[0] == sai[1] and len(sai[0]) > 0
+
+
+def _every_kernel(world, aln_reads, dev):
+    """K1, K8, K2 (gather mode on the warp and the wide path, host-array
+    mode), K5, K7w and K7, each launched once on dev: their outputs on the
+    host."""
+    from bwa_tpu_torch.bench_kernel import ragged_problems
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops import gap_machine as gm
+    from bwa_tpu_torch.ops import ksw_band, ksw_full
+    from bwa_tpu_torch.ops.fm import _next_valid_device
+    from bwa_tpu_torch.ops.ksw_pallas import device_rows
+
+    out = {}
+    tt = DeviceFMIndex(world["fm"], device=dev, occ_r=4).tree()
+    q, ql, _ = _lanes(world, "pack2")
+    qd, qld = torch.from_numpy(q).to(dev), torch.from_numpy(ql).to(dev)
+    k1 = fmm.seed_machine(tt, qd, qld, _next_valid_device(qd, qld),
+                          *_k1_consts(), cap=16, cap_s=48, use_p3=True)
+    for name, t in zip(("seeds", "seed_n", "steps", "ovf", "done_step"), k1):
+        out[f"K1 {name}"] = t.cpu()
+    pq, pql = _probe_rows(world)
+    out["K8"] = fm_ops.probe_breaks(tt, torch.from_numpy(pq).to(dev),
+                                    torch.from_numpy(pql).to(dev)).cpu()
+    mat = np.full((5, 5), -4, np.int64)
+    np.fill_diagonal(mat, 1)
+    mat[4, :] = mat[:, 4] = -1
+    for P in (256, 1280):
+        pac, qflat, cols, qs, ts = _k2_problems(P + 5, 5, P, "random")
+        d = lambda a, dt=torch.int64: torch.as_tensor(  # noqa: E731
+            a, dtype=dt, device=dev)
+        rest = (mat, 6, 1, 6, 1, 100, P)
+        out[f"K2 P={P}"] = ksw_band.ksw_band_side(
+            d(pac, torch.uint8), 20_000, d(qflat, torch.uint8),
+            *(d(cols[k]) for k in ("qbase", "qdir", "qlen", "tbase", "tdir",
+                                   "tlen", "w", "h0")), *rest).cpu()
+        out[f"K2 host-array P={P}"] = ksw_band.ksw_band_arrays(
+            d(qs, torch.uint8), d(ts, torch.uint8),
+            *(d(cols[k], torch.int32) for k in ("qlen", "tlen", "w", "h0")),
+            *rest).cpu()
+    qs, qlens, ts, tlens, kmat, ws, h0s = ragged_problems(1, 37, 80, 150,
+                                                          120)
+    rows = device_rows(qs, qlens, ts, tlens, kmat, 6, 1, 6, 1, ws, 5, h0s,
+                       128, dev)
+    out["K5"] = ksw_full.ksw_full(*rows, kmat, 6, 1, 6, 1, 100).cpu()
+    fm7, codes = aln_reads
+    t7 = DeviceFMIndex(fm7, device=dev, occ_r=1).tree()
+    args, flags = _k7_args(t7, codes, dev)
+    out["K7w"] = args[6].cpu()
+    k7 = gm.gap_machine(t7, *args, max_steps=200000, **flags)
+    out.update({f"K7 {k}": v.cpu() for k, v in k7.items()})
+    torch.cuda.synchronize(dev)
+    return out
+
+
+@pytest.mark.requires_cuda
+def test_kernels_on_second_card_match_first(world, aln_reads):
+    """The device guard's witness on a host with two cards or more: every
+    kernel launched on cuda:1 while cuda:0 is the current device equals
+    the same launch on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    res = []
+    for i in (0, 1):
+        with torch.cuda.device(0):
+            res.append(_every_kernel(world, aln_reads,
+                                     torch.device("cuda", i)))
+    assert res[0].keys() == res[1].keys()
+    for k, v in res[0].items():
+        assert torch.equal(v, res[1][k]), k
