@@ -30,7 +30,8 @@
 //     between the halves finish bwt_extend.  In a forward step every group
 //     does the same lookup, so the result is uniform without a broadcast.
 //  3. A backward row in parallel.  The pn entries of row i are extended by
-//     the same base at once, 32/G a round.  What depends on order comes
+//     the same base at once, 32/G a round (the occ lookup of fm_occ.cuh,
+//     shared with csrc/smem_batch.cu).  What depends on order comes
 //     from ballots over the entries, in the plain version's order: an entry
 //     is pushed if it is not kept and no earlier entry of the row is unkept
 //     or its size differs from the nearest earlier unkept entry's; a push of
@@ -58,6 +59,21 @@
 //     below twice the lanes resident at once; from there it runs on
 //     seed_refill_kernel below, a group of 2R threads a lane (the caller
 //     chooses: ops/fm_machine.py::refill_group_form).
+//  8. State mode (SEG, bwa_seed_state), the same code: each lane's warp
+//     loads its machine state -- the plain version's per-lane fields and
+//     both stacks; the seed store and its qualification bits are updated in
+//     place -- runs it, and stores it back, so a later launch resumes it.
+//     A stage range (the stage a lane starts in is its state's; last_stage
+//     ends it) runs one pass alone: the JAX package's split route,
+//     fm_machine.py:93 smem_machine (pass 1, or pass 2 from a fixed job
+//     table, as its tables are fixed at entry) and :733 seed3_machine
+//     (K12).  A step budget (steps_in + max_steps, in the plain machine's
+//     steps, which K1 already counts) ends a segment at the plain
+//     version's step, inside a backward row if that is where it falls:
+//     the row resumes at entry j with the target stack's count and last
+//     pushed size, from which the row's rules follow (K13, the tail
+//     compaction of bwa_tpu/ops/fm.py:903-982).  The state is int64, as
+//     the plain version's: state and seeds cost 8 bytes a field each way.
 //
 // Kernels of the same source, on the same occtab through a group lookup of
 // their own (glookup below): K1's retire-and-refill mode (seed_refill_kernel)
@@ -69,14 +85,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "fm_occ.cuh"
+
 namespace {
 
 constexpr int P_NEXT = 0, P_FWD = 1, P_BWD = 2, P_DONE = 3;
 constexpr int S_P1 = 0, S_P2 = 1, S_P3 = 2;
-constexpr uint32_t M55 = 0x55555555u;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // lanes (warps) a block
-constexpr int WPT = 8;    // occtab words a thread reads for one lookup
+// the state mode's per-lane fields, rows of a [SEG_NF, B] int64 tensor in
+// ops/fm_machine.py::SEG_FIELDS's order
+constexpr int SEG_NF = 23;
 
 template <typename C>
 struct SeedArgs {
@@ -89,88 +109,33 @@ struct SeedArgs {
   int min_seed_len, split_len;
   int64_t split_width, max_intv3;
   int cap, cap_s, use_p3, tagged, cap_r;
-  C *seeds;                // [B, cap_s, 5|6]
+  void *seeds;             // [B, cap_s, 5|6] coordinates (int64: state mode)
   int32_t *seed_n, *done_step, *steps;
   uint8_t *ovf;
   uint8_t *qmask;          // [B, cap_s] scratch
   int32_t *qctr;           // refill mode's queue cursor, else null
+  // the state mode (K12, K13): the stage a lane ends with, a fixed pass-2
+  // job table, the per-lane fields and stacks loaded and stored, the run's
+  // steps before the launch and the launch's step budget
+  int last_stage;
+  const int64_t *jobs;     // [B, cap_s, 5], or null: the live seed store
+  int64_t *lanes;          // [SEG_NF, B]
+  int64_t *stk;            // [B, 2, cap, 4]
+  const int32_t *steps_in;
+  int64_t max_steps;
 };
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// v[c] for a c known only at run time, by selects (no local memory)
-template <typename C>
-__device__ __forceinline__ C pick(const C v[5], int c) {
-  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : c == 3 ? v[3] : v[4];
-}
-
-// bwt_extend's counting half for one interval and base c, by a group of
-// G = 2H threads (gl: thread in the group).  Threads [0, H) count B[0..k1],
-// threads [H, 2H) B[0..k2] (bwt_occ4, bwt.c:169-186; k == -1 gives zeros,
-// k == seq_len the L2 differences).  Every thread of the group leaves with
-//   nb = L2[c] + 1 + occ(k1)[c],  sz = occ(k2)[c] - occ(k1)[c],
-//   above = sum over c' > c of occ(k2)[c'] - occ(k1)[c'].
-template <typename C, int NW>
-__device__ __forceinline__ void extend_c(const SeedArgs<C> &a, const C L2[5],
-                                         C k1, C k2, int gl, int c, C &nb,
-                                         C &sz, C &above) {
-  constexpr int H = NW / WPT;
-  constexpr int RB = NW == 8 ? 0 : 2;  // log2(R)
-  const bool half = gl >= H;
-  const int h = half ? gl - H : gl;
-  const C k = half ? k2 : k1;
-  C kk = k - (k >= a.primary ? 1 : 0);
-  kk = kk < 0 ? 0 : (kk > a.seq_len - 1 ? a.seq_len - 1 : kk);
-  const uint4 *row = reinterpret_cast<const uint4 *>(
-      a.occtab + (size_t)(kk >> (7 + RB)) * (4 + NW));
-  const uint4 cnt = __ldg(row);
-  uint4 w[WPT / 4];
-#pragma unroll
-  for (int u = 0; u < WPT / 4; ++u) w[u] = __ldg(row + 1 + h * (WPT / 4) + u);
-  const int kw = (int)(kk >> 4) & (NW - 1), kb = (int)(kk & 15);
-  uint32_t packed = 0;  // counts of bases 1, 2, 3 in 10 bits each
-#pragma unroll
-  for (int u = 0; u < WPT / 4; ++u) {
-    const uint32_t ws[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int nkeep = (kw - (h * WPT + u * 4 + t)) * 16 + kb + 1;
-      const uint32_t mask = nkeep <= 0 ? 0u
-                            : nkeep >= 16 ? FULL
-                                          : FULL << ((16 - nkeep) << 1);
-      const uint32_t word = ws[t] & mask;
-      const uint32_t hi = (word >> 1) & M55, lo = word & M55;
-      const uint32_t n3 = __popc(hi & lo);
-      packed += (__popc(lo) - n3) | ((__popc(hi) - n3) << 10) | (n3 << 20);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < H; off <<= 1)
-    packed += __shfl_xor_sync(FULL, packed, off);
-  const int n1 = packed & 1023, n2 = (packed >> 10) & 1023, n3 = packed >> 20;
-  C o0 = (C)cnt.x + (kw * 16 + kb + 1 - n1 - n2 - n3);
-  C o1 = (C)cnt.y + n1, o2 = (C)cnt.z + n2, o3 = (C)cnt.w + n3;
-  if (k == -1) {
-    o0 = o1 = o2 = o3 = 0;
-  } else if (k == a.seq_len) {
-    o0 = L2[1] - L2[0]; o1 = L2[2] - L2[1];
-    o2 = L2[3] - L2[2]; o3 = L2[4] - L2[3];
-  }
-  const C oc = c == 0 ? o0 : (c == 1 ? o1 : (c == 2 ? o2 : o3));
-  const C ab = (c < 1 ? o1 : 0) + (c < 2 ? o2 : 0) + (c < 3 ? o3 : 0);
-  const C oc_x = __shfl_xor_sync(FULL, oc, H);
-  const C ab_x = __shfl_xor_sync(FULL, ab, H);
-  const C tk = half ? oc_x : oc, tl = half ? oc : oc_x;
-  nb = pick(L2, c) + 1 + tk;
-  sz = tl - tk;
-  above = (half ? ab : ab_x) - (half ? ab_x : ab);
-}
-
-template <typename C, int NW>
+// SEG: the state mode.  Each lane's warp loads its machine state (the
+// per-lane fields, both stacks; seeds and qualification bits stay in
+// place) from the state tensors, runs until it is done, exhausts
+// last_stage or reaches steps_in + max_steps plain steps, and stores it
+// back; seeds are int64, as in the plain version's state.  A backward row
+// may start and end part way: it resumes at entry j with the target
+// stack's count and last pushed size.
+template <typename C, int NW, bool SEG>
 __global__ void __launch_bounds__(WARPS * 32)
     seed_machine_kernel(SeedArgs<C> a) {
+  using S = typename std::conditional<SEG, int64_t, C>::type;  // seed type
   constexpr int G = 2 * NW / WPT;  // threads a group (one interval)
   constexpr int E = 32 / G;        // backward entries a round
   constexpr unsigned LEADERS = FULL / ((1u << G) - 1);  // first of each group
@@ -185,8 +150,11 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int ncol = a.tagged ? 6 : 5;
   C *stkA = reinterpret_cast<C *>(smem_raw) + (size_t)warp * 2 * cap * 4;
   C *stkB = stkA + cap * 4;
-  C *seeds = a.seeds + (size_t)b * cap_s * ncol;
+  S *seeds = static_cast<S *>(a.seeds) + (size_t)b * cap_s * ncol;
   uint8_t *qmask = a.qmask + (size_t)b * cap_s;
+  // a fixed pass-2 job table (the state mode's pass 2 alone), or none
+  const int64_t *jobs =
+      SEG && a.jobs ? a.jobs + (size_t)b * cap_s * 5 : nullptr;
   // the lane's read: row b, or in refill mode each read it draws
   int rid = b, qlen = 0, hi1 = 0, hi3 = 0;
   const uint8_t *q = a.q;
@@ -204,14 +172,34 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int c = 0; c < 5; ++c) L2[c] = (C)a.L2[c];
 
   int phase = P_NEXT, stage = S_P1, old_n = 0, job = 0, x = 0;
-  C minv = 1, ik0 = 0, ik1 = 0, ik2 = 0;
-  int info_end = 0, i = 0, an = 0, bn = 0;
+  C minv = 1, ik0 = 0, ik1 = 0, ik2 = 0, last_x2 = 0;
+  int info_end = 0, i = 0, j = 0, an = 0, bn = 0;
   bool cur_is_a = true, rev_read = true, ovf = false;
   int call_last_start = 0, call_mem_n = 0, ret = 0, seed_n = 0;
   int seed_base = 0;  // the current read's first seed slot (refill)
   int64_t cur_tag = 0;
   int steps = 0, done_step = 0;
-  if (b < a.n_queue) {
+  int stop_at = 0x7fffffff;
+  if (SEG) {
+    take_read(b);
+    const int64_t *f = a.lanes + b;
+    const size_t B = a.B;
+    phase = (int)f[0]; stage = (int)f[B]; old_n = (int)f[2 * B];
+    job = (int)f[3 * B]; x = (int)f[4 * B]; minv = (C)f[5 * B];
+    ik0 = (C)f[6 * B]; ik1 = (C)f[7 * B]; ik2 = (C)f[8 * B];
+    info_end = (int)f[9 * B]; i = (int)f[10 * B]; j = (int)f[11 * B];
+    an = (int)f[12 * B]; bn = (int)f[13 * B]; cur_is_a = f[14 * B] != 0;
+    rev_read = f[15 * B] != 0; last_x2 = (C)f[16 * B];
+    call_last_start = (int)f[17 * B]; call_mem_n = (int)f[18 * B];
+    ret = (int)f[19 * B]; seed_n = (int)f[20 * B]; ovf = f[21 * B] != 0;
+    done_step = (int)f[22 * B];
+    steps = *a.steps_in;
+    const int64_t stop = (int64_t)steps + a.max_steps;
+    stop_at = stop < 0x7fffffff ? (int)stop : 0x7fffffff;
+    const int64_t *st = a.stk + (size_t)b * 2 * cap * 4;
+    for (int t = lane; t < 2 * cap * 4; t += 32) stkA[t] = (C)st[t];
+    __syncwarp();
+  } else if (b < a.n_queue) {
     take_read(b);
     if (!refill) job = a.job_lo[b];
   } else {  // a refill lane with no read: done at the plain machine's step 1
@@ -232,7 +220,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     __syncwarp();
   };
 
-  while (phase != P_DONE) {
+  while (phase != P_DONE && steps < stop_at) {
     const bool st1m = stage == S_P2;
 
     // ---------- P_NEXT: acquire the next job (stage-dependent) ----------
@@ -247,7 +235,16 @@ __global__ void __launch_bounds__(WARPS * 32)
         int jj = old_n;
         for (int base = job; base < lim; base += 32) {
           const int s = base + lane;
-          const unsigned m = __ballot_sync(FULL, s < lim && qmask[s]);
+          bool qs = false;
+          if (s < lim) {
+            if (jobs) {
+              const int64_t *r = jobs + (size_t)s * 5;
+              qs = r[4] - r[3] >= a.split_len && r[2] <= a.split_width;
+            } else {
+              qs = qmask[s];
+            }
+          }
+          const unsigned m = __ballot_sync(FULL, qs);
           if (m) {
             jj = base + __ffs(m) - 1;
             break;
@@ -255,11 +252,18 @@ __global__ void __launch_bounds__(WARPS * 32)
         }
         have_s1 = jj < old_n;
         if (have_s1) {
-          const C *row = seeds + (size_t)jj * ncol;
-          const int r3 = (int)row[3], r4 = (int)row[4];
+          C r2;
+          int r3, r4;
+          if (jobs) {
+            const int64_t *row = jobs + (size_t)jj * 5;
+            r2 = (C)row[2]; r3 = (int)row[3]; r4 = (int)row[4];
+          } else {
+            const S *row = seeds + (size_t)jj * ncol;
+            r2 = (C)row[2]; r3 = (int)row[3]; r4 = (int)row[4];
+          }
           x_s1 = (r3 + r4) >> 1;
           if (a.tagged) cur_tag = ((int64_t)r3 << 15) | r4;
-          minv = row[2] + 1;
+          minv = r2 + 1;
         }
         job = jj + (have_s1 ? 1 : 0);
       } else {
@@ -268,9 +272,9 @@ __global__ void __launch_bounds__(WARPS * 32)
       const bool have = st1m ? have_s1 : have_nv;
       if (have) x = st1m ? x_s1 : xv;
       const bool exh = !have;
-      const bool to_s2 = exh && stage == S_P1;
-      const bool to_s3 = exh && st1m && a.use_p3;
-      const bool to_done = exh && (st2m || (st1m && !a.use_p3));
+      const bool to_s2 = exh && stage == S_P1 && a.last_stage > S_P1;
+      const bool to_s3 = exh && st1m && a.use_p3 && a.last_stage > S_P2;
+      const bool to_done = exh && !to_s2 && !to_s3;
       bool done_now = to_done;
       if (to_s2) {
         old_n = seed_n;
@@ -348,8 +352,10 @@ __global__ void __launch_bounds__(WARPS * 32)
           cur_is_a = true;
           rev_read = true;
           bn = 0;
+          j = 0;
           i = x - 1;
           call_mem_n = 0;
+          last_x2 = 0;
           phase = P_BWD;
         }
       } else {  // bwt_seed_strategy1
@@ -372,23 +378,31 @@ __global__ void __launch_bounds__(WARPS * 32)
       continue;
     }
 
-    // ---------- P_BWD: all pn entries of row i ----------
+    // ---------- P_BWD: entries j0.. of row i (all of them, but where the
+    // step budget ends the row) ----------
     const int pn = cur_is_a ? an : bn;
+    const int n0 = cur_is_a ? bn : an;  // the target stack's count
+    const int j0 = j;
+    int jend = pn;
+    if (SEG && jend - j0 > stop_at - steps) jend = j0 + (stop_at - steps);
     const C *rd = cur_is_a ? stkA : stkB;
     C *wr = cur_is_a ? stkB : stkA;
     const int qi = q[clampi(i, 0, L - 1)];
     const int c = (i >= 0 && qi < 4) ? qi : -1;  // -1: every entry is kept
-    int npush = 0;
-    bool keep0 = pn > 0;
+    int npush = n0;
+    bool keep0 = jend > j0;
     if (c >= 0) {
-      bool have_prev = false;  // an unkept entry earlier in the row
-      C prev_ob2 = 0;          // its size
-      for (int base = 0; base < pn; base += E) {
-        const int j = base + grp;
-        const bool valid = j < pn;
+      // an unkept entry earlier in the row, and its size: with n0 > 0 the
+      // last push's (an unkept entry not pushed has the last push's size)
+      bool have_prev = n0 > 0;
+      C prev_ob2 = last_x2;
+      for (int base = j0; base < jend; base += E) {
+        const int je = base + grp;
+        const bool valid = je < jend;
         C p0 = 0, p1 = 0, p2 = 0, p3 = 0;
         if (valid) {
-          const C *pr = rd + clampi(rev_read ? pn - 1 - j : j, 0, cap - 1) * 4;
+          const C *pr =
+              rd + clampi(rev_read ? pn - 1 - je : je, 0, cap - 1) * 4;
           p0 = pr[0]; p1 = pr[1]; p2 = pr[2]; p3 = pr[3];
         }
         C nb, sz, above;
@@ -397,7 +411,7 @@ __global__ void __launch_bounds__(WARPS * 32)
         const C span = (p0 <= a.primary && p0 + p2 - 1 >= a.primary) ? 1 : 0;
         const C ob0 = nb, ob1 = p1 + span + above, ob2 = sz;
         const bool keep = ob2 < minv;
-        if (base == 0) keep0 = __ballot_sync(FULL, valid && keep) & 1u;
+        if (base == j0) keep0 = __ballot_sync(FULL, valid && keep) & 1u;
         const bool unk = valid && !keep;
         const unsigned U = __ballot_sync(FULL, unk) & LEADERS;
         const unsigned P = U & below;
@@ -417,11 +431,13 @@ __global__ void __launch_bounds__(WARPS * 32)
         }
         npush = last + 1;
       }
+      last_x2 = prev_ob2;  // the size last pushed (unchanged without one)
     }
     if (npush > cap) ovf = true;
-    // the row's first entry, if kept, ends an SMEM
-    if (keep0 && (call_mem_n == 0 || i + 1 < call_last_start)) {
-      const C *pr = rd + clampi(rev_read ? pn - 1 : 0, 0, cap - 1) * 4;
+    // the first entry taken, if kept while the target stack is empty, ends
+    // an SMEM
+    if (keep0 && n0 == 0 && (call_mem_n == 0 || i + 1 < call_last_start)) {
+      const C *pr = rd + clampi(rev_read ? pn - 1 - j0 : j0, 0, cap - 1) * 4;
       const C p0 = pr[0], p1 = pr[1], p2 = pr[2];
       const int p3 = (int)pr[3];
       if (p3 - (i + 1) >= a.min_seed_len)
@@ -430,25 +446,43 @@ __global__ void __launch_bounds__(WARPS * 32)
       call_last_start = i + 1;
       ++call_mem_n;
     }
-    steps += pn > 0 ? pn : 1;
-    if (npush == 0 || i < 0) {  // the call is over
+    steps += jend > j0 ? jend - j0 : 1;
+    j = jend;
+    if (cur_is_a) bn = npush;
+    else an = npush;
+    if (jend < pn) {  // the budget ends inside the row
+    } else if (npush == 0 || i < 0) {  // the call is over
       if (stage == S_P1) job = ret;
       phase = P_NEXT;
     } else {
       cur_is_a = !cur_is_a;
       rev_read = false;
-      if (cur_is_a) {
-        an = npush;
-        bn = 0;
-      } else {
-        bn = npush;
-        an = 0;
-      }
+      if (cur_is_a) bn = 0;
+      else an = 0;
       --i;
+      j = 0;
+      last_x2 = 0;
     }
     __syncwarp();
   }
 
+  if (SEG) {
+    if (lane == 0) {
+      int64_t *f = a.lanes + b;
+      const size_t B = a.B;
+      f[0] = phase; f[B] = stage; f[2 * B] = old_n; f[3 * B] = job;
+      f[4 * B] = x; f[5 * B] = minv; f[6 * B] = ik0; f[7 * B] = ik1;
+      f[8 * B] = ik2; f[9 * B] = info_end; f[10 * B] = i; f[11 * B] = j;
+      f[12 * B] = an; f[13 * B] = bn; f[14 * B] = cur_is_a;
+      f[15 * B] = rev_read; f[16 * B] = last_x2;
+      f[17 * B] = call_last_start; f[18 * B] = call_mem_n; f[19 * B] = ret;
+      f[20 * B] = seed_n; f[21 * B] = ovf; f[22 * B] = done_step;
+      atomicMax(a.steps, steps);
+    }
+    int64_t *st = a.stk + (size_t)b * 2 * cap * 4;
+    for (int t = lane; t < 2 * cap * 4; t += 32) st[t] = stkA[t];
+    return;
+  }
   // the slots no push reached hold zeros, as in the plain version
   const int filled = seed_n < cap_s ? seed_n : cap_s;
   for (size_t t = (size_t)filled * ncol + lane; t < (size_t)cap_s * ncol;
@@ -462,30 +496,30 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <typename C, int NW>
+template <typename C, int NW, bool SEG>
 int launch(const SeedArgs<C> &a, cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * 2 * a.cap * 4 * sizeof(C);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seed_machine_kernel<C, NW>,
+        seed_machine_kernel<C, NW, SEG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch would report it
       return (int)e;
     }
   }
-  seed_machine_kernel<C, NW><<<(a.B + WARPS - 1) / WARPS, WARPS * 32, smem,
-                               stream>>>(a);
+  seed_machine_kernel<C, NW, SEG><<<(a.B + WARPS - 1) / WARPS, WARPS * 32,
+                                    smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename C>
+template <typename C, bool SEG = false>
 int launch_nw(const SeedArgs<C> &a, int nw, cudaStream_t stream) {
   if (a.B == 0) return 0;
   if (a.cap < 1 || a.cap_s < 1) return (int)cudaErrorInvalidValue;
   switch (nw) {
-    case 8: return launch<C, 8>(a, stream);
-    case 32: return launch<C, 32>(a, stream);
+    case 8: return launch<C, 8, SEG>(a, stream);
+    case 32: return launch<C, 32, SEG>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -901,7 +935,7 @@ __global__ void __launch_bounds__(WARPS * 32, sizeof(C) == 4 ? 6 : 5)
   // the lane's read, its codes staged in shared memory past the stacks
   uint8_t *q = smem_raw + (size_t)(blockDim.x / G) * 2 * cap * 4 * sizeof(C) +
                (size_t)slot * codes_bytes(L);
-  C *seeds = a.seeds + (size_t)(real ? b : 0) * cap_s * 6;
+  C *seeds = static_cast<C *>(a.seeds) + (size_t)(real ? b : 0) * cap_s * 6;
   uint8_t *qmask = a.qmask + (size_t)(real ? b : 0) * cap_s;
   C L2[5];
 #pragma unroll
@@ -1259,7 +1293,7 @@ template <typename C, int NW>
 int attrs_of(int which, int cap, int L, int32_t *out) {
   switch (which) {
     case 0:
-      return kernel_attrs(seed_machine_kernel<C, NW>, WARPS * 32,
+      return kernel_attrs(seed_machine_kernel<C, NW, false>, WARPS * 32,
                           (size_t)WARPS * 2 * cap * 4 * sizeof(C), out);
     case 1: {
       const int threads = refill_block<C, NW>(cap, L);
@@ -1290,16 +1324,56 @@ extern "C" int bwa_seed_machine(
     SeedArgs<int64_t> a{occtab, L2, primary, seq_len, q, B, n_queue, L,
                         qlen, nv, job_lo, hi1, hi3, min_seed_len, split_len,
                         split_width, max_intv3, cap, cap_s, use_p3, tagged,
-                        cap_r, (int64_t *)seeds, seed_n, done_step, steps,
-                        ovf, qmask, qctr};
+                        cap_r, seeds, seed_n, done_step, steps, ovf, qmask,
+                        qctr, S_P3};
     return launch_any(a, nw, group, (cudaStream_t)stream);
   }
   SeedArgs<int32_t> a{occtab, L2, (int32_t)primary, (int32_t)seq_len, q, B,
                       n_queue, L, qlen, nv, job_lo, hi1, hi3, min_seed_len,
                       split_len, split_width, max_intv3, cap, cap_s, use_p3,
-                      tagged, cap_r, (int32_t *)seeds, seed_n, done_step,
-                      steps, ovf, qmask, qctr};
+                      tagged, cap_r, seeds, seed_n, done_step, steps, ovf,
+                      qmask, qctr, S_P3};
   return launch_any(a, nw, group, (cudaStream_t)stream);
+}
+
+// K1's state mode (K12, K13): B lanes of q resumed from the state tensors
+// (lanes [SEG_NF, B] int64, stk [B, 2, cap, 4] int64, seeds [B, cap_s, 5]
+// int64 and qmask [B, cap_s], all updated in place) for at most max_steps
+// steps past steps_in[0]; each lane ends with last_stage, pass 2 reading
+// its jobs from `jobs` when given; steps_out (set to steps_in) ends as the
+// largest lane's count.
+extern "C" int bwa_seed_state(
+    int coord64, const uint32_t *occtab, int nw, const int64_t *L2,
+    int64_t primary, int64_t seq_len, const uint8_t *q, int B, int L,
+    const int32_t *qlen, const int32_t *nv, int min_seed_len, int split_len,
+    int64_t split_width, int64_t max_intv3, int cap, int cap_s, int use_p3,
+    int last_stage, const int64_t *jobs, int64_t *lanes, int64_t *stk,
+    int64_t *seeds, uint8_t *qmask, const int32_t *steps_in,
+    int32_t *steps_out, int64_t max_steps, void *stream) {
+  if (coord64) {
+    SeedArgs<int64_t> a{};
+    a.occtab = occtab; a.L2 = L2; a.primary = primary; a.seq_len = seq_len;
+    a.q = q; a.B = B; a.n_queue = B; a.L = L; a.qlen = qlen; a.nv = nv;
+    a.hi1 = a.hi3 = qlen; a.min_seed_len = min_seed_len;
+    a.split_len = split_len; a.split_width = split_width;
+    a.max_intv3 = max_intv3; a.cap = cap; a.cap_s = cap_s;
+    a.use_p3 = use_p3; a.seeds = seeds; a.steps = steps_out;
+    a.qmask = qmask; a.last_stage = last_stage; a.jobs = jobs;
+    a.lanes = lanes; a.stk = stk; a.steps_in = steps_in;
+    a.max_steps = max_steps;
+    return launch_nw<int64_t, true>(a, nw, (cudaStream_t)stream);
+  }
+  SeedArgs<int32_t> a{};
+  a.occtab = occtab; a.L2 = L2; a.primary = (int32_t)primary;
+  a.seq_len = (int32_t)seq_len; a.q = q; a.B = B; a.n_queue = B; a.L = L;
+  a.qlen = qlen; a.nv = nv; a.hi1 = a.hi3 = qlen;
+  a.min_seed_len = min_seed_len; a.split_len = split_len;
+  a.split_width = split_width; a.max_intv3 = max_intv3; a.cap = cap;
+  a.cap_s = cap_s; a.use_p3 = use_p3; a.seeds = seeds; a.steps = steps_out;
+  a.qmask = qmask; a.last_stage = last_stage; a.jobs = jobs;
+  a.lanes = lanes; a.stk = stk; a.steps_in = steps_in;
+  a.max_steps = max_steps;
+  return launch_nw<int32_t, true>(a, nw, (cudaStream_t)stream);
 }
 
 extern "C" int bwa_probe_breaks(int coord64, const uint32_t *occtab, int nw,

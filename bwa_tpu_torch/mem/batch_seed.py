@@ -18,7 +18,6 @@ import os
 
 import numpy as np
 
-
 # Lanes per machine call.  The sizes are the JAX package's, where every
 # shape was a separately compiled program (12288 lanes measured ~7% faster
 # than 8192 on its TPU headline); K1 takes any shape, and keeping the
@@ -402,7 +401,10 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
     row of qdev).  Given them, a bucket of pack_k = 2 lanes is gathered
     from qdev on the device (collect_seeds_dispatch_gather) instead of
     packed and uploaded.  BWA_TPU_SEED_REFILL routes reads of 256 bp or
-    less through _se_flat_refill."""
+    less through _se_flat_refill.  The split and compaction routes
+    (ops/fm.py::seed_route) pack every bucket on the host and seed it with
+    the synchronous engine.collect_seeds, as bwa_tpu's do; lane-sharded
+    long reads raise ValueError there, where bwa_tpu's demux fails."""
     B = len(codes_list)
     if B == 0:
         return
@@ -412,6 +414,12 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
             and getattr(engine, "mesh", None) is None):
         yield from _se_flat_refill(opt, engine, fm, codes_list, cap_s)
         return
+    from bwa_tpu_torch.ops.fm import ROUTE_SWITCH, seed_route
+
+    # the split and compaction routes are synchronous (engine.collect_seeds)
+    # and pack every bucket on the host, as bwa_tpu's se_flat_buckets
+    route = seed_route()
+    can_async = route == "unified"
     bucket0 = _lane_bucket(Lg)
     los = list(range(0, B, bucket0))
     packed = {}
@@ -421,7 +429,7 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
         chunk = codes_list[lo:lo + bucket0]
         nb = len(chunk)
         B2 = _lane_bucket(Lg, nb) // 2
-        if qdev is not None and nb >= B2:  # the pack_k = 2 regime
+        if qdev is not None and can_async and nb >= B2:  # pack_k = 2
             rid = np.asarray(row_ids[lo:lo + nb], np.int64)
             pb = np.full(B2, -1, np.int64)
             pb[:nb - B2] = rid[B2:nb]
@@ -436,7 +444,14 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
             return
         q, lens, L, B2, pack_k, cs, shard, ns = _pack_bucket(opt, chunk,
                                                              cap_s)
-        h = engine.collect_seeds_dispatch(q, lens, opt, cs, shard=shard)
+        if shard is not None and not can_async:
+            raise ValueError(
+                f"the {route} seeding route ({ROUTE_SWITCH[route]}) does not "
+                f"run lane-sharded long reads: its seed store has no "
+                f"provenance column, which their demux needs (bwa_tpu's "
+                f"_demux_bucket fails on these lanes too)")
+        h = engine.collect_seeds_dispatch(q, lens, opt, cs, shard=shard) \
+            if can_async else None
         packed[idx] = (q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk)
 
     _dispatch(0)
@@ -445,7 +460,8 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
             _dispatch(idx + 1)  # next bucket's seeding in flight
         q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk = \
             packed.pop(idx)
-        out = engine.collect_seeds_wait(h)
+        out = engine.collect_seeds_wait(h) if h is not None \
+            else engine.collect_seeds(q, lens, opt, cs, shard=shard)
         if (out[5] > cs).any():
             # seed-rich / deep-stack bucket (repeat regions): the whole
             # bucket climbs the device cap ladder
@@ -487,6 +503,95 @@ def _reorder_flat(flat, order):
         new_rb_off[:-1].astype(np.int64), rb_cnt)
     rg = np.repeat(rb_off[:-1].astype(np.int64)[g], rb_cnt) + rramp
     return (new_iv_off, x2[g], start[g], end[g], rbegs[rg], new_rb_off)
+
+
+def collect_intv_batch_unfused(opt, engine, codes_list) -> list[list[tuple]]:
+    """mem_collect_intv (bwamem.c:140-188) driven from the host, one device
+    call a pass step: engine.smem_pass (bwt_smem1a a read; kernel K10a on a
+    CUDA engine) until every read's cursor passes its end, one smem_pass
+    over every pass-2 job, then engine.seed3_pass (K10b) for pass 3; each
+    read's mems sorted by info with ks_introsort, as the reference does.
+    A cross-check of the seeding machine: it shares none of its code.
+    Returns per-read [(x0, x1, x2, info)]."""
+    from bwa_tpu_torch.mem.ksort import ks_introsort
+
+    B = len(codes_list)
+    if B == 0:
+        return []
+    L = max(len(c) for c in codes_list)
+    cap = L + 2
+    q = np.full((B, L), 4, dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i, c in enumerate(codes_list):
+        q[i, :len(c)] = c
+        lens[i] = len(c)
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    mems: list[list[tuple]] = [[] for _ in range(B)]
+    rows = np.arange(B)
+
+    def skip_amb(x):
+        """Advance each cursor past ambiguous bases (the x += 1 branch)."""
+        while True:
+            amb = (x < lens) & (q[rows, np.minimum(x, L - 1)] >= 4)
+            if not amb.any():
+                return x
+            x[amb] += 1
+
+    def take(b, out, t):
+        """Call t's mems (reversed: the reference sorts them by start) of
+        at least min_seed_len bases, onto read b's list."""
+        m0, m1, m2, ms, me, mem_n = out[1:]
+        for j in range(int(mem_n[t]) - 1, -1, -1):
+            if int(me[t, j]) - int(ms[t, j]) >= opt.min_seed_len:
+                mems[b].append((int(m0[t, j]), int(m1[t, j]), int(m2[t, j]),
+                                (int(ms[t, j]) << 32) | int(me[t, j])))
+
+    # ---- pass 1: every SMEM, each read's cursor advanced by ret ----
+    x = np.zeros(B, dtype=np.int32)
+    ones = np.ones(B, dtype=np.int64)
+    while True:
+        x = skip_amb(x)
+        active = x < lens
+        if not active.any():
+            break
+        out = engine.smem_pass(q, lens, x, ones, 0, active, cap)
+        for b in np.nonzero(active)[0]:
+            take(b, out, b)
+        x = np.where(active, out[0], x).astype(np.int32)
+
+    # ---- pass 2: re-seed long unique SMEMs from their midpoints ----
+    jobs = [(b, ((iv[3] >> 32) + (iv[3] & 0xFFFFFFFF)) >> 1, iv[2] + 1)
+            for b in range(B) for iv in list(mems[b])
+            if (iv[3] & 0xFFFFFFFF) - (iv[3] >> 32) >= split_len
+            and iv[2] <= opt.split_width]
+    if jobs:
+        jb = np.array([j[0] for j in jobs], dtype=np.int32)
+        out = engine.smem_pass(q[jb], lens[jb],
+                               np.array([j[1] for j in jobs], np.int32),
+                               np.array([j[2] for j in jobs], np.int64), 0,
+                               np.ones(len(jobs), dtype=bool), cap)
+        for t, b in enumerate(jb):
+            take(b, out, t)
+
+    # ---- pass 3: LAST-like seeding ----
+    if opt.max_mem_intv > 0:
+        x = np.zeros(B, dtype=np.int32)
+        while True:
+            x = skip_amb(x)
+            active = x < lens
+            if not active.any():
+                break
+            ret, found, r0, r1, r2, s0, s1 = engine.seed3_pass(
+                q, lens, x, opt.min_seed_len, opt.max_mem_intv, active)
+            for b in np.nonzero(active & found)[0]:
+                if int(r2[b]) > 0:
+                    mems[b].append((int(r0[b]), int(r1[b]), int(r2[b]),
+                                    (int(s0[b]) << 32) | int(s1[b])))
+            x = np.where(active, ret, x).astype(np.int32)
+
+    for b in range(B):
+        ks_introsort(mems[b], lambda a, c: a[3] < c[3])
+    return mems
 
 
 def occurrence_positions(opt, engine, mems_list):

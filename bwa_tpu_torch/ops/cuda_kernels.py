@@ -25,7 +25,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("seed_machine.cu", "ksw_band.cu", "ksw_full.cu", "gap_machine.cu")
+SOURCES = ("seed_machine.cu", "ksw_band.cu", "ksw_full.cu", "gap_machine.cu",
+           "smem_batch.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -88,6 +89,28 @@ def _bind(libs) -> None:
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, i32,
                   vp, vp, vp, vp, vp, i32, i32, i64, i64, i32, i32, i32,
                   i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp]
+    f = libs["seed_machine.cu"].bwa_seed_state
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, i32, i32,
+                  i64, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
+                  i64, vp]
+    f = libs["smem_batch.cu"].bwa_sa_batch
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, i32, vp, vp]
+    f = libs["smem_batch.cu"].bwa_smem1a
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, i64,
+                  vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, vp, i64,
+                  vp, vp]
+    f = libs["smem_batch.cu"].bwa_strategy1
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, i32, i64,
+                  vp, vp, vp, vp, vp, vp, vp, vp]
+    f = libs["smem_batch.cu"].bwa_collect_intv
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, i32, i32, i64,
+                  i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                  i64, vp, i64, vp, vp]
     f = libs["seed_machine.cu"].bwa_probe_breaks
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp]
@@ -164,6 +187,91 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
         int(cap_s), int(use_p3), int(tagged), int(cap_r), _ptr(seeds),
         _ptr(seed_n), _ptr(ovf), _ptr(done_step), _ptr(steps), _ptr(qmask),
         None if qctr is None else _ptr(qctr), int(group), _stream(q))
+
+
+def seed_state(occtab, L2, primary, seq_len, coord64, q, qlen, nv,
+               min_seed_len, split_len, split_width, max_intv3, cap, cap_s,
+               use_p3, last_stage, jobs, lanes, stk, seeds, qmask, steps_in,
+               steps_out, max_steps) -> None:
+    """Launch K1's state mode (csrc/seed_machine.cu, bwa_seed_state: K12,
+    K13) on the current stream: the B lanes of q resumed from lanes
+    [23, B], stk [B, 2, cap, 4], seeds [B, cap_s, 5] (int64) and qmask,
+    updated in place, for at most max_steps steps past steps_in; each lane
+    ends with last_stage, pass 2 reading jobs (or None: the seed store)."""
+    lib = build_all()["seed_machine.cu"]
+    B, L = q.shape
+    _call(lib.bwa_seed_state, "seed_state", q.device, int(coord64),
+          _ptr(occtab), occtab.shape[1] - 4, _ptr(L2), int(primary),
+          int(seq_len), _ptr(q), B, L, _ptr(qlen), _ptr(nv),
+          int(min_seed_len), int(split_len), int(split_width),
+          int(max_intv3), int(cap), int(cap_s), int(use_p3),
+          int(last_stage), None if jobs is None else _ptr(jobs),
+          _ptr(lanes), _ptr(stk), _ptr(seeds), _ptr(qmask), _ptr(steps_in),
+          _ptr(steps_out), int(max_steps), _stream(q))
+
+
+def _opt(t):
+    return None if t is None else _ptr(t)
+
+
+def sa_batch(ckpt, words, ssa, L2, primary, seq_len, coord64, k, out,
+             work=None) -> None:
+    """Launch K9 (csrc/smem_batch.cu, bwa_sa_batch: bwt_sa a thread a row
+    of k) on the current stream; work: an int64 [1] tensor that the walk
+    steps are added to, or None."""
+    lib = build_all()["smem_batch.cu"]
+    _call(lib.bwa_sa_batch, "sa_batch", k.device, int(coord64), _ptr(ckpt),
+          _ptr(words), _ptr(ssa), _ptr(L2), int(primary), int(seq_len),
+          _ptr(k), _ptr(out), k.shape[0], _opt(work), _stream(k))
+
+
+def smem1a(occtab, L2, primary, seq_len, coord64, q, qlen, x, min_intv,
+           max_intv, active, cap, ret, m0, m1, m2, ms, me, mem_n, plan,
+           work=None) -> None:
+    """Launch K10a (bwa_smem1a: bwt_smem1a a warp a read) on the current
+    stream; plan: (warps a block, blocks, shared bytes a block, scratch or
+    None, bytes a warp's lists) from ops/fm.py::_lists_plan."""
+    lib = build_all()["smem_batch.cu"]
+    B, L = q.shape
+    warps, blocks, smem, scratch, per_warp = plan
+    _call(lib.bwa_smem1a, "smem1a", q.device, int(coord64), _ptr(occtab),
+          occtab.shape[1] - 4, _ptr(L2), int(primary), int(seq_len), _ptr(q),
+          B, L, _ptr(qlen), _ptr(x), _ptr(min_intv), int(max_intv),
+          _ptr(active), int(cap), _ptr(ret), _ptr(m0), _ptr(m1), _ptr(m2),
+          _ptr(ms), _ptr(me), _ptr(mem_n), int(warps), int(blocks),
+          int(smem), _opt(scratch), int(per_warp), _opt(work), _stream(q))
+
+
+def strategy1(occtab, L2, primary, seq_len, coord64, q, qlen, x, min_len,
+              max_intv, active, ret, found, r0, r1, r2, work=None) -> None:
+    """Launch K10b (bwa_strategy1: bwt_seed_strategy1 a warp a read) on the
+    current stream."""
+    lib = build_all()["smem_batch.cu"]
+    B, L = q.shape
+    _call(lib.bwa_strategy1, "strategy1", q.device, int(coord64),
+          _ptr(occtab), occtab.shape[1] - 4, _ptr(L2), int(primary),
+          int(seq_len), _ptr(q), B, L, _ptr(qlen), _ptr(x), int(min_len),
+          int(max_intv), _ptr(active), _ptr(ret), _ptr(found), _ptr(r0),
+          _ptr(r1), _ptr(r2), _opt(work), _stream(q))
+
+
+def collect_intv(occtab, L2, primary, seq_len, coord64, q, qlen,
+                 min_seed_len, split_len, split_width, max_mem_intv, cap,
+                 cap_s, key64, raw, s0, s1, s2, ss, se, seed_n, plan,
+                 work=None) -> None:
+    """Launch K11 (bwa_collect_intv: mem_collect_intv's three passes a warp
+    a read, then the sort) on the current stream; raw: the zeroed [B,
+    cap_s, 5] seed store; plan as smem1a's."""
+    lib = build_all()["smem_batch.cu"]
+    B, L = q.shape
+    warps, blocks, smem, scratch, per_warp = plan
+    _call(lib.bwa_collect_intv, "collect_intv", q.device, int(coord64),
+          _ptr(occtab), occtab.shape[1] - 4, _ptr(L2), int(primary),
+          int(seq_len), _ptr(q), B, L, _ptr(qlen), int(min_seed_len),
+          int(split_len), int(split_width), int(max_mem_intv), int(cap),
+          int(cap_s), int(key64), _ptr(raw), _ptr(s0), _ptr(s1), _ptr(s2),
+          _ptr(ss), _ptr(se), _ptr(seed_n), int(warps), int(blocks),
+          int(smem), _opt(scratch), int(per_warp), _opt(work), _stream(q))
 
 
 def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:

@@ -13,7 +13,13 @@ int32 when 2*l_pac+2 < 2^31 and int64 otherwise.
 BatchedFMEngine drives the seeding machine (ops/fm_machine.py) for
 mem/batch_seed.py: a CUDA engine launches kernel K1, a CPU engine runs
 its plain version; an engine on a mesh (parallel/mesh.py) splits each
-batch's lanes over the mesh's devices.
+batch's lanes over the mesh's devices.  Its collect_seeds also takes
+bwa_tpu's other seeding routes (seed_route: the split route, K12, and
+tail compaction, K13, on K1's state mode) and the fused cross-check
+program (collect_intv_device, K11); smem_pass and seed3_pass run
+bwt_smem1a and bwt_seed_strategy1 one read a lane (K10a, K10b), and
+sa_batch bwt_sa (K9), all of them in csrc/smem_batch.cu beside their
+plain versions here.
 """
 
 from __future__ import annotations
@@ -466,17 +472,469 @@ def _probe_breaks_cuda(idx, q):
     return out
 
 
-def unported_routes() -> None:
-    """Raise on the JAX package's seeding routes that the port does not
-    have yet, rather than take the default route without a word."""
+# ---------------------------------------------------------------------------
+# The cross-check programs: bwt_sa (K9), bwt_smem1a and bwt_seed_strategy1
+# one read a lane (K10), and mem_collect_intv's three passes fused (K11).
+# Plain versions first (line-for-line ports of the JAX package's
+# ops/fm.py functions of the same names), then the dispatchers: a CUDA
+# tensor launches csrc/smem_batch.cu, a CPU tensor takes the plain version.
+# ---------------------------------------------------------------------------
+
+def sa_batch_plain(idx, k):
+    """bwt_sa (bwt.c:86-96) over a vector of SA rows k: the inverse-Psi walk
+    (the BWT base at the row, _B0, and its count, _occ1) until the row is a
+    multiple of sa_intv, then the sampled position plus the steps taken.
+    Returns positions in the coordinate dtype."""
+    if "ssa" not in idx:
+        raise ValueError("sa_batch needs the sampled suffix array, which a "
+                         "light index (more than 2^20 text blocks) does not "
+                         "upload")
+    i64 = torch.int64
+    cdt = idx["cdt"]
+    primary = idx["primary"]
+    L2 = idx["L2"].to(i64)
+    k = k.to(i64).clone()
+    mask = idx["sa_intv"] - 1
+    steps = torch.zeros_like(k)
+    while True:
+        lv = ((k & mask) != 0).nonzero().flatten()
+        if not lv.numel():
+            break
+        kl = k[lv]
+        x = kl - (kl > primary).to(i64)
+        c = _B0(idx, x).to(i64)
+        occ = _occ1(idx, kl, c).to(i64)
+        k[lv] = torch.where(kl == primary, torch.zeros_like(kl), L2[c] + occ)
+        steps[lv] += 1
+    return (steps + idx["ssa"][k >> 5].to(i64)).to(cdt)
+
+
+def _push(bufs, n, mask, vals):
+    """Conditional append into per-lane lists bufs[f] [B, C] (the last slot
+    is overwritten once full; n keeps counting).  In place; returns n."""
+    B, C = bufs[0].shape
+    b = torch.arange(B, device=n.device)
+    slot = n.clamp(max=C - 1)
+    for buf, v in zip(bufs, vals):
+        buf[b, slot] = torch.where(mask, v.to(buf.dtype), buf[b, slot])
+    return n + mask.to(n.dtype)
+
+
+def _pick(ok, c):
+    b = torch.arange(c.shape[0], device=c.device)
+    return tuple(o.to(torch.int64)[b, c] for o in ok)
+
+
+def smem1a_batch_plain(idx, q, qlen, x, min_intv, max_intv, active,
+                       cap: int):
+    """bwt_smem1a (bwt.c:289-351) lock-step over B reads: q [B, L] codes
+    (>= 4 past qlen), x [B] start positions, min_intv [B], max_intv an
+    int, active [B] bool.  Returns (ret [B] int32, m0, m1, m2 [B, cap]
+    coord, ms, me [B, cap] int32, mem_n [B] int32): the mems in the
+    reference's pre-reversal order, a list outgrowing cap overwriting its
+    last slot."""
+    i64 = torch.int64
+    dev = q.device
+    B, L = q.shape
+    bidx = torch.arange(B, device=dev)
+    W = torch.where
+    q = q.to(i64)
+    qlen = qlen.to(i64)
+    x = x.to(i64)
+    active = active.to(torch.bool)
+    max_intv = int(max_intv)
+    qx = q[bidx, x.clamp(0, L - 1)]
+    valid = active & (qx < 4) & (x < qlen)
+    minv = min_intv.to(i64).clamp(min=1)
+    ik0, ik1, ik2 = (t.to(i64) for t in _set_intv(idx, qx))
+    info_end = x + 1
+    z = lambda: torch.zeros((B, cap), dtype=i64, device=dev)  # noqa: E731
+    curr = [z(), z(), z(), z()]  # x0 x1 x2 end
+    cn = torch.zeros(B, dtype=i64, device=dev)
+
+    # ---- forward pass ----
+    i = x + 1
+    done = ~valid
+    while True:
+        act = ~done & (i < qlen)
+        if not bool(act.any()):
+            break
+        qi = q[bidx, i.clamp(0, L - 1)]
+        small = act & (ik2 < max_intv)
+        amb = act & ~small & (qi >= 4)
+        ext = act & ~small & ~amb
+        okc0, okc1, okc2 = _pick(_extend(idx, ik0, ik1, ik2, False),
+                                 (3 - qi).clamp(0, 3))
+        changed = ext & (okc2 != ik2)
+        cn = _push(curr, cn, small | amb | changed,
+                   (ik0, ik1, ik2, info_end))
+        stop = small | amb | (changed & (okc2 < minv))
+        adv = ext & ~stop
+        ik0, ik1, ik2 = W(adv, okc0, ik0), W(adv, okc1, ik1), \
+            W(adv, okc2, ik2)
+        info_end = W(adv, i + 1, info_end)
+        i = W(adv, i + 1, i)
+        done = done | stop
+    # the final push of lanes that ran off the end
+    cn = _push(curr, cn, valid & ~done, (ik0, ik1, ik2, info_end))
+    # reverse curr so that longer matches come first (bwt_reverse_intvs)
+    ridx = (cn[:, None] - 1 - torch.arange(cap, device=dev)[None, :]) \
+        .clamp(0, cap - 1)
+    prevs = [c.gather(1, ridx) for c in curr]
+    ret = W(valid, prevs[3][:, 0], x + 1)
+
+    # ---- backward pass ----
+    mems = [z(), z(), z(), z(), z()]  # x0 x1 x2 start end
+    mem_n = torch.zeros(B, dtype=i64, device=dev)
+    ik_x2 = ik2  # the forward pass's last size (the reference reuses ik)
+    pn = cn
+    i = x - 1
+    done = ~valid
+    while True:
+        act_l = ~done & (i >= -1)
+        if not bool(act_l.any()):
+            break
+        qi = W(i >= 0, q[bidx, i.clamp(0, L - 1)], torch.full_like(i, 4))
+        c = W((i >= 0) & (qi < 4), qi, torch.full_like(qi, -1))
+        cc = c.clamp(0, 3)
+        n0 = torch.zeros(B, dtype=i64, device=dev)
+        cur = [z(), z(), z(), z()]
+        last_x2 = torch.zeros(B, dtype=i64, device=dev)
+        for j in range(int(W(act_l, pn, torch.zeros_like(pn)).max())):
+            jact = act_l & (j < pn)
+            jj = min(j, cap - 1)
+            px0, px1, px2, pinfo = (p[:, jj] for p in prevs)
+            okc0, okc1, okc2 = _pick(_extend(idx, px0, px1, px2, True), cc)
+            keep = jact & ((c < 0) | (ik_x2 < max_intv) | (okc2 < minv))
+            # mem emission: only while curr is empty and not contained
+            m_last = mems[3][bidx, (mem_n - 1).clamp(0, cap - 1)]
+            can_emit = keep & (n0 == 0) & ((mem_n == 0) | ((i + 1) < m_last))
+            mem_n = _push(mems, mem_n, can_emit,
+                          (px0, px1, px2, i + 1, pinfo))
+            ik_x2 = W(can_emit, px2, ik_x2)
+            push_c = jact & ~keep & ((n0 == 0) | (okc2 != last_x2))
+            n0 = _push(cur, n0, push_c, (okc0, okc1, okc2, pinfo))
+            last_x2 = W(push_c, okc2, last_x2)
+        done = done | (act_l & (n0 == 0))
+        prevs = [W(act_l[:, None], a, p) for a, p in zip(cur, prevs)]
+        pn = W(act_l, n0, pn)
+        i = W(act_l, i - 1, i)
+    cdt, i32 = idx["cdt"], torch.int32
+    return (ret.to(i32), *(m.to(cdt) for m in mems[:3]),
+            *(m.to(i32) for m in mems[3:]), mem_n.to(i32))
+
+
+def seed_strategy1_batch_plain(idx, q, qlen, x, min_len, max_intv, active):
+    """bwt_seed_strategy1 (bwt.c:358-379) lock-step over B reads.  Returns
+    (ret [B] int32, found [B] bool, r0, r1, r2 [B] coord, start [B],
+    end [B] int32)."""
+    i64 = torch.int64
+    dev = q.device
+    B, L = q.shape
+    bidx = torch.arange(B, device=dev)
+    W = torch.where
+    q = q.to(i64)
+    qlen = qlen.to(i64)
+    x = x.to(i64)
+    min_len, max_intv = int(min_len), int(max_intv)
+    qx = q[bidx, x.clamp(0, L - 1)]
+    valid = active.to(torch.bool) & (qx < 4) & (x < qlen)
+    ik0, ik1, ik2 = (t.to(i64) for t in _set_intv(idx, qx))
+    i = x + 1
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    r0 = r1 = r2 = torch.zeros(B, dtype=i64, device=dev)
+    ret = W(valid, qlen, x + 1)
+    done = ~valid
+    while True:
+        act = ~done & (i < qlen)
+        if not bool(act.any()):
+            break
+        qi = q[bidx, i.clamp(0, L - 1)]
+        amb = act & (qi >= 4)
+        ext = act & ~amb
+        okc0, okc1, okc2 = _pick(_extend(idx, ik0, ik1, ik2, False),
+                                 (3 - qi).clamp(0, 3))
+        hit = ext & (okc2 < max_intv) & ((i - x) >= min_len)
+        found = found | hit
+        r0, r1, r2 = W(hit, okc0, r0), W(hit, okc1, r1), W(hit, okc2, r2)
+        ret = W(amb | hit, i + 1, ret)
+        done = done | amb | hit
+        adv = ext & ~hit
+        ik0, ik1, ik2 = W(adv, okc0, ik0), W(adv, okc1, ik1), \
+            W(adv, okc2, ik2)
+        i = W(adv, i + 1, i)
+    cdt, i32 = idx["cdt"], torch.int32
+    return (ret.to(i32), found & valid, r0.to(cdt), r1.to(cdt), r2.to(cdt),
+            x.to(i32), ret.to(i32))
+
+
+def _skip_amb(q, qlen, x):
+    """Advance x past ambiguous bases (mem_collect_intv's `else ++x`)."""
+    bidx = torch.arange(q.shape[0], device=q.device)
+    L = q.shape[1]
+    while True:
+        amb = (x < qlen) & (q[bidx, x.clamp(0, L - 1)] >= 4)
+        if not bool(amb.any()):
+            return x
+        x = x + amb.to(x.dtype)
+
+
+def _append_filtered(seeds, seed_n, mems, mem_n, min_seed_len, lane_mask):
+    """Append a call's mems of at least min_seed_len bases to the seed
+    store, oldest first (the backward pass emits them newest first)."""
+    cap = mems[0].shape[1]
+    bidx = torch.arange(seed_n.shape[0], device=seed_n.device)
+    mem_n = mem_n.to(torch.int64)
+    for j in range(int(torch.where(lane_mask, mem_n,
+                                   torch.zeros_like(mem_n)).max())):
+        jj = (mem_n - 1 - j).clamp(0, cap - 1)
+        row = [m.to(torch.int64)[bidx, jj] for m in mems]
+        ok = lane_mask & (j < mem_n) & ((row[4] - row[3]) >= min_seed_len)
+        seed_n = _push(seeds, seed_n, ok, row)
+    return seed_n
+
+
+def collect_intv_device_plain(idx, q, qlen, min_seed_len, split_len,
+                              split_width, max_mem_intv, cap: int,
+                              cap_s: int, key64: bool):
+    """All three passes of mem_collect_intv (bwamem.c:140-188), lock-step
+    over B reads, one bwt_smem1a / bwt_seed_strategy1 call a lane at a
+    time; seeds sorted by (start, end), the reference's .info order.
+    Returns (s0, s1, s2 [B, cap_s] coord, ss, se [B, cap_s] int32,
+    seed_n [B] int32)."""
+    i64 = torch.int64
+    dev = q.device
+    B = q.shape[0]
+    W = torch.where
+    qlen = qlen.to(i64)
+    min_seed_len, split_len = int(min_seed_len), int(split_len)
+    split_width = int(split_width)
+    seeds = [torch.zeros((B, cap_s), dtype=i64, device=dev)
+             for _ in range(5)]
+    seed_n = torch.zeros(B, dtype=i64, device=dev)
+    ones = torch.ones(B, dtype=i64, device=dev)
+
+    # ---- pass 1 ----
+    x = _skip_amb(q, qlen, torch.zeros(B, dtype=i64, device=dev))
+    while bool((x < qlen).any()):
+        x = _skip_amb(q, qlen, x)
+        active = x < qlen
+        ret, *mems, mem_n = smem1a_batch_plain(idx, q, qlen, x, ones, 0,
+                                               active, cap)
+        seed_n = _append_filtered(seeds, seed_n, mems, mem_n, min_seed_len,
+                                  active)
+        x = W(active, ret.to(i64), x)
+
+    # ---- pass 2: re-seed long low-occurrence SMEMs from their midpoints
+    old_n = seed_n.clone()
+    for k in range(int(old_n.max()) if B else 0):
+        kk = min(k, cap_s - 1)
+        start, end, x2 = seeds[3][:, kk], seeds[4][:, kk], seeds[2][:, kk]
+        need = (k < old_n) & ((end - start) >= split_len) \
+            & (x2 <= split_width)
+        ret, *mems, mem_n = smem1a_batch_plain(
+            idx, q, qlen, (start + end) >> 1, x2 + 1, 0, need, cap)
+        seed_n = _append_filtered(seeds, seed_n, mems, mem_n, min_seed_len,
+                                  need)
+
+    # ---- pass 3: LAST-like seeding ----
+    x = _skip_amb(q, qlen, torch.zeros(B, dtype=i64, device=dev))
+    while bool((x < qlen).any()):
+        x = _skip_amb(q, qlen, x)
+        active = x < qlen
+        ret, found, r0, r1, r2, rs, re_ = seed_strategy1_batch_plain(
+            idx, q, qlen, x, min_seed_len, max_mem_intv, active)
+        seed_n = _push(seeds, seed_n, active & found & (r2 > 0),
+                       (r0, r1, r2, rs, re_))
+        x = W(active, ret.to(i64), x)
+
+    # ---- stable sort by info == (start, end) ----
+    shift = 32 if key64 else 16
+    key = (seeds[3] << shift) | seeds[4]
+    if not key64:  # the reference implementation's int32 key
+        key = key.to(torch.int32).to(i64)
+    big = (1 << 63) - 1 if key64 else (1 << 31) - 1
+    pad = torch.arange(cap_s, device=dev)[None, :] >= seed_n[:, None]
+    order = torch.sort(W(pad, torch.full_like(key, big), key), dim=1,
+                       stable=True).indices
+    out = [s.gather(1, order) for s in seeds]
+    cdt, i32 = idx["cdt"], torch.int32
+    return (*(s.to(cdt) for s in out[:3]), out[3].to(i32), out[4].to(i32),
+            seed_n.to(i32))
+
+
+# launches of each kernel of csrc/smem_batch.cu (its wrapper adds one a
+# launch): K9 sa_batch, K10a smem1a_batch, K10b seed_strategy1_batch, K11
+# collect_intv_device
+sa_launches = 0
+smem1a_launches = 0
+strategy1_launches = 0
+collect_launches = 0
+
+
+def sa_batch(idx, k, work=None):
+    """bwt_sa over the SA rows k [N]: kernel K9 (csrc/smem_batch.cu, a
+    thread a row) for a CUDA k, sa_batch_plain for a CPU one.  work: an
+    int64 [1] CUDA tensor to which K9 adds the walk steps it took."""
+    global sa_launches
+    if not k.is_cuda:
+        return sa_batch_plain(idx, k)
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    if "ssa" not in idx:
+        raise ValueError("sa_batch needs the sampled suffix array, which a "
+                         "light index (more than 2^20 text blocks) does not "
+                         "upload")
+    if idx["sa_intv"] != 32:
+        raise ValueError("K9 walks to multiples of 32 (sa_intv 32)")
+    cdt = idx["cdt"]
+    kk = k.to(cdt).contiguous()
+    out = torch.empty_like(kk)
+    cuda_kernels.sa_batch(idx["ckpt"].contiguous(), idx["words"].contiguous(),
+                          idx["ssa"].contiguous(),
+                          idx["L2"].to(torch.int64).contiguous(),
+                          idx["primary"], idx["seq_len"], cdt == torch.int64,
+                          kk, out, work)
+    sa_launches += 1
+    return out
+
+
+def _occ_tensors(idx, name):
+    occtab = idx.get("occtab")
+    if occtab is None or occtab.dtype != torch.int32 \
+            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
+        raise ValueError(f"{name} reads an int32 occtab of 8 or 32 text "
+                         f"words a row (R = 1 or 4), aligned to 16 bytes")
+    return occtab, idx["L2"].to(torch.int64).contiguous()
+
+
+def _lists_plan(q, per_read: int):
+    """Where a kernel of csrc/smem_batch.cu keeps a read's interval lists
+    (per_read bytes): (warps a block, blocks, shared bytes a block,
+    scratch, per_read) with the lists in shared memory, 4 warps a block,
+    halved while a block's would pass its 227 KB; or, past one warp's, in
+    a global scratch for 4 warps an SM, each warp taking reads in turn."""
+    B = q.shape[0]
+    for w in (4, 2, 1):
+        if w * per_read <= 232448:
+            return w, max(1, -(-B // w)), w * per_read, None, per_read
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    blocks = max(1, min(-(-B // 4), sms))
+    return 4, blocks, 0, torch.empty(blocks * 4 * per_read,
+                                     dtype=torch.uint8, device=q.device), \
+        per_read
+
+
+def smem1a_batch(idx, q, qlen, x, min_intv, max_intv, active, cap: int,
+                 work=None):
+    """bwt_smem1a one read a lane: kernel K10a (csrc/smem_batch.cu, a warp
+    a read) for CUDA codes, smem1a_batch_plain for CPU ones; same
+    arguments and outputs.  work: an int64 [1] CUDA tensor to which K10a
+    adds the intervals it extended."""
+    global smem1a_launches
+    if not q.is_cuda:
+        return smem1a_batch_plain(idx, q, qlen, x, min_intv, max_intv,
+                                  active, cap)
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    occtab, L2 = _occ_tensors(idx, "K10a")
+    cdt, i32 = idx["cdt"], torch.int32
+    B = q.shape[0]
+    dev = q.device
+    ret = torch.empty(B, dtype=i32, device=dev)
+    mem_n = torch.empty(B, dtype=i32, device=dev)
+    m = [torch.zeros((B, cap), dtype=t, device=dev)
+         for t in (cdt, cdt, cdt, i32, i32)]
+    plan = _lists_plan(q, 2 * cap * 4 * cdt.itemsize)
+    cuda_kernels.smem1a(occtab, L2, idx["primary"], idx["seq_len"],
+                        cdt == torch.int64, q.to(torch.uint8).contiguous(),
+                        qlen.to(i32).contiguous(), x.to(i32).contiguous(),
+                        min_intv.to(cdt).contiguous(), int(max_intv),
+                        active.to(torch.uint8).contiguous(), cap, ret, *m,
+                        mem_n, plan, work)
+    smem1a_launches += 1
+    return (ret, *m, mem_n)
+
+
+def seed_strategy1_batch(idx, q, qlen, x, min_len, max_intv, active,
+                         work=None):
+    """bwt_seed_strategy1 one read a lane: kernel K10b (csrc/smem_batch.cu,
+    a warp a read) for CUDA codes, seed_strategy1_batch_plain for CPU
+    ones; same arguments and outputs."""
+    global strategy1_launches
+    if not q.is_cuda:
+        return seed_strategy1_batch_plain(idx, q, qlen, x, min_len,
+                                          max_intv, active)
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    occtab, L2 = _occ_tensors(idx, "K10b")
+    cdt, i32 = idx["cdt"], torch.int32
+    B = q.shape[0]
+    dev = q.device
+    ret = torch.empty(B, dtype=i32, device=dev)
+    found = torch.empty(B, dtype=torch.uint8, device=dev)
+    r = [torch.empty(B, dtype=cdt, device=dev) for _ in range(3)]
+    xx = x.to(i32).contiguous()
+    cuda_kernels.strategy1(occtab, L2, idx["primary"], idx["seq_len"],
+                           cdt == torch.int64, q.to(torch.uint8).contiguous(),
+                           qlen.to(i32).contiguous(), xx, int(min_len),
+                           int(max_intv), active.to(torch.uint8).contiguous(),
+                           ret, found, *r, work)
+    strategy1_launches += 1
+    return (ret, found.bool(), *r, xx.clone(), ret.clone())
+
+
+def collect_intv_device(idx, q, qlen, min_seed_len, split_len, split_width,
+                        max_mem_intv, cap: int, cap_s: int, key64: bool,
+                        work=None):
+    """mem_collect_intv's three passes fused, one read a lane: kernel K11
+    (csrc/smem_batch.cu, a warp a read on K10's device code; it shares no
+    code with K1, whose cross-check it is) for CUDA codes,
+    collect_intv_device_plain for CPU ones; same arguments and outputs."""
+    global collect_launches
+    if not q.is_cuda:
+        return collect_intv_device_plain(idx, q, qlen, min_seed_len,
+                                         split_len, split_width,
+                                         max_mem_intv, cap, cap_s, key64)
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    occtab, L2 = _occ_tensors(idx, "K11")
+    cdt, i32 = idx["cdt"], torch.int32
+    B = q.shape[0]
+    dev = q.device
+    # the seeds as appended (zeros past seed_n, as the plain version's),
+    # then sorted into the outputs
+    raw = torch.zeros((B, cap_s, 5), dtype=cdt, device=dev)
+    out = [torch.empty((B, cap_s), dtype=t, device=dev)
+           for t in (cdt, cdt, cdt, i32, i32)]
+    seed_n = torch.empty(B, dtype=i32, device=dev)
+    plan = _lists_plan(q, 13 * cap * cdt.itemsize)
+    cuda_kernels.collect_intv(
+        occtab, L2, idx["primary"], idx["seq_len"], cdt == torch.int64,
+        q.to(torch.uint8).contiguous(), qlen.to(i32).contiguous(),
+        int(min_seed_len), int(split_len), int(split_width),
+        int(max_mem_intv), cap, cap_s, bool(key64), raw, *out, seed_n, plan,
+        work)
+    collect_launches += 1
+    return (*out, seed_n)
+
+
+# the switch that selects each seeding route other than the default
+ROUTE_SWITCH = {"split": "BWA_TPU_SEED_MACHINE=split",
+                "compact": "BWA_TPU_SEED_COMPACT"}
+
+
+def seed_route() -> str:
+    """The seeding route collect_seeds takes, as bwa_tpu reads it from the
+    environment: "split" (BWA_TPU_SEED_MACHINE=split: three calls, one a
+    pass, on K1's state mode), "compact" (BWA_TPU_SEED_COMPACT: the
+    machine in segments, finished lanes compacted away between them) or
+    "unified" (the default)."""
     if os.environ.get("BWA_TPU_SEED_MACHINE", "unified") == "split":
-        raise NotImplementedError(
-            "BWA_TPU_SEED_MACHINE=split (the three-call seeding route) is "
-            "not ported yet; unset it for the unified machine")
+        return "split"
     if os.environ.get("BWA_TPU_SEED_COMPACT"):
-        raise NotImplementedError(
-            "BWA_TPU_SEED_COMPACT (K1's tail-compaction mode) is not ported "
-            "yet; unset it")
+        return "compact"
+    return "unified"
 
 
 class BatchedFMEngine:
@@ -538,7 +996,6 @@ class BatchedFMEngine:
     # ---- seeding ----
 
     def _consts(self, opt, L: int, stack_cap):
-        unported_routes()
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
         if stack_cap is None:
             stack_cap = int(os.environ.get("BWA_TPU_STACK_CAP", "16"))
@@ -691,15 +1148,183 @@ class BatchedFMEngine:
             if e is not None:
                 e.synchronize()
         meta = np.concatenate([m.cpu().numpy() for m in meta], axis=1)
+        self.last_done = (meta[2],)
+        self.last_steps = (int(meta[3].max(initial=0)),)
         return self._fetch_seeds(seeds, meta[0], meta[1] != 0, cap_s)
 
     def collect_seeds(self, q_pad: np.ndarray, qlen: np.ndarray, opt,
-                      cap_s: int, stack_cap: int | None = None, shard=None):
-        """3-pass seed collection on the device, dispatch + wait back to
-        back.  Returns numpy (s0, s1, s2, ss, se, seed_n[, tag])."""
-        h = self.collect_seeds_dispatch(q_pad, qlen, opt, cap_s, stack_cap,
-                                        shard=shard)
-        return self.collect_seeds_wait(h)
+                      cap_s: int, fused: bool = False,
+                      stack_cap: int | None = None, shard=None):
+        """3-pass seed collection on the device.  Returns numpy (s0, s1,
+        s2, ss, se, seed_n[, tag]).
+
+        Default: the unified machine, dispatch + wait back to back.
+        fused=True: collect_intv_device (kernel K11 on a CUDA engine), the
+        lock-step cross-check program, lists of L + 2 rows, seed_n as it
+        counted.  seed_route() "split": pass 1, pass 2 and pass 3 as three
+        runs of the machine (smem_machine, seed3_machine; K12); "compact":
+        the machine in segments, the lanes still running gathered into
+        fewer between them (_compact; K13).  The split and compact routes
+        run on the engine's first device even on a mesh, take their stack
+        cap from BWA_TPU_STACK_CAP alone and do not read shard (their seed
+        store has no tag column), as bwa_tpu's do; every route leaves
+        last_done and last_steps as bwa_tpu's engine does."""
+        B, L = q_pad.shape
+        split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+        route = seed_route()
+        if not fused and route == "unified":
+            h = self.collect_seeds_dispatch(q_pad, qlen, opt, cap_s,
+                                            stack_cap, shard=shard)
+            return self.collect_seeds_wait(h)
+        qd = _to_dev(q_pad, self.device)
+        qld = _to_dev(qlen, self.device, np.int32)
+        if fused:
+            out = collect_intv_device(
+                self.idx, qd, qld, opt.min_seed_len, split_len,
+                opt.split_width, opt.max_mem_intv, cap=L + 2, cap_s=cap_s,
+                key64=bool(L >= 32768))
+            return [o.cpu().numpy() for o in out]
+        from bwa_tpu_torch.ops import fm_machine
+
+        nvd = _next_valid_device(qd, qld)
+        # a step's cost follows the stacks' size; a deeper read is flagged
+        # and climbs the caller's ladder or goes to the host spec
+        stack_cap = min(int(os.environ.get("BWA_TPU_STACK_CAP", "16")),
+                        L + 2)
+        run = self._split if route == "split" else self._compact
+        seeds, seed_n, ovf = run(qd, qld, nvd, opt, split_len, stack_cap,
+                                 cap_s)
+        seeds = fm_machine.sort_seeds(seeds, seed_n, key64=bool(L >= 32768))
+        return self._fetch_seeds([seeds], seed_n.cpu().numpy(),
+                                 ovf.cpu().numpy(), cap_s)
+
+    def _split(self, qd, qld, nvd, opt, split_len, cap, cap_s):
+        """The three-call route (bwa_tpu's BWA_TPU_SEED_MACHINE=split): pass
+        1, pass 2 from pass 1's rows, then pass 3 when max_mem_intv > 0
+        (its own overflow flag dropped, as bwa_tpu's).  Returns (seeds,
+        seed_n, ovf); last_done holds each SMEM pass's done_step,
+        last_steps the three runs' steps (0 for a pass 3 not run)."""
+        from bwa_tpu_torch.ops import fm_machine as fmm
+
+        B = qd.shape[0]
+        seeds = torch.zeros((B, cap_s, 5), dtype=self.idx["cdt"],
+                            device=qd.device)
+        seed_n = torch.zeros(B, dtype=torch.int32, device=qd.device)
+        consts = (opt.min_seed_len, split_len, opt.split_width)
+        seeds, seed_n, st1, ov1, ds1 = fmm.smem_machine(
+            self.idx, qd, qld, nvd, *consts, seeds, seed_n,
+            torch.zeros_like(seed_n), cap=cap, cap_s=cap_s, pass2=False)
+        seeds, seed_n, st2, ov2, ds2 = fmm.smem_machine(
+            self.idx, qd, qld, nvd, *consts, seeds, seed_n, seed_n,
+            cap=cap, cap_s=cap_s, pass2=True)
+        st3 = 0
+        if opt.max_mem_intv > 0:
+            seeds, seed_n, st3 = fmm.seed3_machine(
+                self.idx, qd, qld, nvd, opt.min_seed_len, opt.max_mem_intv,
+                seeds, seed_n, cap_s=cap_s)
+        self.last_done = (ds1.cpu().numpy(), ds2.cpu().numpy())
+        self.last_steps = tuple(int(s) for s in (st1, st2, st3))
+        return seeds, seed_n, ov1 | ov2
+
+    def _compact(self, qd, qld, nvd, opt, split_len, cap, cap_s):
+        """Tail compaction (bwa_tpu's BWA_TPU_SEED_COMPACT): a first segment
+        of BWA_TPU_SEED_SEG (448) steps, later ones of BWA_TPU_SEED_SEG2
+        (256), each lane's results written home after every segment; then
+        the lanes still running are gathered into max(256, next power of
+        two) lanes (the rest parked, writing to a junk row B), or, if that
+        would not shrink the launch, run out in place; at 256 lanes or
+        fewer a segment runs to the end.  One host read a segment (steps
+        and phases).  Returns (seeds, seed_n, ovf); last_done is zeros,
+        last_steps the run's steps, last_levels (lanes, steps so far,
+        lanes still running) after each segment.
+
+        Unlike bwa_tpu's, a segment to the end runs to the end whatever
+        steps came before: bwa_tpu adds its 0x7fffffff budget to the step
+        count in int32, which wraps once a segment has run, so that there
+        such a segment runs no step and its lanes keep part of their
+        seeds."""
+        from bwa_tpu_torch.ops import fm_machine as fmm
+
+        B = qd.shape[0]
+        dev = qd.device
+        use_p3 = bool(opt.max_mem_intv > 0)
+        consts = (opt.min_seed_len, split_len, opt.split_width,
+                  opt.max_mem_intv)
+        seg0 = int(os.environ.get("BWA_TPU_SEED_SEG", "448"))
+        seg = int(os.environ.get("BWA_TPU_SEED_SEG2", "256"))
+        min_b = 256
+        state = fmm.seed_state_init(B, cap, cap_s, dev)
+        out_seeds = torch.zeros((B + 1, cap_s, 5), dtype=torch.int64,
+                                device=dev)
+        out_sn = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+        out_ovf = torch.zeros(B + 1, dtype=torch.bool, device=dev)
+        orig = torch.arange(B, device=dev)
+        q_l, ql_l, nv_l = qd, qld, nvd
+        B_l, ms = B, seg0
+        levels = []
+        while True:
+            if B_l <= min_b:
+                ms = fmm.BIG_STEPS
+            state = fmm.segment(state, self.idx, q_l, ql_l, nv_l, *consts,
+                                ms, cap, cap_s, use_p3)
+            # this level's results home (a running lane's are overwritten
+            # by a later level's)
+            out_seeds[orig] = state["seeds"]
+            out_sn[orig] = state["seed_n"]
+            out_ovf[orig] = state["ovf"]
+            steps, phase = _steps_phase(state)
+            alive = np.nonzero(phase != fmm.P_DONE)[0]
+            levels.append((B_l, steps, int(alive.size)))
+            if alive.size == 0 or ms == fmm.BIG_STEPS:
+                break
+            B2 = max(min_b, 1 << int(alive.size - 1).bit_length())
+            if B2 >= B_l:  # too few lanes retired to shrink: run out
+                ms = fmm.BIG_STEPS
+                continue
+            pad = np.zeros(B2, np.int64)
+            pad[:alive.size] = alive
+            pidx = torch.from_numpy(pad).to(dev)
+            live = torch.arange(B2, device=dev) < alive.size
+            state = {k: v[pidx] if torch.is_tensor(v) and v.dim() >= 1
+                     and v.shape[0] == B_l else v for k, v in state.items()}
+            state["phase"] = torch.where(
+                live, state["phase"],
+                torch.full_like(state["phase"], fmm.P_DONE))
+            orig = torch.where(live, orig[pidx],
+                               torch.full_like(orig[pidx], B))
+            q_l, ql_l, nv_l = q_l[pidx], ql_l[pidx], nv_l[pidx]
+            B_l, ms = B2, seg
+        self.last_done = (np.zeros(B, np.int32),)
+        self.last_steps = (levels[-1][1],)
+        self.last_levels = levels
+        return (out_seeds[:B].to(self.idx["cdt"]),
+                out_sn[:B].to(torch.int32), out_ovf[:B])
+
+    def smem_pass(self, q_pad: np.ndarray, qlen: np.ndarray, x: np.ndarray,
+                  min_intv: np.ndarray, max_intv: int, active: np.ndarray,
+                  cap: int):
+        """One bwt_smem1a call a read on the engine's device (smem1a_batch;
+        K10a on a CUDA engine): numpy in, numpy [ret, m0, m1, m2, ms, me,
+        mem_n] out."""
+        dev = self.device
+        out = smem1a_batch(
+            self.idx, _to_dev(q_pad, dev), _to_dev(qlen, dev, np.int32),
+            _to_dev(x, dev, np.int32),
+            _to_dev(min_intv, dev, self.fm.coord_dtype), int(max_intv),
+            _to_dev(active, dev, bool), cap)
+        return [o.cpu().numpy() for o in out]
+
+    def seed3_pass(self, q_pad, qlen, x, min_len: int, max_intv: int,
+                   active):
+        """One bwt_seed_strategy1 call a read on the engine's device
+        (seed_strategy1_batch; K10b on a CUDA engine): numpy [ret, found,
+        r0, r1, r2, start, end] out."""
+        dev = self.device
+        out = seed_strategy1_batch(
+            self.idx, _to_dev(q_pad, dev), _to_dev(qlen, dev, np.int32),
+            _to_dev(x, dev, np.int32), int(min_len), int(max_intv),
+            _to_dev(active, dev, bool))
+        return [o.cpu().numpy() for o in out]
 
     def _fetch_seeds(self, seeds, sn, ovf, cap_s: int):
         """Seed transfer (seeds: one array a shard) narrowed to a bucketed
@@ -719,3 +1344,19 @@ class BatchedFMEngine:
         if sd.shape[2] > 5:  # sharded run: provenance column last
             out = out + (sd[:, :, 5],)
         return out
+
+
+def _to_dev(a, dev, dtype=None) -> torch.Tensor:
+    a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
+    return torch.from_numpy(a).to(dev)
+
+
+def _steps_phase(state) -> tuple[int, np.ndarray]:
+    """A machine state's steps and per-lane phases on the host, in one
+    copy when they lie on a card."""
+    st = state["steps"]
+    if torch.is_tensor(st):
+        both = torch.cat([st.to(torch.int64).reshape(1),
+                          state["phase"].to(torch.int64)]).cpu().numpy()
+        return int(both[0]), both[1:]
+    return int(st), state["phase"].cpu().numpy()

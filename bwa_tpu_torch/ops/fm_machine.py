@@ -8,17 +8,23 @@ pass 3 LAST-like seeds (bwt_seed_strategy1, bwt.c:358-379).
 
 seed_machine_seg is the plain version: one machine step of every lane per
 loop iteration as masked tensor ops, a line-for-line port of the JAX
-package's ops/fm_machine.py::seed_machine_seg, retire-and-refill mode
-included (segmented runs for tail compaction are not ported).  The CUDA
+package's ops/fm_machine.py::seed_machine_seg, retire-and-refill mode and
+segmented runs (max_steps, resumed from the state it returns) included;
+a stage range (last_stage, and a fixed pass-2 job table) runs one pass
+alone, as the JAX package's smem_machine and seed3_machine do.  The CUDA
 kernel (csrc/seed_machine.cu, kernel K1) runs the same machine with a warp
 per lane until the lane is done, extending all entries of a backward row
 at once; bwd_row_resolve is the plain form of how it orders that row's
 pushes and emit.  Its refill mode runs a warp a lane below twice the lanes
 resident at once, and from there in a group form, 2R threads a lane
 taking one plain step at a time (a backward row one entry a step:
-bwd_row_serial).
-seed_machine and seed_machine_refill dispatch: a CUDA tensor launches K1,
-a CPU tensor takes the plain version.
+bwd_row_serial).  Its state mode (segment: the per-lane state loaded from
+and stored to the state dict, a step budget, a stage range) runs the
+split route's passes (smem_machine, seed3_machine: K12) and the tail
+compaction's segments (K13).
+seed_machine, seed_machine_refill, segment, smem_machine and seed3_machine
+dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
+version.
 
 Emission order within a lane differs from the reference's collection
 order; sort_seeds (stable by (start, end)) makes the result identical.
@@ -87,10 +93,18 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
                      split_len, split_width, max_intv3, max_steps: int,
                      cap: int, cap_s: int, use_p3: bool, hi1=None, hi3=None,
                      tagged: bool = False, refill: bool = False,
-                     n_queue: int = 0, cap_r: int = 0) -> dict:
+                     n_queue: int = 0, cap_r: int = 0,
+                     last_stage: int = S_P3, jobs=None) -> dict:
     """Run at most max_steps more machine steps over every lane (the plain
-    version of kernel K1).  q: [B, L] codes; qlen, hi1, hi3: [B]; nv:
-    [B, L+1] next-valid table.  Updates and returns the state dict.
+    version of kernel K1; K13 in its state mode).  q: [B, L] codes; qlen,
+    hi1, hi3: [B]; nv: [B, L+1] next-valid table.  Updates and returns the
+    state dict; a later call with the same inputs resumes it exactly.
+
+    Stage range: a lane starts in the stage its state holds and is done
+    when it exhausts last_stage's jobs.  jobs: a fixed [B, cap_s, 5] table
+    of pass-2 jobs (the rows of a finished pass 1), read in place of the
+    live seed store and its qualification bits (the JAX package's
+    smem_machine(pass2=True) fixes its job tables at entry).
 
     Lane sharding (long reads): hi1/hi3 bound the pass-1/pass-3 start
     cursors per lane (defaults: qlen).  With K lanes per read, lane k
@@ -128,6 +142,7 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
     L2r = idx["L2"][:4].to(i64)[None, :]
     primary = idx["primary"]
     W = lambda m, a, b: torch.where(m, a, b)  # noqa: E731
+    d["steps"] = int(d["steps"])  # a state K13 left holds a tensor
     stop_at = d["steps"] + max_steps
 
     def vread(vec, pos):
@@ -157,14 +172,20 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         m2 = (nx & st1m).nonzero().squeeze(1)
         if m2.numel():
             old_n = d["old_n"][m2][:, None]
-            cand = d["qmask"][m2] & (sidx[None, :] < old_n) \
+            if jobs is None:
+                qual = d["qmask"][m2]
+            else:
+                jr = jobs[m2]
+                qual = ((jr[:, :, 4] - jr[:, :, 3]) >= split_len) \
+                    & (jr[:, :, 2] <= split_width)
+            cand = qual & (sidx[None, :] < old_n) \
                 & (sidx[None, :] >= d["job"][m2][:, None])
             jj_first = W(cand, sidx[None, :], torch.full_like(sidx, cap_s)
                          [None, :]).min(dim=1).values
             jj[m2] = W(jj_first < cap_s, jj_first, old_n[:, 0])
         k = jj.clamp(max=cap_s - 1)
         have_s1 = nx & st1m & (jj < d["old_n"])
-        row = _row_read(d["seeds"], k)
+        row = _row_read(d["seeds"] if jobs is None else jobs, k)
         x_s1 = (row[:, 3] + row[:, 4]) >> 1
         if tagged:
             d["cur_tag"] = W(have_s1, (row[:, 3] << 15) | row[:, 4],
@@ -177,9 +198,9 @@ def seed_machine_seg(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
         d["x"] = W(have, x_new, d["x"])
 
         exh = nx & ~have
-        to_s2 = exh & (d["stage"] == S_P1)
-        to_s3 = exh & st1m & use_p3
-        to_done = exh & (st2m | (st1m & (not use_p3)))
+        to_s2 = exh & (d["stage"] == S_P1) & (last_stage > S_P1)
+        to_s3 = exh & st1m & use_p3 & (last_stage > S_P2)
+        to_done = exh & ~to_s2 & ~to_s3
         d["old_n"] = W(to_s2, d["seed_n"], d["old_n"])
         d["stage"] = W(to_s2, torch.full_like(d["stage"], S_P2),
                        W(to_s3, torch.full_like(d["stage"], S_P3),
@@ -680,3 +701,165 @@ def sort_seeds(seeds, seed_n, key64: bool):
     key = torch.where(pad, torch.full_like(key, big), key)
     order = torch.sort(key, dim=1, stable=True).indices
     return torch.gather(seeds, 1, order[:, :, None].expand_as(seeds))
+
+
+# ---------------------------------------------------------------------------
+# K1's state mode: the split route's passes (K12) and tail compaction's
+# segments (K13)
+# ---------------------------------------------------------------------------
+
+# the per-lane scalar fields of the state dict, in the kernel's row order
+# (ik takes three rows: x0, x1, x2)
+SEG_FIELDS = ("phase", "stage", "old_n", "job", "x", "minv", "ik",
+              "info_end", "i", "j", "an", "bn", "cur_is_a", "rev_read",
+              "last_x2", "call_last_start", "call_mem_n", "ret", "seed_n",
+              "ovf", "done_step")
+_BOOL_FIELDS = ("cur_is_a", "rev_read", "ovf")
+BIG_STEPS = 1 << 62  # a segment that runs every lane to done
+
+# launches of K1's state mode: the split route's pass 1 and pass 2
+# (smem_machine, K12a), its pass 3 (seed3_machine, K12b), and tail
+# compaction's segments (segment, K13); each wrapper adds one a launch
+smem_launches = 0
+seed3_launches = 0
+segment_launches = 0
+
+
+def segment(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
+            split_len, split_width, max_intv3, max_steps: int, cap: int,
+            cap_s: int, use_p3: bool, last_stage: int = S_P3,
+            jobs=None) -> dict:
+    """At most max_steps more steps of every lane of the state d (from
+    seed_state_init, untagged), resumed where d stands: kernel K13 (K1's
+    state mode) for CUDA codes, seed_machine_seg for CPU ones.  Returns
+    the state, the same on both devices field for field (steps a [1]
+    int32 tensor after a launch, an int after the plain version)."""
+    global segment_launches
+    args = (d, idx, q, qlen, next_valid, min_seed_len, split_len,
+            split_width, max_intv3, max_steps, cap, cap_s, use_p3,
+            last_stage, jobs)
+    if q.is_cuda:
+        d = _launch_state(*args)
+        segment_launches += 1
+        return d
+    return _plain_state(*args)
+
+
+def _plain_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
+                 split_width, max_intv3, max_steps, cap, cap_s, use_p3,
+                 last_stage, jobs):
+    return seed_machine_seg(d, idx, q, qlen, next_valid, int(min_seed_len),
+                            int(split_len), int(split_width),
+                            int(max_intv3), max_steps, cap=cap, cap_s=cap_s,
+                            use_p3=use_p3, last_stage=last_stage,
+                            jobs=None if jobs is None
+                            else jobs.to(torch.int64))
+
+
+def _launch_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
+                  split_width, max_intv3, max_steps, cap, cap_s, use_p3,
+                  last_stage, jobs):
+    """One launch of K1's state mode: the state's per-lane fields packed
+    into one [fields, B] int64 tensor and its stacks into [B, 2, cap, 4],
+    loaded by each lane's warp, run for the step budget and stored back."""
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    i64, i32 = torch.int64, torch.int32
+    dev = q.device
+    occtab = idx.get("occtab")
+    if occtab is None or occtab.dtype != torch.int32 \
+            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
+        raise ValueError("K1's state mode reads an int32 occtab of 8 or 32 "
+                         "text words a row (R = 1 or 4), aligned to 16 "
+                         "bytes")
+    if d["seeds"].shape[2] != 5:
+        raise ValueError("K1's state mode runs untagged lanes")
+    for t in (q, qlen, next_valid, occtab, d["phase"]):
+        if not t.is_cuda:
+            raise ValueError("K1's state mode takes CUDA tensors")
+    rows = [d[k].to(i64)[:, None] if d[k].dim() == 1 else d[k].to(i64)
+            for k in SEG_FIELDS]
+    lanes = torch.cat(rows, dim=1).T.contiguous()
+    stk = torch.stack([d["stkA"], d["stkB"]], dim=1).to(i64).contiguous()
+    seeds = d["seeds"].to(i64).contiguous()
+    qmask = d["qmask"].contiguous()
+    st = d["steps"]
+    steps_in = (st.to(i32).reshape(1) if torch.is_tensor(st)
+                else torch.tensor([st], dtype=i32, device=dev))
+    steps_out = steps_in.clone()
+    cuda_kernels.seed_state(
+        occtab, idx["L2"].to(i64).contiguous(), idx["primary"],
+        idx["seq_len"], idx["cdt"] == i64, q.to(torch.uint8).contiguous(),
+        qlen.to(i32).contiguous(), next_valid.to(i32).contiguous(),
+        int(min_seed_len), int(split_len), int(split_width),
+        int(max_intv3), cap, cap_s, bool(use_p3), int(last_stage),
+        None if jobs is None else jobs.to(i64).contiguous(), lanes, stk,
+        seeds, qmask, steps_in, steps_out, int(max_steps))
+    f = 0
+    for k in SEG_FIELDS:
+        n = 3 if k == "ik" else 1
+        v = lanes[f:f + n].T if n == 3 else lanes[f]
+        d[k] = v != 0 if k in _BOOL_FIELDS else v
+        f += n
+    d["stkA"], d["stkB"] = stk[:, 0], stk[:, 1]
+    d["seeds"], d["qmask"], d["steps"] = seeds, qmask, steps_out
+    return d
+
+
+def _stage_state(idx, q, stage, cap, cap_s, seeds_in, seed_n_in,
+                 old_n=None) -> dict:
+    """A fresh state whose lanes start in `stage` with the seeds of the
+    passes before it."""
+    d = seed_state_init(q.shape[0], cap, cap_s, q.device)
+    d["stage"].fill_(stage)
+    d["seeds"] = seeds_in.to(torch.int64).clone()
+    d["seed_n"] = seed_n_in.to(torch.int64).clone()
+    if old_n is not None:
+        d["old_n"] = old_n.to(torch.int64).clone()
+    return d
+
+
+def smem_machine(idx, q, qlen, next_valid, min_seed_len, split_len,
+                 split_width, seeds_in, seed_n_in, old_n, cap: int,
+                 cap_s: int, pass2: bool):
+    """The split route's pass 1 (pass2=False) or pass 2 (pass2=True) run to
+    completion (the JAX package's ops/fm_machine.py::smem_machine): the
+    machine's stage range of that pass alone.  seeds_in [B, cap_s, 5]
+    coord dtype, seed_n_in [B]; pass 2 takes its jobs from the fixed
+    seeds_in[:old_n] and appends.  Returns (seeds, seed_n [B] int32, steps,
+    ovf [B] bool, done_step [B] int32).  A CUDA q launches K12a (K1's
+    state mode), a CPU q runs the plain version."""
+    global smem_launches
+    stage = S_P2 if pass2 else S_P1
+    d = _stage_state(idx, q, stage, cap, cap_s, seeds_in, seed_n_in,
+                     old_n if pass2 else None)
+    args = (d, idx, q, qlen, next_valid, min_seed_len, split_len,
+            split_width, 0, BIG_STEPS, cap, cap_s, False, stage,
+            seeds_in if pass2 else None)
+    if q.is_cuda:
+        d = _launch_state(*args)
+        smem_launches += 1
+    else:
+        d = _plain_state(*args)
+    return (d["seeds"].to(idx["cdt"]), d["seed_n"].to(torch.int32),
+            d["steps"], d["ovf"], d["done_step"].to(torch.int32))
+
+
+def seed3_machine(idx, q, qlen, next_valid, min_len, max_intv, seeds_in,
+                  seed_n_in, cap_s: int):
+    """The split route's pass 3, bwt_seed_strategy1 over every start (the
+    JAX package's ops/fm_machine.py::seed3_machine): the machine's stage
+    range of pass 3 alone, appending to seeds_in.  Returns (seeds, seed_n
+    [B] int32, steps).  A CUDA q launches K12b (K1's state mode), a CPU q
+    runs the plain version."""
+    global seed3_launches
+    d = _stage_state(idx, q, S_P3, 1, cap_s, seeds_in, seed_n_in)
+    args = (d, idx, q, qlen, next_valid, min_len, 0, 0, max_intv,
+            BIG_STEPS, 1, cap_s, True, S_P3, None)
+    if q.is_cuda:
+        d = _launch_state(*args)
+        seed3_launches += 1
+    else:
+        d = _plain_state(*args)
+    return d["seeds"].to(idx["cdt"]), d["seed_n"].to(torch.int32), \
+        d["steps"]

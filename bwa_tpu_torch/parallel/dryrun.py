@@ -14,6 +14,9 @@ dryrun_multichip(n, device) runs on a small genome made from a seed
     engine's.
 On "cuda" the mesh is the first n cards when there are that many, else n
 shards on the current card; on "cpu" it is n CPU shards.
+
+entry(device) is the JAX package's flagship step (__graft_entry__.entry):
+bwt_smem1a and bwt_sa over 64 reads of the same small genome.
 """
 
 from __future__ import annotations
@@ -43,6 +46,38 @@ def _tiny_reads(fm, n=64, L=100, seed=1):
         for _ in range(3):
             q[i, int(rng.integers(0, L))] = int(rng.integers(0, 4))
     return q
+
+
+def entry(device: str = "cuda"):
+    """(fn, example_args): the JAX package's flagship device step
+    (__graft_entry__.entry) in the port -- one bwt_smem1a call a read from
+    position 0 (ops/fm.py::smem1a_batch, kernel K10a on a card), then
+    bwt_sa of each read's first mem's first row (sa_batch, K9) -- over
+    64 reads of 100 bases (three substitutions each) on _tiny_index's
+    20 kb genome, on `device`.  fn(idx, q, qlen, x, minv, active) returns
+    (ret, mem_n, pos)."""
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm = _tiny_index()
+    dev = torch.device(device)
+    idx = DeviceFMIndex(fm, device=dev).tree()
+    q = _tiny_reads(fm)
+    B, L = q.shape
+    cdt = idx["cdt"]
+
+    def fn(idx, q, qlen, x, minv, active):
+        ret, m0, _, _, _, _, mem_n = fm_ops.smem1a_batch(
+            idx, q, qlen, x, minv, 0, active, L + 2)
+        pos = fm_ops.sa_batch(idx, torch.where(mem_n > 0, m0[:, 0],
+                                               torch.ones_like(m0[:, 0])))
+        return ret, mem_n, pos
+
+    return fn, (idx, torch.from_numpy(q).to(dev),
+                torch.full((B,), L, dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev),
+                torch.ones(B, dtype=cdt, device=dev),
+                torch.ones(B, dtype=torch.bool, device=dev))
 
 
 def dry_mesh(n_devices: int, device: str):

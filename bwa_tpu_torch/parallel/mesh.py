@@ -17,7 +17,8 @@ shard_map over a one-axis "dp" mesh; here the same scheme in PyTorch:
     steps) is the maximum over shards, as the JAX package's pmax;
   * the PE pipeline's one batch-global collective, the insert-size
     candidates of mem_pestat (bwamem.c:1256-1259), is a gather in shard
-    order (pestat_allgather).
+    order (pestat_allgather); the JAX package's psums (sharded_seed_step)
+    are sums over the shards in shard order.
 
 A shard whose launch fails raises; nothing falls back to fewer devices.
 """
@@ -191,6 +192,47 @@ def sharded_seed_machine(trees, mesh: Mesh, opt, cap: int, cap_s: int):
     def step(q, qlen):
         seeds, seed_n, ovf, _, _ = fn(q, qlen)
         return seeds, seed_n, ovf
+
+    return step
+
+
+def sharded_seed_step(trees, mesh: Mesh, cap: int):
+    """The JAX package's multi-chip seeding step over the mesh: fn(q, qlen,
+    x) runs, on each shard's block of reads against its device's tree, one
+    bwt_smem1a call a read from x (ops/fm.py::smem1a_batch, kernel K10a on
+    a card) and bwt_sa of each read's first mem's first row
+    (ops/fm.py::sa_batch, K9), and sums two batch statistics over the
+    shards in shard order (the JAX package's psums): the reads seeded and
+    the sum of their positions.  Returns (ret, pos, mem_n) joined in shard
+    order on the mesh's first device, n_seeded and mean_pos (0-d tensors
+    there)."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    def step(q, qlen, x):
+        parts = blocks(q.shape[0], mesh.size)
+        ins = [(_to(q, sl, dev), _to(qlen, sl, dev), _to(x, sl, dev))
+               for sl, dev in zip(parts, mesh.devices)]
+        outs = []
+        for dev, (qd, qld, xd) in zip(mesh.devices, ins):
+            idx = trees[dev]
+            with guard(dev):
+                minv = torch.ones(qd.shape[0], dtype=idx["cdt"],
+                                  device=dev)
+                ret, m0, _, _, _, _, mem_n = fm_ops.smem1a_batch(
+                    idx, qd, qld, xd, minv, 0, xd < qld, cap)
+                has = mem_n > 0
+                pos = fm_ops.sa_batch(
+                    idx, torch.where(has, m0[:, 0], torch.ones_like(m0[:, 0])))
+                outs.append((ret, pos, mem_n, has.sum(dtype=torch.int32),
+                             torch.where(has, pos, torch.zeros_like(pos))
+                             .sum(dtype=pos.dtype)))
+        dev0 = mesh.devices[0]
+        n_seeded, mean_pos = outs[0][3].to(dev0), outs[0][4].to(dev0)
+        for o in outs[1:]:  # the psums, in shard order
+            n_seeded = n_seeded + o[3].to(dev0)
+            mean_pos = mean_pos + o[4].to(dev0)
+        return (*(_join([o[i] for o in outs], dev0) for i in range(3)),
+                n_seeded, mean_pos)
 
     return step
 

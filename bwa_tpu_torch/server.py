@@ -285,13 +285,20 @@ def launch_counts() -> dict:
     """Kernel launches so far in this process, each wrapper's count: "K2"
     counts K2's gather mode on both paths, "K2 wide" those of them at
     P > 1024, "K1 refill" K1's refill mode in either form, "K1 refill
-    group" those of them in its group form."""
+    group" those of them in its group form; K12a/K12b/K13 are K1's state
+    mode as the split route's SMEM passes, its pass 3 and compaction's
+    segments."""
     from bwa_tpu_torch.ops import (fm, fm_machine, gap_machine, ksw_band,
                                    ksw_full)
 
     return {"K1": fm_machine.launches,
             "K1 refill": fm_machine.refill_launches,
             "K1 refill group": fm_machine.refill_group_launches,
+            "K12a": fm_machine.smem_launches,
+            "K12b": fm_machine.seed3_launches,
+            "K13": fm_machine.segment_launches,
+            "K9": fm.sa_launches, "K10a": fm.smem1a_launches,
+            "K10b": fm.strategy1_launches, "K11": fm.collect_launches,
             "K8": fm.probe_launches, "K2": ksw_band.launches,
             "K2 wide": ksw_band.wide_launches,
             "K2 host-array": ksw_band.array_launches,

@@ -73,9 +73,11 @@ Without, in order:
      process's local one, the daemon's kernel launches, wall and card
      memory printed for each; the cold one-shot of the same mem SE command
      (BWA_TPU_NO_DAEMON=1); mem SE and aln again through the native client
-     (client_exe()); a bogus request through each client and mem with
-     BWA_TPU_SEED_COMPACT=1 (non-zero exits, the last with the engine's
-     NotImplementedError, the daemon serving on); `daemon stop` (exit 0,
+     (client_exe()); mem SE with BWA_TPU_SEED_COMPACT=1 (the daemon
+     serves it on the tail-compaction route: K13 launched in the daemon,
+     SAM equal to the main process's default-route run); a bogus request
+     through each client (non-zero exits, the daemon serving on);
+     `daemon stop` (exit 0,
      the socket gone); then stages the index with `shm` under
      build/smoke/shm (the BWA_TPU_SHM_DIR of the whole run, so that no
      staging elsewhere on the host stands in for the index), runs mem SE
@@ -100,6 +102,26 @@ Without, in order:
      then main_mem with -K in four chunks or more (SE against
      mem_se_150bp's SAM; PE with -I 350,40 against the one-chunk run with
      -I), printing each chunk's chunk_done_hook time;
+  4f. (run right after 4d) the seeding routes off the default path:
+     `mem` with BWA_TPU_SEED_MACHINE=split (K12: K1's state mode, pass 1,
+     pass 2, pass 3 a launch each) and with BWA_TPU_SEED_COMPACT=1 (K13:
+     the machine in segments, the lanes still running compacted between
+     them) on step 4d's 24,576 SE reads and 12,288 pairs, step 4a's
+     4,096 reads with -5 and its -x pacbio -5 reads, SAM equal to the
+     unified route's runs of them, K1 never launched; the -x pacbio reads
+     under each route (their lane shards need the provenance column these
+     routes' seed store lacks: refused with a ValueError that names the
+     route, as bwa_tpu's demux fails on them); each run's launches, K12 and
+     K13 event ms, segments and the lanes at each compaction level; then the
+     cross-check programs on the 4,096 SE reads, collect_seeds(fused=True)
+     (K11) and collect_intv_batch_unfused (K10a, K10b), seeds equal to the
+     unified route's read for read; sa_batch (K9) on 65,536 SA rows
+     against fm.sa_lookup; sharded_seed_step on two shards of the card and
+     the dry run's entry() on the 20 kb genome, each equal to its CPU run;
+     each new kernel's first launch (K12a's pass-2 launch too; K13's first
+     segment and one more) held to its plain version on the card on 256
+     of its lanes and its longest (the whole machine state for K12 and
+     K13), timed beside its bound;
   4e. (run right after 4b) the mesh, every visible card or, with one,
      two shards on cuda:0 (the log says which), as the CLI's engine
      (cli._ENGINE_CACHE, where the daemon keeps its own): mem on step 4d's
@@ -725,6 +747,10 @@ def zero_launches():
 
     fm_machine.launches = fm_machine.refill_launches = fm.probe_launches = 0
     fm_machine.refill_group_launches = 0
+    fm_machine.smem_launches = fm_machine.seed3_launches = 0
+    fm_machine.segment_launches = 0
+    fm.sa_launches = fm.smem1a_launches = fm.strategy1_launches = 0
+    fm.collect_launches = 0
     ksw_band.launches = ksw_band.wide_launches = 0
     ksw_band.array_launches = ksw_full.launches = 0
     gap_machine.launches = gap_machine.width_launches = 0
@@ -2487,6 +2513,558 @@ def seeding_route_phases(d, prefix, codes, pe, sam_se):
 
 
 # --------------------------------------------------------------------------
+# 4f. the seeding routes off the default path (K12, K13) and the
+# cross-check programs (K9, K10, K11)
+# --------------------------------------------------------------------------
+
+ROUTE_ENV = {"split": {"BWA_TPU_SEED_MACHINE": "split"},
+             "compact": {"BWA_TPU_SEED_COMPACT": "1"}}
+# each route's mem phases: (name, the FASTQs of step 4d or 4a, options, the
+# unified route's phase whose SAM must come out)
+ROUTE_PHASES = (
+    ("mem_se", ["mem_se_tripsort_off"], [], "mem_se_tripsort_off"),
+    ("mem_pe", ["mem_pe_tripsort_off", "mem_pe_tripsort_off_2"], [],
+     "mem_pe_tripsort_off"),
+    ("mem_se_primary5", ["mem_se_150bp_primary5"], ["-5"],
+     "mem_se_150bp_primary5"),
+    ("mem_pacbio_primary5", ["mem_pacbio_primary5"], ["-x", "pacbio", "-5"],
+     "mem_pacbio_primary5"))
+# K1's state mode: its per-lane fields, in and out (ops/fm_machine.py::
+# SEG_FIELDS, ik three of them)
+STATE_FIELDS = 23
+
+
+class SegmentRecorder:
+    """Stands in for fm_machine.segment (K13): keeps a copy of the first
+    call's state (the kernel updates the state in place) and inputs,
+    brackets every call with CUDA events, notes each call's phase, lanes
+    and step budget."""
+
+    def __init__(self):
+        from bwa_tpu_torch.ops import fm_machine
+
+        self.mod, self.real = fm_machine, fm_machine.segment
+        self.phase, self.first, self.calls, self.events = None, None, [], []
+        self.call_ms = {}
+        fm_machine.segment = self
+
+    def __call__(self, d, idx, q, qlen, nv, *rest):
+        import torch
+
+        if self.first is None:
+            self.first = ({k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in d.items()}, idx, q.clone(),
+                          qlen.clone(), nv.clone(), rest)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.real(d, idx, q, qlen, nv, *rest)
+        b.record()
+        self.events.append((len(self.calls), a, b))
+        self.calls.append(dict(phase=self.phase, lanes=int(q.shape[0]),
+                               max_steps=int(rest[4])))
+        return out
+
+    take_ms = Recorder.take_ms
+
+    def restore(self):
+        self.mod.segment = self.real
+
+
+class LevelLog:
+    """Wraps BatchedFMEngine._compact: each call's lanes, steps and lanes
+    still running after every segment (the engine's last_levels)."""
+
+    def __init__(self):
+        from bwa_tpu_torch.ops import fm
+
+        self.cls, self.real = fm.BatchedFMEngine, fm.BatchedFMEngine._compact
+        self.phase, self.levels = None, []
+        real, levels = self.real, self.levels
+
+        def compact(eng, *a, **kw):
+            out = real(eng, *a, **kw)
+            levels.append(dict(phase=self.phase, levels=[
+                dict(lanes=b, steps=s, running=r)
+                for b, s, r in eng.last_levels]))
+            return out
+
+        self.cls._compact = compact
+
+    def restore(self):
+        self.cls._compact = self.real
+
+
+def route_run(prefix, phase, fqs, extra, route, recs, device):
+    """`mem` on the FASTQs through the CLI on the device under a seeding
+    route, the launches counted from zero and each recorded wrapper's
+    event ms summed."""
+    import torch
+
+    from bwa_tpu_torch.cli import main as cli_main
+
+    for r in recs.values():
+        r.phase = phase
+        r.events = []
+    zero_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with env_set(**ROUTE_ENV[route]):
+        rc = cli_main(["mem", *extra, "--device", device, str(prefix),
+                       *map(str, fqs)], out_fp=out)
+    torch.cuda.synchronize()
+    sam, dt = out.getvalue(), time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{phase}: mem exited {rc}")
+    info = dict(phase=phase, route=route, seconds=dt,
+                launches=read_launches(),
+                kernel_event_ms={k: r.take_ms() for k, r in recs.items()
+                                 if hasattr(r, "take_ms")})
+    return info, sam
+
+
+def counted(phase, fn):
+    """fn() with the launches counted from zero: (its result, the phase's
+    record)."""
+    import torch
+
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(phase=phase, seconds=time.perf_counter() - t0,
+                     launches=read_launches())
+
+
+def state_rows(d, rows):
+    """Rows `rows` of a machine state (its per-lane tensors), a copy."""
+    import torch
+
+    B = d["phase"].shape[0]
+    return {k: v[rows].clone() if torch.is_tensor(v) and v.dim() >= 1
+            and v.shape[0] == B else v for k, v in d.items()}
+
+
+def states_equal(a, b):
+    """(every field of two machine states equal, the largest difference)."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    ok, err = True, 0
+    for k in fmm.SEG_FIELDS + ("stkA", "stkB", "seeds", "qmask", "steps"):
+        x, y = a[k], b[k]
+        x = x.cpu().long().reshape(-1) if torch.is_tensor(x) \
+            else torch.tensor([int(x)])
+        y = y.cpu().long().reshape(-1) if torch.is_tensor(y) \
+            else torch.tensor([int(y)])
+        ok &= torch.equal(x, y)
+        err = max(err, int((x - y).abs().max()) if x.numel() else 0)
+    return ok, err
+
+
+def spread_rows(n, extra, count=256):
+    """`count` rows spread over n, and the rows `extra` (the longest)."""
+    rows = set(range(0, n, max(1, n // count)))
+    rows.update(int(e) for e in extra)
+    return sorted(rows)
+
+
+def state_bytes(B, cap, cap_s, q, nv, occ):
+    """A launch of K1's state mode: the occtab, codes, lengths and
+    next-valid table read once; the per-lane fields and both stacks
+    (int64), the seed store (int64) and its bits read and written once."""
+    return (occ.numel() * 4 + q.numel() + q.shape[0] * 4 + nv.numel() * 4
+            + 2 * B * (STATE_FIELDS * 8 + 2 * cap * 4 * 8 + cap_s * 5 * 8
+                       + cap_s))
+
+
+def step_ops(steps, nw):
+    """K1's count for a lane step (k1_work): two masks at 5 ops a word an
+    end over nw/2 + 1 words, and ~64 ops of state update."""
+    return steps * (2 * 2 * 5 * (nw / 2 + 1) + 64)
+
+
+def check_k12(rec, name, pass2=None):
+    """A recorded K12 call (smem_machine, pass 1 or 2, or seed3_machine:
+    the first of step 4f) on all its lanes, timed; then the same launch of
+    K1's state mode on 256 of its lanes and its longest, its whole state
+    against the plain version's on the card (and its lane steps, from
+    done_step, for the bound)."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    i = 0 if pass2 is None else next(
+        j for j, (_, a, kw) in enumerate(rec.calls) if kw["pass2"] == pass2)
+    ph, args, kw = rec.calls[i]
+    fn = getattr(fmm, rec.name)
+    idx, q, qlen, nv = args[:4]
+    ms = cuda_time(lambda: fn(*args, **kw), 5)
+    if rec.name == "smem_machine":
+        p2 = kw["pass2"]
+        stage, cap = (fmm.S_P2 if p2 else fmm.S_P1), kw["cap"]
+        seeds, seed_n, old_n = args[7], args[8], args[9] if p2 else None
+        consts, use_p3, jobs = (*args[4:7], 0), False, p2
+    else:
+        stage, cap = fmm.S_P3, 1
+        seeds, seed_n, old_n = args[6], args[7], None
+        consts, use_p3, jobs = (args[4], 0, 0, args[5]), True, False
+
+    def state(rows=None):
+        r = (lambda t: t) if rows is None else (lambda t: t[rows])
+        d = fmm._stage_state(idx, r(q), stage, cap, kw["cap_s"], r(seeds),
+                             r(seed_n), None if old_n is None else r(old_n))
+        return d, (idx, r(q), r(qlen), r(nv), *consts, fmm.BIG_STEPS, cap,
+                   kw["cap_s"], use_p3, stage, r(seeds) if jobs else None)
+
+    d, a = state()
+    done = fmm._launch_state(d, *a)["done_step"]
+    rows = torch.as_tensor(spread_rows(q.shape[0], [int(done.argmax())]),
+                           device=q.device)
+    d, a = state(rows)
+    got = fmm._launch_state(d, *a)
+    d, a = state(rows)
+    want, plain_ms = timed_once(lambda: fmm._plain_state(d, *a))
+    equal, err = states_equal(got, want)
+    steps = int(done.sum())
+    occ = idx["occtab"]
+    nbytes = state_bytes(q.shape[0], cap, kw["cap_s"], q, nv, occ)
+    res = dict(phase=ph, call=i, ms=ms, plain_ms=plain_ms,
+               plain_shape=f"{len(rows)} lanes on the card",
+               equal=bool(equal), err=err,
+               shape=f"B={q.shape[0]} L={q.shape[1]} cap={cap} "
+                     f"cap_s={kw['cap_s']}" + (f" pass2={kw['pass2']}"
+                                               if "pass2" in kw else ""),
+               lane_steps=steps, longest_lane_steps=int(done.max()),
+               ns_per_step=per_unit(ms, int(done.max())), bytes=int(nbytes),
+               ops=float(step_ops(steps, occ.shape[1] - 4)))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
+    log(f"{name} {res}")
+    if not equal:
+        fail(f"{name} disagrees with its plain version at {ph}'s launch")
+    return res
+
+
+def check_k13(seg):
+    """K13's first main-path launch (the compaction route's first
+    segment) on all its lanes, timed from copies of its first state, and
+    on 256 of its lanes and the one that runs longest, two segments (the
+    first's budget, then a second of 256 steps) against the plain version
+    on the card, the whole state compared after each."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    d0, idx, q, qlen, nv, rest = seg.first
+    B = q.shape[0]
+    copies = [state_rows(d0, torch.arange(B, device=q.device))
+              for _ in range(6)]
+    fmm.segment(copies.pop(), idx, q, qlen, nv, *rest)  # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for c in copies:
+        fmm.segment(c, idx, q, qlen, nv, *rest)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / len(copies)
+    out = copies[-1]
+    steps_in, stop = (int(torch.as_tensor(x).reshape(-1)[0])
+                      for x in (d0["steps"], out["steps"]))
+    ran = torch.where(out["done_step"] > 0, out["done_step"],
+                      torch.full_like(out["done_step"], stop)) - steps_in
+    ran = torch.where(d0["phase"] == fmm.P_DONE, torch.zeros_like(ran), ran)
+    lane_steps = int(ran.sum())
+    longest = int(ran.argmax())
+    rows = torch.as_tensor(spread_rows(B, [longest]), device=q.device)
+    dc = state_rows(d0, rows)
+    dp = state_rows(d0, rows)
+    ins = (q[rows], qlen[rows], nv[rows])
+    res, plain_ms = [], None
+    for budget in (rest[4], 256):
+        r2 = (*rest[:4], budget, *rest[5:])
+        dc = fmm.segment(dc, idx, *ins, *r2)
+        torch.cuda.synchronize()
+        dp, t = timed_once(lambda: fmm._plain_state(dp, idx, *ins, *r2,
+                                                    fmm.S_P3, None))
+        plain_ms = t if plain_ms is None else plain_ms
+        res.append(states_equal(dc, dp))
+    equal = all(e for e, _ in res)
+    cap, cap_s = rest[5], rest[6]
+    occ = idx["occtab"]
+    nbytes = state_bytes(B, cap, cap_s, q, nv, occ)
+    info = dict(phase=seg.calls[0]["phase"], call=0, ms=ms,
+                plain_ms=plain_ms,
+                plain_shape=f"{len(rows)} lanes, the first segment",
+                equal=bool(equal), err=max(e for _, e in res),
+                shape=f"B={B} L={q.shape[1]} cap={cap} cap_s={cap_s} "
+                      f"max_steps={rest[4]}",
+                lane_steps=lane_steps, longest_lane_steps=int(ran.max()),
+                ns_per_step=per_unit(ms, int(ran.max())), bytes=int(nbytes),
+                ops=float(step_ops(lane_steps, occ.shape[1] - 4)))
+    info["bound_ms"], info["bound_by"] = bound(nbytes, info["ops"])
+    log(f"K13 {info}")
+    if not equal:
+        fail("K13 disagrees with its plain version at its first main-path "
+             "segment")
+    return info
+
+
+def check_smem_kernel(rec, name, keyed, count=256):
+    """A recorded K10a, K10b or K11 call (the first) on all its reads,
+    timed, its intervals extended counted by the kernel, and on `count`
+    of its reads and the one that extends most (keyed(out): per read)
+    against the plain version on the card."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    ph, args, kw = rec.calls[0]
+    fn = getattr(fm_ops, rec.name)
+    plain = getattr(fm_ops, rec.name + "_plain")
+    idx, q = args[0], args[1]
+    work = torch.zeros(1, dtype=torch.int64, device=q.device)
+    out = fn(*args, **kw, work=work)
+    ms = cuda_time(lambda: fn(*args, **kw), 5)
+    rows = torch.as_tensor(spread_rows(q.shape[0], [int(keyed(out).argmax())],
+                                       count), device=q.device)
+    sub = [idx] + [a[rows] if torch.is_tensor(a) and a.dim() >= 1
+                   and a.shape[0] == q.shape[0] else a for a in args[1:]]
+    got = fn(*sub, **kw)
+    want, plain_ms = timed_once(lambda: plain(*sub, **kw))
+    equal = all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+    err = max(int((g.cpu().long() - w.cpu().long()).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    occ = idx["occtab"]
+    n = int(work)
+    nbytes = occ.numel() * 4 + sum(a.numel() * a.element_size()
+                                   for a in args[1:] if torch.is_tensor(a)) \
+        + sum(o.numel() * o.element_size() for o in out)
+    res = dict(phase=ph, call=0, ms=ms, plain_ms=plain_ms,
+               plain_shape=f"{len(rows)} reads on the card", equal=equal,
+               err=err, shape=f"B={q.shape[0]} L={q.shape[1]}"
+               + "".join(f" {k}={v}" for k, v in kw.items()),
+               extensions=n, bytes=int(nbytes),
+               ops=float(step_ops(n, occ.shape[1] - 4)))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
+    log(f"{name} {res}")
+    if not equal:
+        fail(f"{name} disagrees with its plain version at {ph}'s launch")
+    return res
+
+
+def check_k9(idx, ks):
+    """K9 on the 65,536 rows: timed, its walk steps counted by the kernel,
+    against the plain version on the card (all rows)."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    work = torch.zeros(1, dtype=torch.int64, device=ks.device)
+    got = fm_ops.sa_batch(idx, ks, work=work)
+    ms = cuda_time(lambda: fm_ops.sa_batch(idx, ks), 10)
+    want, plain_ms = timed_once(lambda: fm_ops.sa_batch_plain(idx, ks))
+    equal = torch.equal(got, want)
+    walk = int(work)
+    nbytes = sum(idx[k].numel() * idx[k].element_size()
+                 for k in ("ckpt", "words", "ssa")) + 2 * ks.numel() * 4
+    # a walk step: the base at the row (a word), then its count over the
+    # block's 8 words at one end, one base: 5 ops a word, ~16 besides
+    res = dict(phase="sa_batch_65536", call=0, ms=ms, plain_ms=plain_ms,
+               plain_shape="all 65,536 rows on the card", equal=equal,
+               err=int((got.long() - want.long()).abs().max()),
+               shape=f"N={ks.numel()}", walk_steps=walk, bytes=int(nbytes),
+               ops=float(walk * (8 * 5 + 16)))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
+    log(f"K9 {res}")
+    if not equal:
+        fail("K9 disagrees with its plain version")
+    return res
+
+
+def read_lists(out, n):
+    """Per-read [(x0, x1, x2, info)] of collect_seeds' numpy arrays (None
+    for a read whose seeds overflowed the store)."""
+    s0, s1, s2, ss, se, sn = out[:6]
+    cap_s = s0.shape[1]
+    return [None if sn[b] > cap_s else
+            [(int(s0[b, j]), int(s1[b, j]), int(s2[b, j]),
+              (int(ss[b, j]) << 32) | int(se[b, j]))
+             for j in range(int(sn[b]))] for b in range(n)]
+
+
+def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
+    """Step 4f: `mem` under BWA_TPU_SEED_MACHINE=split (K12) and
+    BWA_TPU_SEED_COMPACT=1 (K13) on step 4d's 24,576 SE reads and 12,288
+    pairs, step 4a's 4,096 reads with -5 and its -x pacbio -5 reads (SAM
+    equal to the unified route's runs of them), the -x pacbio reads
+    (their lane shards refused, as bwa_tpu's demux fails on them); the
+    cross-check programs on the 4,096 SE reads (collect_seeds(fused=True),
+    K11, and collect_intv_batch_unfused, K10a and K10b: seeds equal to the
+    unified route's read for read), sa_batch (K9) on 65,536 rows against
+    fm.sa_lookup, sharded_seed_step and the dry run's entry() on the 20 kb
+    genome (card against CPU); each new kernel's first launch held to its
+    plain version on the card and timed.  Returns (phases, rows).  On the
+    CPU (device "cpu", a rehearsal) the plain versions stand in."""
+    import numpy as np
+    import torch
+
+    from bwa_tpu_torch.cli import main as cli_main
+    from bwa_tpu_torch.mem import batch_seed
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine
+    from bwa_tpu_torch.options import MemOptions
+    from bwa_tpu_torch.parallel import dryrun, mesh
+
+    t0 = time.perf_counter()
+    recs = {"K12a": Recorder(fm_machine, "smem_machine",
+                             keep=lambda out: None),
+            "K12b": Recorder(fm_machine, "seed3_machine",
+                             keep=lambda out: None),
+            "K13": SegmentRecorder()}
+    levels = LevelLog()
+    phases, refused = [], {}
+    try:
+        for route in ("split", "compact"):
+            for name, fqs, extra, ref in ROUTE_PHASES:
+                ph = f"{name}_{route}"
+                levels.phase = ph
+                info, sam = route_run(prefix, ph, [d / f"{f}.fq"
+                                                   for f in fqs],
+                                      extra, route, recs, device)
+                same_sam(ph, sam, (d / f"{ref}.out").read_text(),
+                         f"{ref}'s (the unified route)")
+                info[f"sam_equal_{ref}"] = True
+                c = info["launches"]
+                need = ("K12a", "K12b") if route == "split" else ("K13",)
+                if any(c[k] < 1 for k in need) or c["K1"] or c["K1 refill"]:
+                    fail(f"{ph}: launches {c}: expected {need}, no K1")
+                if route == "compact":
+                    info["compaction_levels"] = [
+                        x["levels"] for x in levels.levels if x["phase"] == ph]
+                info["segments"] = [x for x in recs["K13"].calls
+                                    if x["phase"] == ph]
+                log(f"step 4f {info}")
+                phases.append(info)
+            # -x pacbio's lane shards need the provenance column that these
+            # routes' seed store lacks (bwa_tpu's demux fails on them)
+            key = next(iter(ROUTE_ENV[route]))
+            with env_set(**ROUTE_ENV[route]):
+                try:
+                    cli_main(["mem", "-x", "pacbio", "--device", device,
+                              str(prefix), str(d / "mem_pacbio.fq")],
+                             out_fp=io.StringIO())
+                except ValueError as e:
+                    if key not in str(e):
+                        fail(f"mem_pacbio_{route}: {e!r} names no route")
+                    refused[route] = str(e)
+                else:
+                    fail(f"mem_pacbio_{route}: lane-sharded reads ran")
+        for r in recs.values():
+            r.take_ms()
+    finally:
+        for r in (*recs.values(), levels):
+            r.restore()
+    route_s = time.perf_counter() - t0
+    log(f"step 4f: the routes' phases in {route_s:.1f} s; pacbio refused "
+        f"{refused}")
+
+    # the cross-check programs on the 4,096 SE reads
+    opt = MemOptions()
+    eng = fm_ops.BatchedFMEngine(fm, device=device)
+    codes = [r for _, r in reads150]
+    n = len(codes)
+    unified = batch_seed.collect_intv_batch(opt, eng, codes)
+    crecs = {"K11": Recorder(fm_ops, "collect_intv_device"),
+             "K10a": Recorder(fm_ops, "smem1a_batch"),
+             "K10b": Recorder(fm_ops, "seed_strategy1_batch")}
+    try:
+        q, lens, _ = batch_seed._pad_reads(codes)
+        crecs["K11"].phase = "seeds_fused_4096"
+        crecs["K10a"].phase = crecs["K10b"].phase = "seeds_unfused_4096"
+        out, ph_f = counted("seeds_fused_4096", lambda: eng.collect_seeds(
+            q, lens, opt, 96, fused=True))
+        fused = read_lists(out, n)
+        diff = [b for b in range(n)
+                if fused[b] is not None and fused[b] != unified[b]]
+        over = sum(x is None for x in fused)
+        if diff or over > n // 100:
+            fail(f"seeds_fused_4096: reads {diff[:8]} differ from the "
+                 f"unified route's; {over} overflowed")
+        ph_f.update(reads_equal_unified=n - over, overflow_reads=over)
+        unf, ph_u = counted("seeds_unfused_4096", lambda: (
+            batch_seed.collect_intv_batch_unfused(opt, eng, codes)))
+        if unf != unified:
+            fail("seeds_unfused_4096: seeds differ from the unified route's")
+        ph_u["reads_equal_unified"] = n
+        rng = np.random.default_rng(SEED + 13)
+        ks = torch.from_numpy(rng.integers(0, fm.seq_len, 65536)).to(
+            eng.idx["cdt"]).to(device)
+        pos, ph_k9 = counted("sa_batch_65536",
+                             lambda: fm_ops.sa_batch(eng.idx, ks))
+        if not np.array_equal(pos.cpu().numpy(),
+                              fm.sa_lookup(ks.cpu().numpy())):
+            fail("sa_batch_65536: positions differ from fm.sa_lookup")
+        # the 20 kb genome: sharded_seed_step on two shards of the card and
+        # the dry run's entry(), each against its CPU run
+        tiny = dryrun._tiny_index()
+        qt = dryrun._tiny_reads(tiny)
+        lt = np.full(qt.shape[0], qt.shape[1], np.int32)
+        xt = np.random.default_rng(5).integers(0, 90, qt.shape[0]).astype(
+            np.int32)
+        from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+
+        cm = mesh.make_mesh(devices=[device] * 2)
+        tm = {cm.devices[0]: DeviceFMIndex(tiny, device=device).tree()}
+        hm = mesh.make_mesh(devices=["cpu", "cpu"])
+        th = {hm.devices[0]: DeviceFMIndex(tiny, device="cpu").tree()}
+        step = mesh.sharded_seed_step(tm, cm, qt.shape[1] + 2)
+        got, ph_s = counted("sharded_seed_step", lambda: step(qt, lt, xt))
+        want = mesh.sharded_seed_step(th, hm, qt.shape[1] + 2)(qt, lt, xt)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            fail("sharded_seed_step: the card's differs from the CPU's")
+        ph_s.update(n_seeded=int(got[3]), mean_pos=int(got[4]))
+        fn, args = dryrun.entry(device)
+        got, ph_e = counted("dryrun_entry", lambda: fn(*args))
+        fh, ah = dryrun.entry("cpu")
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, fh(*ah))):
+            fail("dryrun_entry: the card's step differs from the CPU's")
+        for ph, ks_ in ((ph_f, ("K11",)), (ph_u, ("K10a", "K10b")),
+                        (ph_k9, ("K9",)), (ph_s, ("K10a", "K9")),
+                        (ph_e, ("K10a", "K9"))):
+            if any(ph["launches"][k] < 1 for k in ks_):
+                fail(f"{ph['phase']}: launches {ph['launches']}: expected "
+                     f"{ks_}")
+            log(f"step 4f {ph}")
+        phases += [ph_f, ph_u, ph_k9, ph_s, ph_e]
+    finally:
+        for r in crecs.values():
+            r.restore()
+    # each kernel's first launch against its plain version, timed
+    rows = {"K12a": check_k12(recs["K12a"], "K12a", pass2=False),
+                "K12a pass 2": check_k12(recs["K12a"], "K12a", pass2=True),
+                "K12b": check_k12(recs["K12b"], "K12b"),
+                "K13": check_k13(recs["K13"]),
+                "K9": check_k9(eng.idx, ks),
+                "K10a": check_smem_kernel(crecs["K10a"], "K10a",
+                                          lambda o: o[6]),
+                "K10b": check_smem_kernel(crecs["K10b"], "K10b",
+                                          lambda o: o[0] - o[5]),
+                "K11": check_smem_kernel(crecs["K11"], "K11",
+                                         lambda o: o[5], count=64)}
+    rows["K12a"]["pass2_launch"] = rows.pop("K12a pass 2")
+    rows["K13"]["compaction_levels"] = [x for ph in phases
+                                        for x in ph.get("compaction_levels",
+                                                        [])]
+    rows["K13"]["pacbio_refused"] = refused
+    log(f"step 4f: {route_s:.1f} s of routes, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return phases, rows
+
+
+# --------------------------------------------------------------------------
 # 4e. the mesh (every card, or two shards on one) and two hosts
 # --------------------------------------------------------------------------
 
@@ -3212,14 +3790,21 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
                                   fq("mem_pe_150bp_2")], {}, "sam"),
                 ("mem_pacbio", ["mem", "-x", "pacbio", *dev, fa,
                                 fq("mem_pacbio")], {}, "sam"),
+                # and the tail-compaction route's switch: K13
+                ("mem_se_150bp_compact", ["mem", *dev, fa,
+                                          fq("mem_se_150bp")],
+                 {"BWA_TPU_SEED_COMPACT": "1"}, "sam"),
                 ("fastmap_150bp", ["fastmap", *dev, fa, fq("fastmap_150bp")],
                  {}, "text"),
                 ("aln_se_100bp", ["aln", *dev, fa, fq("aln_se_100bp")],
                  {"BWA_TPU_ALN": "device"}, "sai"),
                 ("samse_100bp", ["samse", fa, sai, fq("aln_se_100bp")], {},
                  "samse")]
+        # a route's request answers as the default route's local run
+        local = lambda ph: ph.removesuffix("_tripsort").removesuffix(  # noqa
+            "_compact")
         want = {"sam": lambda ph: records_of(
-                    (d / f"{ph.removesuffix('_tripsort')}.out").read_text()),
+                    (d / f"{local(ph)}.out").read_text()),
                 "text": lambda ph: (d / f"{ph}.out").read_text(),
                 "sai": lambda ph: sai.read_bytes(),
                 "samse": lambda ph: records_of(
@@ -3233,6 +3818,7 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
         # count only the card's kernels)
         need = {"mem_se_150bp": ("K1",),
                 "mem_se_150bp_tripsort": ("K1", "K8"),
+                "mem_se_150bp_compact": ("K13",),
                 "mem_pe_150bp": ("K1",),
                 "mem_pacbio": ("K1", "K2"), "fastmap_150bp": ("K1",),
                 "aln_se_100bp": ("K7", "K7w"), "samse_100bp": ()}
@@ -3287,14 +3873,7 @@ def daemon_phase(d: Path, prefix: str, device: str = "cuda") -> dict:
         if r1.returncode == 0 or r2.returncode == 0:
             fail(f"daemon: a bogus request exited {r1.returncode} (Python "
                  f"client), {r2.returncode} (native client)")
-        # a route the port has not yet is refused by the daemon's engine
-        r3, _ = client(["mem", *dev, fa, se], env, BWA_TPU_SEED_COMPACT="1")
-        if r3.returncode == 0 or b"[daemon] NotImplementedError" \
-                not in r3.stderr:
-            fail(f"daemon: BWA_TPU_SEED_COMPACT=1 exited {r3.returncode}: "
-                 f"{r3.stderr[-2000:]}")
-        info["bogus_exit_codes"] = [r1.returncode, r2.returncode,
-                                    r3.returncode]
+        info["bogus_exit_codes"] = [r1.returncode, r2.returncode]
         if proc.poll() is not None:
             fail(f"daemon died after the bogus requests: "
                  f"{dlog.read_text()[-2000:]}")
@@ -3564,6 +4143,10 @@ def main(argv) -> int:
         route_phases, k8, k1r, k1r_pending = seeding_route_phases(
             d, str(fa), codes, (pe1, pe2), sam_se)
         refill += [job for _, job, *_ in k1r_pending]
+
+        # 4f. the split and compaction routes (K12, K13) on 4d's and 4a's
+        # inputs, the cross-check programs (K9, K10, K11)
+        phases_4f, rows_4f = seeding_route_kernels(d, str(fa), fm, reads150)
         # the plain version of K1's lane-wide pacbio rung, on the host from
         # here on (minutes of it; step 6 waits for it)
         lane_wide = k1_lane_wide(recs["K1"])
@@ -3696,7 +4279,7 @@ def main(argv) -> int:
             err.close()
 
     mains = (phase_se, phase_pb, phase_pe, phase_w, *new_phases,
-             *route_phases)
+             *route_phases, *phases_4f)
     # step 4e's runs on the mesh engine (and the dry run's)
     mesh_mains = tuple(p for p in mesh_ph if "launches" in p)
     # the warp form of the refill mode is K1's kernel; the group form its own
@@ -3716,7 +4299,17 @@ def main(argv) -> int:
              "K2 ksw_band wide path (P > 1024)": lambda c: c["K2 wide"],
              "K2 ksw_band host-array mode": lambda c: c["K2 host-array"],
              "K5 ksw_full": lambda c: c["K5"], "K7 gap_machine":
-             lambda c: c["K7"], "K7w cal_width": lambda c: c["K7w"]}
+             lambda c: c["K7"], "K7w cal_width": lambda c: c["K7w"],
+             "K12a smem_machine, K1's state mode (split route passes 1, 2)":
+             lambda c: c["K12a"],
+             "K12b seed3_machine, K1's state mode (split route pass 3)":
+             lambda c: c["K12b"],
+             "K13 seed_machine_seg segments, K1's state mode (tail "
+             "compaction)": lambda c: c["K13"],
+             "K9 sa_batch": lambda c: c["K9"],
+             "K10a smem1a_batch": lambda c: c["K10a"],
+             "K10b seed_strategy1_batch": lambda c: c["K10b"],
+             "K11 collect_intv_device": lambda c: c["K11"]}
     kernels = []
     for name, src, repl, k, par, n, checked in (
             ("K1 seed_machine", "bwa_tpu_torch/csrc/seed_machine.cu",
@@ -3749,7 +4342,27 @@ def main(argv) -> int:
              (phase_aln_se, phase_aln_pe), None),
             ("K7w cal_width", "bwa_tpu_torch/csrc/gap_machine.cu",
              "bwa_tpu/ops/gap_machine.py:100", k7w, None,
-             (phase_aln_se, phase_aln_pe), k7w["calls"])):
+             (phase_aln_se, phase_aln_pe), k7w["calls"]),
+            ("K12a smem_machine, K1's state mode (split route passes 1, 2)",
+             "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm_machine.py:93", rows_4f["K12a"], None, mains,
+             None),
+            ("K12b seed3_machine, K1's state mode (split route pass 3)",
+             "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm_machine.py:733", rows_4f["K12b"], None, mains,
+             None),
+            ("K13 seed_machine_seg segments, K1's state mode (tail "
+             "compaction)", "bwa_tpu_torch/csrc/seed_machine.cu",
+             "bwa_tpu/ops/fm_machine.py:369", rows_4f["K13"], None, mains,
+             None),
+            ("K9 sa_batch", "bwa_tpu_torch/csrc/smem_batch.cu",
+             "bwa_tpu/ops/fm.py:201", rows_4f["K9"], None, mains, None),
+            ("K10a smem1a_batch", "bwa_tpu_torch/csrc/smem_batch.cu",
+             "bwa_tpu/ops/fm.py:319", rows_4f["K10a"], None, mains, None),
+            ("K10b seed_strategy1_batch", "bwa_tpu_torch/csrc/smem_batch.cu",
+             "bwa_tpu/ops/fm.py:481", rows_4f["K10b"], None, mains, None),
+            ("K11 collect_intv_device", "bwa_tpu_torch/csrc/smem_batch.cu",
+             "bwa_tpu/ops/fm.py:589", rows_4f["K11"], None, mains, None)):
         b_ms, b_by = bound(k["bytes"], k["ops"])
         on_mesh = sum(count[name](p["launches"]) for p in mesh_mains)
         kernels.append(dict(
@@ -3772,7 +4385,7 @@ def main(argv) -> int:
                                        "longest_lane_steps", "ns_per_step",
                                        "extending_positions",
                                        "one_row_extensions", "breaks",
-                                       "n_drawn",
+                                       "n_drawn", "extensions",
                                        "rows", "cells", "full_width_cells",
                                        "longest_rows", "ns_per_row")
                   if kk in k},
@@ -3780,7 +4393,9 @@ def main(argv) -> int:
                                     "launches_on_main_path",
                                     "main_path_checks", "small_check",
                                     "one_read_lanes", "design", "int64",
-                                    "attrs", "mesh_shard_checks")
+                                    "attrs", "mesh_shard_checks",
+                                    "pass2_launch", "compaction_levels",
+                                    "pacbio_refused")
                if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past

@@ -1,8 +1,8 @@
 """The hand-written kernels against their plain PyTorch versions on a CUDA
-card: K1 (csrc/seed_machine.cu, its refill mode too), K8 (the same
-source), K2 (csrc/ksw_band.cu, gather and
-host-array modes), K5 (csrc/ksw_full.cu) and K7/K7w (csrc/gap_machine.cu),
-exactly.  This file imports no
+card: K1 (csrc/seed_machine.cu, its refill mode and its state mode, K12
+and K13, too), K8 (the same source), K2 (csrc/ksw_band.cu, gather and
+host-array modes), K5 (csrc/ksw_full.cu), K7/K7w (csrc/gap_machine.cu) and
+K9, K10a, K10b, K11 (csrc/smem_batch.cu), exactly.  This file imports no
 JAX, so it runs on a card machine without it:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
@@ -1146,3 +1146,283 @@ def test_kernels_on_second_card_match_first(world, aln_reads):
     assert res[0].keys() == res[1].keys()
     for k, v in res[0].items():
         assert torch.equal(v, res[1][k]), k
+
+
+# ------------------------------------------ K12, K13: K1's state mode
+def _state_equal(got, want, what):
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    for k in fmm.SEG_FIELDS + ("stkA", "stkB", "seeds", "qmask", "steps"):
+        g, w = got[k], want[k]
+        g = g.cpu().long() if torch.is_tensor(g) else torch.tensor(int(g))
+        w = w.cpu().long() if torch.is_tensor(w) else torch.tensor(int(w))
+        assert torch.equal(g.reshape(w.shape), w), f"{what}: {k}"
+
+
+# (lanes, stack cap, seed cap, occtab R, coordinates) of the state mode's
+# tests: pack-2 lanes at default and tiny caps on both layouts and widths,
+# the tandem-repeat lanes (rows longer than a warp) once each way
+STATE_CASES = [("pack2", 16, 48, 1, "int32"), ("pack2", 16, 48, 4, "int64"),
+               ("pack2", 2, 4, 4, "int32"), ("pack2", 3, 8, 1, "int64"),
+               ("edge", 32, 64, 4, "int32"), ("edge", 32, 64, 1, "int64")]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
+def test_k12_split_passes_match_plain(world, repeat_world, lanes, cap, cap_s,
+                                      occ_r, coords):
+    """K12 (smem_machine's pass 1 and pass 2, seed3_machine) against the
+    plain stage range on the same device tensors: seeds as emitted,
+    seed_n, steps, ovf and done_step, each launch counted once."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import _next_valid_device
+
+    if lanes == "edge":
+        fm, q, ql = repeat_world
+    else:
+        fm, (q, ql, _) = world["fm"], _lanes(world, "pack2")
+    tt = _tree(fm, coords, occ_r)
+    qd, qld = torch.from_numpy(q).cuda(), torch.from_numpy(ql).cuda()
+    nv = _next_valid_device(qd, qld)
+    c = (19, 28, 10, 20)
+    outs = []
+    for plain in (False, True):
+        dev = "cpu" if plain else "cuda"
+        t = {k: (v.cpu() if torch.is_tensor(v) else v)
+             for k, v in tt.items()} if plain else tt
+        a = [x.to(dev) for x in (qd, qld, nv)]
+        s = torch.zeros((q.shape[0], cap_s, 5), dtype=tt["cdt"], device=dev)
+        n = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+        n1 = (fmm.smem_launches, fmm.seed3_launches)
+        p1 = fmm.smem_machine(t, *a, *c[:3], s, n, n, cap=cap, cap_s=cap_s,
+                              pass2=False)
+        p2 = fmm.smem_machine(t, *a, *c[:3], p1[0], p1[1], p1[1], cap=cap,
+                              cap_s=cap_s, pass2=True)
+        p3 = fmm.seed3_machine(t, *a, c[0], c[3], p2[0], p2[1], cap_s=cap_s)
+        assert (fmm.smem_launches, fmm.seed3_launches) == (
+            (n1[0], n1[1]) if plain else (n1[0] + 2, n1[1] + 1))
+        outs.append([[x.cpu() if torch.is_tensor(x) else torch.tensor(x)
+                      for x in p] for p in (p1, p2, p3)])
+    for p, (g, w) in enumerate(zip(*outs)):
+        for i, (x, y) in enumerate(zip(g, w)):
+            assert torch.equal(x.long().reshape(y.shape), y.long()), (p, i)
+    if cap <= 3:
+        assert bool(outs[1][0][3].any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
+def test_k13_segments_match_plain(world, repeat_world, lanes, cap, cap_s,
+                                  occ_r, coords):
+    """K13 (K1's state mode with a step budget) run in segments of odd
+    sizes, a segment ending inside backward rows: the whole state after
+    each segment equals the plain version's."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import _next_valid_device
+
+    if lanes == "edge":
+        fm, q, ql = repeat_world
+    else:
+        fm, (q, ql, _) = world["fm"], _lanes(world, "pack2")
+    tt = _tree(fm, coords, occ_r)
+    th = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in tt.items()}
+    qh, qlh = torch.from_numpy(q), torch.from_numpy(ql)
+    nvh = _next_valid_device(qh, qlh)
+    dc = fmm.seed_state_init(q.shape[0], cap, cap_s, "cuda")
+    dh = fmm.seed_state_init(q.shape[0], cap, cap_s, "cpu")
+    mid_row = 0
+    for n in (37, 53, 101, 1, 64, fmm.BIG_STEPS):
+        n0 = fmm.segment_launches
+        dc = fmm.segment(dc, tt, qh.cuda(), qlh.cuda(), nvh.cuda(),
+                         19, 28, 10, 20, n, cap, cap_s, True)
+        assert fmm.segment_launches == n0 + 1
+        dh = fmm.segment(dh, th, qh, qlh, nvh, 19, 28, 10, 20, n, cap,
+                         cap_s, True)
+        _state_equal(dc, dh, f"after {n}")
+        mid_row += int(((dh["phase"] == fmm.P_BWD) & (dh["j"] > 0)).sum())
+    assert mid_row > 0
+    assert bool((dh["phase"] == fmm.P_DONE).all())
+
+
+# ------------------------------------------------------- K9, K10, K11
+def _tree64(tt):
+    return dict(tt, cdt=torch.int64, L2=tt["L2"].long(),
+                ckpt=tt["ckpt"].long(), ssa=tt["ssa"].long())
+
+
+def _to_host(tt):
+    return {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in tt.items()}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k9_matches_plain(world, coords):
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm = world["fm"]
+    tt = DeviceFMIndex(fm, device="cuda").tree()
+    if coords == "int64":
+        tt = _tree64(tt)
+    rng = np.random.default_rng(0)
+    ks = np.concatenate([rng.integers(0, fm.seq_len + 1, 5000),
+                         [0, fm.primary, fm.seq_len]])
+    k = torch.from_numpy(ks).to(tt["cdt"])
+    n0 = fm_ops.sa_launches
+    work = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = fm_ops.sa_batch(tt, k.cuda(), work=work)
+    torch.cuda.synchronize()
+    assert fm_ops.sa_launches == n0 + 1 and got.dtype == tt["cdt"]
+    want = fm_ops.sa_batch_plain(_to_host(tt), k)
+    assert torch.equal(got.cpu(), want)
+    assert int(work) > len(ks)  # walk steps counted
+    ok = ks < fm.seq_len
+    assert np.array_equal(want.numpy()[ok], fm.sa_lookup(ks[ok]))
+
+
+def _read_rows(world, long=False):
+    """The short reads plus random reads with Ns (one read a row), or the
+    600 bp reads repeated to 8,000 bases a row (lists past a block's
+    shared memory at int64)."""
+    rng = np.random.default_rng(1)
+    if long:
+        codes = [np.tile(c, 14)[:8000] for c in world["long"]]
+    else:
+        codes = list(world["short"][:40])
+        for _ in range(16):
+            r = rng.integers(0, 4, int(rng.integers(30, 151))).astype(
+                np.uint8)
+            if rng.random() < 0.5:
+                r[rng.integers(0, r.size)] = 4
+            codes.append(r)
+    L = max(len(c) for c in codes)
+    q = np.full((len(codes), L), 4, np.uint8)
+    ql = np.array([len(c) for c in codes], np.int32)
+    for i, c in enumerate(codes):
+        q[i, :len(c)] = c
+    return q, ql
+
+
+def _both(fn, tt, args, kw=None):
+    """fn on the card and on the host with the same inputs, outputs on the
+    host."""
+    kw = kw or {}
+    got = fn(tt, *[a.cuda() if torch.is_tensor(a) else a for a in args],
+             **kw)
+    torch.cuda.synchronize()
+    want = fn(_to_host(tt), *args, **kw)
+    return [g.cpu() for g in got], list(want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("max_intv,cap,occ_r,coords", [
+    (0, None, 1, "int32"), (0, None, 4, "int64"), (30, None, 4, "int32"),
+    (30, None, 1, "int64"), (0, 2, 4, "int32"), (0, 2, 1, "int64"),
+    ("long", None, 4, "int64")])
+def test_k10a_matches_plain(world, max_intv, cap, occ_r, coords):
+    """K10a: every output equal; cap 2 overflows the lists; 8,000-base
+    reads take the global scratch at int64."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    long = max_intv == "long"
+    q, ql = _read_rows(world, long)
+    B, L = q.shape
+    rng = np.random.default_rng(2)
+    x = np.array([rng.integers(0, max(1, n - 5)) for n in ql], np.int32)
+    tt = _tree(world["fm"], coords, occ_r)
+    minv = torch.from_numpy(rng.integers(1, 3, B)).to(tt["cdt"])
+    args = (torch.from_numpy(q), torch.from_numpy(ql), torch.from_numpy(x),
+            minv, 0 if long else max_intv,
+            torch.from_numpy(rng.random(B) < 0.9), cap or L + 2)
+    n0 = fm_ops.smem1a_launches
+    got, want = _both(fm_ops.smem1a_batch, tt, args)
+    assert fm_ops.smem1a_launches == n0 + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    assert int((want[6] > 0).sum()) > B // 2
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("min_len,max_intv,occ_r,coords", [
+    (19, 20, 1, "int32"), (19, 20, 4, "int64"), (12, 5, 4, "int32"),
+    (12, 5, 1, "int64")])
+def test_k10b_matches_plain(world, min_len, max_intv, occ_r, coords):
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    q, ql = _read_rows(world)
+    rng = np.random.default_rng(3)
+    x = np.array([rng.integers(0, n) for n in ql], np.int32)
+    args = (torch.from_numpy(q), torch.from_numpy(ql), torch.from_numpy(x),
+            min_len, max_intv, torch.from_numpy(rng.random(len(ql)) < 0.9))
+    n0 = fm_ops.strategy1_launches
+    got, want = _both(fm_ops.seed_strategy1_batch,
+                      _tree(world["fm"], coords, occ_r), args)
+    assert fm_ops.strategy1_launches == n0 + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+    assert bool(want[1].any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,cap_s,occ_r,coords", [
+    ("reads", 96, 1, "int32"), ("reads", 96, 4, "int64"),
+    ("reads", 4, 4, "int32"), ("edge", 64, 1, "int64"),
+    ("edge", 64, 4, "int32"), ("long", 512, 4, "int64")])
+def test_k11_matches_plain(world, repeat_world, rows, cap_s, occ_r,
+                           coords):
+    """K11: the sorted seeds and seed_n equal the plain version's; cap_s 4
+    overflows the seed store; the tandem-repeat lanes have rows longer
+    than a warp; 8,000-base reads take the global scratch at int64."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    if rows == "edge":
+        fm, q, ql = repeat_world
+    else:
+        fm = world["fm"]
+        q, ql = _read_rows(world, rows == "long")
+    L = q.shape[1]
+    args = (torch.from_numpy(q), torch.from_numpy(ql), 19, 28, 10, 20)
+    n0 = fm_ops.collect_launches
+    got, want = _both(fm_ops.collect_intv_device, _tree(fm, coords, occ_r),
+                      args, dict(cap=L + 2, cap_s=cap_s, key64=False))
+    assert fm_ops.collect_launches == n0 + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    if cap_s < 10:
+        assert bool((want[5] > cap_s).any())
+
+
+@pytest.mark.requires_cuda
+def test_engine_routes_on_the_card(world):
+    """engine.collect_seeds under split and compaction (segments of 60
+    steps over 600 lanes: compactions, then a run-out) on the card equal
+    the unified route's on the card, with K12 and K13 launched."""
+    import os
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+    from bwa_tpu_torch.ops.fm import BatchedFMEngine
+    from bwa_tpu_torch.options import MemOptions
+
+    eng = BatchedFMEngine(world["fm"], device="cuda")
+    q, ql = _read_rows(world)
+    q, ql = np.tile(q, (11, 1))[:600], np.tile(ql, 11)[:600]
+    opt = MemOptions()
+    want = eng.collect_seeds(q, ql, opt, 24)
+    env = {"split": {"BWA_TPU_SEED_MACHINE": "split"},
+           "compact": {"BWA_TPU_SEED_COMPACT": "1", "BWA_TPU_SEED_SEG": "60",
+                       "BWA_TPU_SEED_SEG2": "60"}}
+    for route, kv in env.items():
+        n0 = (fmm.smem_launches, fmm.segment_launches)
+        os.environ.update(kv)
+        try:
+            got = eng.collect_seeds(q, ql, opt, 24)
+        finally:
+            for k in kv:
+                os.environ.pop(k)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w), route
+        if route == "split":
+            assert fmm.smem_launches == n0[0] + 2
+        else:
+            assert fmm.segment_launches > n0[1] + 1
+            assert len(eng.last_levels) > 1

@@ -325,8 +325,9 @@ def test_serve_one_seeding_routes(world, monkeypatch):
     """The port's own mem served through _serve_one on a CPU engine: a
     request's BWA_TPU_TRIP_SORT=force sorts that request's reads (the
     engine probes their trips, the SAM equals bwa_tpu's under force), the
-    next request without it does not, and BWA_TPU_SEED_COMPACT (not
-    ported) is answered with the engine's NotImplementedError."""
+    next request without it does not, and a request with
+    BWA_TPU_SEED_COMPACT=1 is served on the tail-compaction route, its SAM
+    equal to bwa_tpu's under that switch."""
     from bwa_tpu_torch import cli
     from bwa_tpu_torch.ops import fm
 
@@ -349,10 +350,22 @@ def test_serve_one_seeding_routes(world, monkeypatch):
         assert state == "serve" and json.loads(head) == {"ok": 0}, reply
         assert _records(body) == want
         assert probed == n_probed
+    from bwa_tpu_torch.ops import fm_machine
+
+    monkeypatch.setenv("BWA_TPU_SEED_COMPACT", "1")
+    want = _records(_jax(argv[:1] + argv[3:]))
+    monkeypatch.delenv("BWA_TPU_SEED_COMPACT")
+    segments = []
+    real_seg = fm_machine.segment
+    monkeypatch.setattr(fm_machine, "segment",
+                        lambda *a, **k: segments.append(1) or real_seg(*a,
+                                                                       **k))
     state, reply = _serve({"argv": argv,
                            "env": {"BWA_TPU_SEED_COMPACT": "1"}}, "cpu", cli)
-    assert state == "serve"
-    assert json.loads(reply)["error"].startswith("NotImplementedError(")
+    head, body = reply.split(b"\n", 1)
+    assert state == "serve" and json.loads(head) == {"ok": 0}, reply
+    assert _records(body) == want
+    assert segments  # the compaction route ran
     assert "BWA_TPU_SEED_COMPACT" not in os.environ
 
 

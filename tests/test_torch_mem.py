@@ -276,27 +276,6 @@ def test_unported_modes_raise(world):
     assert sams[1] == sams[0]
 
 
-@pytest.mark.parametrize("env", [("BWA_TPU_SEED_MACHINE", "split"),
-                                 ("BWA_TPU_SEED_COMPACT", "1")],
-                         ids=["split", "compact"])
-def test_unported_seed_routes_raise(world, monkeypatch, env):
-    """The JAX package's split seeding route and K1's tail-compaction mode
-    are not ported: the engine says so rather than take the default."""
-    from bwa_tpu_torch.engine import make_engine
-    from bwa_tpu_torch.index.fmindex import FMIndex
-    from bwa_tpu_torch.mem.pipeline import process_seqs
-    from bwa_tpu_torch.mem.types import Read
-    from bwa_tpu_torch.options import MemOptions
-
-    monkeypatch.setenv(*env)
-    rs = simulate_reads(world["genome"], 4, read_len=150, seed=13)
-    fm = FMIndex.load(world["prefix"])
-    reads = [Read(name=n, seq=s, qual=q) for n, s, q in rs]
-    with pytest.raises(NotImplementedError, match=env[0]):
-        process_seqs(MemOptions(), make_engine(fm, "cpu"), fm, reads, 0,
-                     None, None)
-
-
 @pytest.mark.parametrize("flags", [
     ["-a"], ["-T", "20"], ["-k", "25"], ["-Y"], ["-M"], ["-K", "10000"],
     ["-R", "@RG\\tID:x\\tSM:y"]],
