@@ -513,7 +513,10 @@ def collect_intv_batch_unfused(opt, engine, codes_list) -> list[list[tuple]]:
     read's mems sorted by info with ks_introsort, as the reference does.
     A cross-check of the seeding machine: it shares none of its code.
     Returns per-read [(x0, x1, x2, info)]."""
+    import torch
+
     from bwa_tpu_torch.mem.ksort import ks_introsort
+    from bwa_tpu_torch.ops.fm import _skip_amb
 
     B = len(codes_list)
     if B == 0:
@@ -527,15 +530,10 @@ def collect_intv_batch_unfused(opt, engine, codes_list) -> list[list[tuple]]:
         lens[i] = len(c)
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
     mems: list[list[tuple]] = [[] for _ in range(B)]
-    rows = np.arange(B)
+    qt, lt = torch.from_numpy(q), torch.from_numpy(lens)
 
     def skip_amb(x):
-        """Advance each cursor past ambiguous bases (the x += 1 branch)."""
-        while True:
-            amb = (x < lens) & (q[rows, np.minimum(x, L - 1)] >= 4)
-            if not amb.any():
-                return x
-            x[amb] += 1
+        return _skip_amb(qt, lt, torch.from_numpy(x)).numpy()
 
     def take(b, out, t):
         """Call t's mems (reversed: the reference sorts them by start) of

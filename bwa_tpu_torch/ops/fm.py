@@ -450,19 +450,30 @@ def probe_breaks_plain(idx, q, qlen=None):
     return breaks
 
 
+def _check_occtab(idx, name):
+    """idx's occtab as every kernel reads it: contiguous int32 rows of 8 or
+    32 text words (R = 1 or 4) at a 16-byte address; else ValueError."""
+    occtab = idx.get("occtab")
+    if occtab is None:
+        raise ValueError(f"{name} reads the fused occtab; this index has "
+                         f"none")
+    if occtab.dtype != torch.int32 or not occtab.is_contiguous() \
+            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
+        raise ValueError(f"{name} reads a contiguous int32 occtab of 8 or "
+                         f"32 text words a row (R = 1 or 4), aligned to 16 "
+                         f"bytes")
+    return occtab
+
+
 def _probe_breaks_cuda(idx, q):
     """Kernel K8 launch: a group of 2R threads a read, a lookup only where
     the read's interval extends."""
     global probe_launches
     from bwa_tpu_torch.ops import cuda_kernels
 
-    occtab = idx.get("occtab")
-    if occtab is None or not (q.is_cuda and occtab.is_cuda):
+    occtab = _check_occtab(idx, "K8")
+    if not (q.is_cuda and occtab.is_cuda):
         raise ValueError("K8 reads the fused occtab and CUDA codes")
-    if occtab.dtype != torch.int32 or occtab.data_ptr() % 16 \
-            or occtab.shape[1] - 4 not in (8, 32):
-        raise ValueError("K8 reads an int32 occtab of 8 or 32 text words a "
-                         "row (R = 1 or 4), aligned to 16 bytes")
     q8 = q.to(torch.uint8).contiguous()
     out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
     cuda_kernels.probe_breaks(
@@ -800,12 +811,7 @@ def sa_batch(idx, k, work=None):
 
 
 def _occ_tensors(idx, name):
-    occtab = idx.get("occtab")
-    if occtab is None or occtab.dtype != torch.int32 \
-            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
-        raise ValueError(f"{name} reads an int32 occtab of 8 or 32 text "
-                         f"words a row (R = 1 or 4), aligned to 16 bytes")
-    return occtab, idx["L2"].to(torch.int64).contiguous()
+    return _check_occtab(idx, name), idx["L2"].to(torch.int64).contiguous()
 
 
 def _lists_plan(q, per_read: int):

@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bwa_tpu_torch.ops.fm import _occ4, _set_intv
+from bwa_tpu_torch.ops.fm import _check_occtab, _occ4, _set_intv
 
 P_NEXT = 0
 P_FWD = 1
@@ -549,16 +549,10 @@ def _launch_k1(idx, q, qlen, next_valid, shard, min_seed_len, split_len,
     B = lanes if refill else q.shape[0]
     dev = q.device
     cdt = idx["cdt"]
-    if "occtab" not in idx:
-        raise ValueError("K1 reads the fused occtab; this index has none")
-    occtab = idx["occtab"]
+    occtab = _check_occtab(idx, "K1")
     for t in (q, qlen, occtab) + (() if group else (next_valid,)):
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError("K1 inputs must be contiguous CUDA tensors")
-    if occtab.dtype != torch.int32 or occtab.data_ptr() % 16 \
-            or occtab.shape[1] - 4 not in (8, 32):
-        raise ValueError("K1 reads an int32 occtab of 8 or 32 text words a "
-                         "row (R = 1 or 4), aligned to 16 bytes")
     tagged = shard is not None or refill
     ncol = 6 if tagged else 5
     i32 = torch.int32
@@ -756,22 +750,26 @@ def _plain_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
                             else jobs.to(torch.int64))
 
 
-def _launch_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
-                  split_width, max_intv3, max_steps, cap, cap_s, use_p3,
-                  last_stage, jobs):
+def _launch_state(d, *args):
     """One launch of K1's state mode: the state's per-lane fields packed
     into one [fields, B] int64 tensor and its stacks into [B, 2, cap, 4],
     loaded by each lane's warp, run for the step budget and stored back."""
     from bwa_tpu_torch.ops import cuda_kernels
 
+    kargs = _pack_state(d, *args)
+    cuda_kernels.seed_state(*kargs)
+    return _unpack_state(d, kargs)
+
+
+def _pack_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
+                split_width, max_intv3, max_steps, cap, cap_s, use_p3,
+                last_stage, jobs) -> tuple:
+    """The arguments of cuda_kernels.seed_state for one launch on the state
+    d: its per-lane fields and stacks packed, the rest as the kernel reads
+    them."""
     i64, i32 = torch.int64, torch.int32
     dev = q.device
-    occtab = idx.get("occtab")
-    if occtab is None or occtab.dtype != torch.int32 \
-            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
-        raise ValueError("K1's state mode reads an int32 occtab of 8 or 32 "
-                         "text words a row (R = 1 or 4), aligned to 16 "
-                         "bytes")
+    occtab = _check_occtab(idx, "K1's state mode")
     if d["seeds"].shape[2] != 5:
         raise ValueError("K1's state mode runs untagged lanes")
     for t in (q, qlen, next_valid, occtab, d["phase"]):
@@ -787,14 +785,18 @@ def _launch_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
     steps_in = (st.to(i32).reshape(1) if torch.is_tensor(st)
                 else torch.tensor([st], dtype=i32, device=dev))
     steps_out = steps_in.clone()
-    cuda_kernels.seed_state(
-        occtab, idx["L2"].to(i64).contiguous(), idx["primary"],
-        idx["seq_len"], idx["cdt"] == i64, q.to(torch.uint8).contiguous(),
-        qlen.to(i32).contiguous(), next_valid.to(i32).contiguous(),
-        int(min_seed_len), int(split_len), int(split_width),
-        int(max_intv3), cap, cap_s, bool(use_p3), int(last_stage),
-        None if jobs is None else jobs.to(i64).contiguous(), lanes, stk,
-        seeds, qmask, steps_in, steps_out, int(max_steps))
+    return (occtab, idx["L2"].to(i64).contiguous(), idx["primary"],
+            idx["seq_len"], idx["cdt"] == i64, q.to(torch.uint8).contiguous(),
+            qlen.to(i32).contiguous(), next_valid.to(i32).contiguous(),
+            int(min_seed_len), int(split_len), int(split_width),
+            int(max_intv3), cap, cap_s, bool(use_p3), int(last_stage),
+            None if jobs is None else jobs.to(i64).contiguous(), lanes, stk,
+            seeds, qmask, steps_in, steps_out, int(max_steps))
+
+
+def _unpack_state(d, kargs) -> dict:
+    """d updated from a launch's packed arguments (_pack_state)."""
+    lanes, stk, seeds, qmask, _, steps_out = kargs[-7:-1]
     f = 0
     for k in SEG_FIELDS:
         n = 3 if k == "ik" else 1

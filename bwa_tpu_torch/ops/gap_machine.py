@@ -43,7 +43,8 @@ from __future__ import annotations
 
 import torch
 
-from bwa_tpu_torch.ops.fm import _M55, _MFF, _occ4, _popc32, _u32
+from bwa_tpu_torch.ops.fm import (_M55, _MFF, _check_occtab, _occ4, _popc32,
+                                  _u32)
 
 P_RUN = 0
 P_WALK = 1
@@ -184,19 +185,6 @@ def _aligned(t):
     whole)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
-
-
-def _check_occtab(idx, name):
-    if "occtab" not in idx:
-        raise ValueError(f"{name} reads the fused occtab; this index has "
-                         f"none")
-    occtab = idx["occtab"]
-    if occtab.dtype != torch.int32 or not occtab.is_contiguous() \
-            or occtab.data_ptr() % 16 or occtab.shape[1] - 4 not in (8, 32):
-        raise ValueError(f"{name} reads a contiguous int32 occtab of 8 or "
-                         f"32 text words a row (R = 1 or 4), aligned to 16 "
-                         f"bytes")
-    return occtab
 
 
 # --------------------------------------------------------------------------

@@ -2685,6 +2685,27 @@ def step_ops(steps, nw):
     return steps * (2 * 2 * 5 * (nw / 2 + 1) + 64)
 
 
+def state_kernel_ms(pack, reps=5):
+    """CUDA-event ms a launch of K1's state mode alone (cuda_kernels.
+    seed_state), on states packed in advance: pack() returns a fresh
+    launch's arguments (fm_machine._pack_state), not timed."""
+    import torch
+
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    packs = [pack() for _ in range(reps + 1)]
+    cuda_kernels.seed_state(*packs.pop())  # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for p in packs:
+        cuda_kernels.seed_state(*p)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def check_k12(rec, name, pass2=None):
     """A recorded K12 call (smem_machine, pass 1 or 2, or seed3_machine:
     the first of step 4f) on all its lanes, timed; then the same launch of
@@ -2715,29 +2736,30 @@ def check_k12(rec, name, pass2=None):
         r = (lambda t: t) if rows is None else (lambda t: t[rows])
         d = fmm._stage_state(idx, r(q), stage, cap, kw["cap_s"], r(seeds),
                              r(seed_n), None if old_n is None else r(old_n))
-        return d, (idx, r(q), r(qlen), r(nv), *consts, fmm.BIG_STEPS, cap,
-                   kw["cap_s"], use_p3, stage, r(seeds) if jobs else None)
+        return d, idx, r(q), r(qlen), r(nv), *consts, fmm.BIG_STEPS, cap, \
+            kw["cap_s"], use_p3, stage, r(seeds) if jobs else None
 
-    d, a = state()
-    done = fmm._launch_state(d, *a)["done_step"]
+    kernel_ms = state_kernel_ms(lambda: fmm._pack_state(*state()))
+    done = fmm._launch_state(*state())["done_step"]
     rows = torch.as_tensor(spread_rows(q.shape[0], [int(done.argmax())]),
                            device=q.device)
-    d, a = state(rows)
-    got = fmm._launch_state(d, *a)
-    d, a = state(rows)
-    want, plain_ms = timed_once(lambda: fmm._plain_state(d, *a))
+    got = fmm._launch_state(*state(rows))
+    sub = state(rows)
+    want, plain_ms = timed_once(lambda: fmm._plain_state(*sub))
     equal, err = states_equal(got, want)
     steps = int(done.sum())
     occ = idx["occtab"]
     nbytes = state_bytes(q.shape[0], cap, kw["cap_s"], q, nv, occ)
-    res = dict(phase=ph, call=i, ms=ms, plain_ms=plain_ms,
+    res = dict(phase=ph, call=i, ms=ms, kernel_ms=kernel_ms,
+               plain_ms=plain_ms,
                plain_shape=f"{len(rows)} lanes on the card",
                equal=bool(equal), err=err,
                shape=f"B={q.shape[0]} L={q.shape[1]} cap={cap} "
                      f"cap_s={kw['cap_s']}" + (f" pass2={kw['pass2']}"
                                                if "pass2" in kw else ""),
                lane_steps=steps, longest_lane_steps=int(done.max()),
-               ns_per_step=per_unit(ms, int(done.max())), bytes=int(nbytes),
+               ns_per_step=per_unit(kernel_ms, int(done.max())),
+               bytes=int(nbytes),
                ops=float(step_ops(steps, occ.shape[1] - 4)))
     res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
     log(f"{name} {res}")
@@ -2770,6 +2792,9 @@ def check_k13(seg):
     b.record()
     torch.cuda.synchronize()
     ms = a.elapsed_time(b) / len(copies)
+    kernel_ms = state_kernel_ms(lambda: fmm._pack_state(
+        state_rows(d0, torch.arange(B, device=q.device)), idx, q, qlen, nv,
+        *rest, fmm.S_P3, None))
     out = copies[-1]
     steps_in, stop = (int(torch.as_tensor(x).reshape(-1)[0])
                       for x in (d0["steps"], out["steps"]))
@@ -2796,13 +2821,14 @@ def check_k13(seg):
     occ = idx["occtab"]
     nbytes = state_bytes(B, cap, cap_s, q, nv, occ)
     info = dict(phase=seg.calls[0]["phase"], call=0, ms=ms,
-                plain_ms=plain_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
                 plain_shape=f"{len(rows)} lanes, the first segment",
                 equal=bool(equal), err=max(e for _, e in res),
                 shape=f"B={B} L={q.shape[1]} cap={cap} cap_s={cap_s} "
                       f"max_steps={rest[4]}",
                 lane_steps=lane_steps, longest_lane_steps=int(ran.max()),
-                ns_per_step=per_unit(ms, int(ran.max())), bytes=int(nbytes),
+                ns_per_step=per_unit(kernel_ms, int(ran.max())),
+                bytes=int(nbytes),
                 ops=float(step_ops(lane_steps, occ.shape[1] - 4)))
     info["bound_ms"], info["bound_by"] = bound(nbytes, info["ops"])
     log(f"K13 {info}")
@@ -2870,13 +2896,15 @@ def check_k9(idx, ks):
     walk = int(work)
     nbytes = sum(idx[k].numel() * idx[k].element_size()
                  for k in ("ckpt", "words", "ssa")) + 2 * ks.numel() * 4
-    # a walk step: the base at the row (a word), then its count over the
-    # block's 8 words at one end, one base: 5 ops a word, ~16 besides
+    # a walk step: the base at the row (a word), then its count at one end,
+    # one base, over the words of the block up to the row: nw/2 + 1 of its
+    # nw on average, 5 ops a word, ~16 besides
+    nw = idx["words"].shape[1]
     res = dict(phase="sa_batch_65536", call=0, ms=ms, plain_ms=plain_ms,
                plain_shape="all 65,536 rows on the card", equal=equal,
                err=int((got.long() - want.long()).abs().max()),
                shape=f"N={ks.numel()}", walk_steps=walk, bytes=int(nbytes),
-               ops=float(walk * (8 * 5 + 16)))
+               ops=float(walk * ((nw / 2 + 1) * 5 + 16)))
     res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
     log(f"K9 {res}")
     if not equal:
@@ -2987,13 +3015,26 @@ def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
         out, ph_f = counted("seeds_fused_4096", lambda: eng.collect_seeds(
             q, lens, opt, 96, fused=True))
         fused = read_lists(out, n)
-        diff = [b for b in range(n)
-                if fused[b] is not None and fused[b] != unified[b]]
-        over = sum(x is None for x in fused)
-        if diff or over > n // 100:
+        # reads whose seeds overflow cap_s 96 are run again at twice the
+        # cap until none does, and compared like the rest
+        over = [b for b in range(n) if fused[b] is None]
+        cap_s, left = 96, over
+        while left:
+            cap_s *= 2
+            if cap_s > 8 * q.shape[1]:
+                fail(f"seeds_fused_4096: reads {left[:8]} overflow cap_s "
+                     f"{cap_s // 2}")
+            again = read_lists(eng.collect_seeds(
+                q[left], lens[left], opt, cap_s, fused=True), len(left))
+            for b, x in zip(left, again):
+                fused[b] = x
+            left = [b for b in left if fused[b] is None]
+        diff = [b for b in range(n) if fused[b] != unified[b]]
+        if diff:
             fail(f"seeds_fused_4096: reads {diff[:8]} differ from the "
-                 f"unified route's; {over} overflowed")
-        ph_f.update(reads_equal_unified=n - over, overflow_reads=over)
+                 f"unified route's")
+        ph_f.update(reads_equal_unified=n, overflow_reads=len(over),
+                    overflow_rerun_cap_s=cap_s if over else None)
         unf, ph_u = counted("seeds_unfused_4096", lambda: (
             batch_seed.collect_intv_batch_unfused(opt, eng, codes)))
         if unf != unified:
@@ -4395,7 +4436,7 @@ def main(argv) -> int:
                                     "one_read_lanes", "design", "int64",
                                     "attrs", "mesh_shard_checks",
                                     "pass2_launch", "compaction_levels",
-                                    "pacbio_refused")
+                                    "pacbio_refused", "kernel_ms")
                if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past
