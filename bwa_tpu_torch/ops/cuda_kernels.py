@@ -100,17 +100,20 @@ def _bind(libs) -> None:
     f = libs["smem_batch.cu"].bwa_smem1a
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, i64,
-                  vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, vp, i64,
-                  vp, vp]
+                  vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, vp,
+                  i64, vp, vp]
     f = libs["smem_batch.cu"].bwa_strategy1
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, i32, i64,
-                  vp, vp, vp, vp, vp, vp, vp, vp]
+                  vp, vp, vp, vp, vp, vp, i32, i32, vp, vp]
     f = libs["smem_batch.cu"].bwa_collect_intv
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, i32, i32, i64,
                   i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32,
                   i64, vp, i64, vp, vp]
+    f = libs["smem_batch.cu"].bwa_smem_occupancy
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, i32, i32, i32, i32, i64, vp]
     f = libs["seed_machine.cu"].bwa_probe_breaks
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp]
@@ -225,53 +228,78 @@ def sa_batch(ckpt, words, ssa, L2, primary, seq_len, coord64, k, out,
           _ptr(k), _ptr(out), k.shape[0], _opt(work), _stream(k))
 
 
+def _plan_args(plan) -> tuple:
+    """A launch plan of ops/fm.py::_smem_plan as the C entry points take
+    it: warps a block, blocks, shared bytes a block, scratch, list bytes a
+    read."""
+    return (int(plan["warps_per_block"]), int(plan["blocks"]),
+            int(plan["smem"]), _opt(plan["scratch"]), int(plan["per_read"]))
+
+
 def smem1a(occtab, L2, primary, seq_len, coord64, q, qlen, x, min_intv,
            max_intv, active, cap, ret, m0, m1, m2, ms, me, mem_n, plan,
            work=None) -> None:
-    """Launch K10a (bwa_smem1a: bwt_smem1a a warp a read) on the current
-    stream; plan: (warps a block, blocks, shared bytes a block, scratch or
-    None, bytes a warp's lists) from ops/fm.py::_lists_plan."""
+    """Launch K10a (bwa_smem1a: bwt_smem1a a group or a warp a read) on the
+    current stream; plan: ops/fm.py::_smem_plan's."""
     lib = build_all()["smem_batch.cu"]
     B, L = q.shape
-    warps, blocks, smem, scratch, per_warp = plan
     _call(lib.bwa_smem1a, "smem1a", q.device, int(coord64), _ptr(occtab),
           occtab.shape[1] - 4, _ptr(L2), int(primary), int(seq_len), _ptr(q),
           B, L, _ptr(qlen), _ptr(x), _ptr(min_intv), int(max_intv),
           _ptr(active), int(cap), _ptr(ret), _ptr(m0), _ptr(m1), _ptr(m2),
-          _ptr(ms), _ptr(me), _ptr(mem_n), int(warps), int(blocks),
-          int(smem), _opt(scratch), int(per_warp), _opt(work), _stream(q))
+          _ptr(ms), _ptr(me), _ptr(mem_n), int(plan["form"] == "warp"),
+          *_plan_args(plan), _opt(work), _stream(q))
 
 
 def strategy1(occtab, L2, primary, seq_len, coord64, q, qlen, x, min_len,
-              max_intv, active, ret, found, r0, r1, r2, work=None) -> None:
-    """Launch K10b (bwa_strategy1: bwt_seed_strategy1 a warp a read) on the
-    current stream."""
+              max_intv, active, ret, found, r0, r1, r2, plan,
+              work=None) -> None:
+    """Launch K10b (bwa_strategy1: bwt_seed_strategy1 a group a read) on
+    the current stream; plan: ops/fm.py::_smem_plan's."""
     lib = build_all()["smem_batch.cu"]
     B, L = q.shape
     _call(lib.bwa_strategy1, "strategy1", q.device, int(coord64),
           _ptr(occtab), occtab.shape[1] - 4, _ptr(L2), int(primary),
           int(seq_len), _ptr(q), B, L, _ptr(qlen), _ptr(x), int(min_len),
           int(max_intv), _ptr(active), _ptr(ret), _ptr(found), _ptr(r0),
-          _ptr(r1), _ptr(r2), _opt(work), _stream(q))
+          _ptr(r1), _ptr(r2), int(plan["warps_per_block"]),
+          int(plan["blocks"]), _opt(work), _stream(q))
 
 
 def collect_intv(occtab, L2, primary, seq_len, coord64, q, qlen,
                  min_seed_len, split_len, split_width, max_mem_intv, cap,
                  cap_s, key64, raw, s0, s1, s2, ss, se, seed_n, plan,
                  work=None) -> None:
-    """Launch K11 (bwa_collect_intv: mem_collect_intv's three passes a warp
-    a read, then the sort) on the current stream; raw: the zeroed [B,
-    cap_s, 5] seed store; plan as smem1a's."""
+    """Launch K11 (bwa_collect_intv: mem_collect_intv's three passes a
+    warp a read, then the sort) on the current stream; raw: the zeroed
+    [B, cap_s, 5] seed store; plan as smem1a's."""
     lib = build_all()["smem_batch.cu"]
     B, L = q.shape
-    warps, blocks, smem, scratch, per_warp = plan
     _call(lib.bwa_collect_intv, "collect_intv", q.device, int(coord64),
           _ptr(occtab), occtab.shape[1] - 4, _ptr(L2), int(primary),
           int(seq_len), _ptr(q), B, L, _ptr(qlen), int(min_seed_len),
           int(split_len), int(split_width), int(max_mem_intv), int(cap),
           int(cap_s), int(key64), _ptr(raw), _ptr(s0), _ptr(s1), _ptr(s2),
-          _ptr(ss), _ptr(se), _ptr(seed_n), int(warps), int(blocks),
-          int(smem), _opt(scratch), int(per_warp), _opt(work), _stream(q))
+          _ptr(ss), _ptr(se), _ptr(seed_n), *_plan_args(plan), _opt(work),
+          _stream(q))
+
+
+SMEM_KERNELS = ("K10a", "K10b", "K11")
+
+
+def smem_occupancy(kernel: str, coord64: bool, nw: int, warp: bool,
+                   wpb: int, smem: int, device=None) -> dict:
+    """Registers a thread, resident blocks an SM and local bytes of a
+    kernel of csrc/smem_batch.cu (SMEM_KERNELS) at nw text words a row, in
+    the warp form (a read a warp) or the group form, at wpb warps a block
+    and smem dynamic shared bytes, on `device`."""
+    lib = build_all()["smem_batch.cu"]
+    out = (ctypes.c_int32 * 3)()
+    _call(lib.bwa_smem_occupancy, "smem_occupancy", device,
+          SMEM_KERNELS.index(kernel), int(coord64), int(nw), int(warp),
+          int(wpb), int(smem), ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(("registers", "blocks_per_sm", "local_bytes"),
+                    list(out)))
 
 
 def probe_breaks(occtab, L2, primary, seq_len, coord64, q, out) -> None:

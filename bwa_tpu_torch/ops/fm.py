@@ -814,29 +814,101 @@ def _occ_tensors(idx, name):
     return _check_occtab(idx, name), idx["L2"].to(torch.int64).contiguous()
 
 
-def _lists_plan(q, per_read: int):
-    """Where a kernel of csrc/smem_batch.cu keeps a read's interval lists
-    (per_read bytes): (warps a block, blocks, shared bytes a block,
-    scratch, per_read) with the lists in shared memory, 4 warps a block,
-    halved while a block's would pass its 227 KB; or, past one warp's, in
-    a global scratch for 4 warps an SM, each warp taking reads in turn."""
+# the forms of K10a (csrc/smem_batch.cu, design items 1 and 3): "group", a
+# group of 2R threads a read, 32 / 2R reads a warp, a backward row one
+# entry a lookup; "warp", a read a warp, its forward steps one group's
+# lookup, a backward row 32 / 2R entries a round, its rules by ballot.
+# K10b runs in the group form, K11 in the warp form.
+SMEM_FORMS = ("group", "warp")
+
+
+def smem1a_form(x, active) -> str:
+    """K10a's form for a call: "group" when no active read starts past 0,
+    else "warp".  From x = 0 the backward pass is the one row at i = -1,
+    which needs no lookup, so the reads of a warp step in lockstep through
+    their forward passes, one lookup each; from inside a read, backward
+    rows diverge the reads of a warp, and a read a warp takes a row's
+    entries 32 / 2R at a time (PERF.md section 6: on an H100 the group
+    form is 2.3x faster from x = 0 and 1.0-4.0x slower elsewhere).  x,
+    active: the host's arrays (numpy, or CPU tensors) of the call, before
+    they are uploaded: the rule never reads a card's memory."""
+    starts = np.asarray(active, bool) & (np.asarray(x) != 0)
+    return "warp" if bool(starts.any()) else "group"
+
+
+SMEM_BLOCK_BYTES = 232448  # a block's shared memory at most (227 KB)
+SCRATCH_WARPS = 4  # warps a block, and an SM, on the global-scratch plan
+# the last launch's plan of each kernel of csrc/smem_batch.cu
+smem_plans: dict = {}
+_occupancy: dict = {}
+
+
+def _smem_plan(idx, q, kernel: str, per_read: int, form: str) -> dict:
+    """How a kernel of csrc/smem_batch.cu (K10a, K10b, K11) runs the
+    q.shape[0] = B reads: in `form` (SMEM_FORMS), E reads a warp (32 / 2R,
+    or 1); of 1, 2, 4 or 8 warps a block, the fewest that keep the most
+    reads resident at once (the blocks an SM from the card's occupancy at
+    that block's shared memory), and blocks enough for every read.  A
+    read's lists (per_read bytes) lie in the block's shared memory or,
+    where one warp's would pass a block's 227 KB, in a global scratch for
+    a block of 4 warps on each SM, each warp taking its reads in turn.
+    Returns the plan as a dict (also in smem_plans[kernel])."""
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    if form not in SMEM_FORMS:
+        raise ValueError(f"{kernel}: form {form!r} is not one of "
+                         f"{SMEM_FORMS}")
     B = q.shape[0]
-    for w in (4, 2, 1):
-        if w * per_read <= 232448:
-            return w, max(1, -(-B // w)), w * per_read, None, per_read
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    blocks = max(1, min(-(-B // 4), sms))
-    return 4, blocks, 0, torch.empty(blocks * 4 * per_read,
-                                     dtype=torch.uint8, device=q.device), \
-        per_read
+    nw = int(idx["occtab"].shape[1] - 4)
+    E = 32 // (nw // 4) if form == "group" else 1
+    warps = -(-B // E)
+    coord64 = idx["cdt"] == torch.int64
+    warp = form == "warp"
+    dev = q.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def occupancy(wpb, smem):
+        key = (kernel, coord64, nw, warp, wpb, smem, dev.index)
+        if key not in _occupancy:
+            _occupancy[key] = cuda_kernels.smem_occupancy(
+                kernel, coord64, nw, warp, wpb, smem, device=dev)
+        return _occupancy[key]
+
+    best = None
+    for wpb in (1, 2, 4, 8):
+        smem = wpb * E * per_read
+        if smem > SMEM_BLOCK_BYTES:
+            break
+        occ = occupancy(wpb, smem)
+        resident = min(B, occ["blocks_per_sm"] * sms * wpb * E)
+        if best is None or resident > best["resident_reads"]:
+            best = dict(warps_per_block=wpb, blocks=-(-warps // wpb),
+                        smem=smem, scratch=None, resident_reads=resident,
+                        lists="shared" if per_read else "none",
+                        registers=occ["registers"])
+    if best is None:  # one warp's lists past a block's shared memory
+        wpb = SCRATCH_WARPS
+        blocks = min(-(-warps // wpb), sms)
+        occ = occupancy(wpb, 0)
+        best = dict(warps_per_block=wpb, blocks=blocks, smem=0,
+                    scratch=torch.empty(blocks * wpb * E * per_read,
+                                        dtype=torch.uint8, device=dev),
+                    resident_reads=min(B, blocks * wpb * E),
+                    lists="scratch", registers=occ["registers"])
+    plan = dict(form=form, reads_per_warp=E, per_read=per_read, **best)
+    smem_plans[kernel] = {k: v for k, v in plan.items() if k != "scratch"}
+    return plan
 
 
 def smem1a_batch(idx, q, qlen, x, min_intv, max_intv, active, cap: int,
-                 work=None):
-    """bwt_smem1a one read a lane: kernel K10a (csrc/smem_batch.cu, a warp
-    a read) for CUDA codes, smem1a_batch_plain for CPU ones; same
-    arguments and outputs.  work: an int64 [1] CUDA tensor to which K10a
-    adds the intervals it extended."""
+                 work=None, form: str = "warp"):
+    """bwt_smem1a one read a lane: kernel K10a (csrc/smem_batch.cu) for
+    CUDA codes, smem1a_batch_plain for CPU ones; same arguments and
+    outputs.  form: K10a's form (SMEM_FORMS); "warp" is right for every
+    x, and callers that hold the call's x and active on the host pick it
+    by smem1a_form before they upload them, so that the wrapper never
+    waits for the card.  work: an int64 [1] CUDA tensor to which K10a adds
+    the intervals it extended."""
     global smem1a_launches
     if not q.is_cuda:
         return smem1a_batch_plain(idx, q, qlen, x, min_intv, max_intv,
@@ -851,7 +923,7 @@ def smem1a_batch(idx, q, qlen, x, min_intv, max_intv, active, cap: int,
     mem_n = torch.empty(B, dtype=i32, device=dev)
     m = [torch.zeros((B, cap), dtype=t, device=dev)
          for t in (cdt, cdt, cdt, i32, i32)]
-    plan = _lists_plan(q, 2 * cap * 4 * cdt.itemsize)
+    plan = _smem_plan(idx, q, "K10a", 2 * cap * 4 * cdt.itemsize, form)
     cuda_kernels.smem1a(occtab, L2, idx["primary"], idx["seq_len"],
                         cdt == torch.int64, q.to(torch.uint8).contiguous(),
                         qlen.to(i32).contiguous(), x.to(i32).contiguous(),
@@ -865,8 +937,8 @@ def smem1a_batch(idx, q, qlen, x, min_intv, max_intv, active, cap: int,
 def seed_strategy1_batch(idx, q, qlen, x, min_len, max_intv, active,
                          work=None):
     """bwt_seed_strategy1 one read a lane: kernel K10b (csrc/smem_batch.cu,
-    a warp a read) for CUDA codes, seed_strategy1_batch_plain for CPU
-    ones; same arguments and outputs."""
+    a group of 2R threads a read) for CUDA codes,
+    seed_strategy1_batch_plain for CPU ones; same arguments and outputs."""
     global strategy1_launches
     if not q.is_cuda:
         return seed_strategy1_batch_plain(idx, q, qlen, x, min_len,
@@ -881,11 +953,12 @@ def seed_strategy1_batch(idx, q, qlen, x, min_len, max_intv, active,
     found = torch.empty(B, dtype=torch.uint8, device=dev)
     r = [torch.empty(B, dtype=cdt, device=dev) for _ in range(3)]
     xx = x.to(i32).contiguous()
+    plan = _smem_plan(idx, q, "K10b", 0, "group")
     cuda_kernels.strategy1(occtab, L2, idx["primary"], idx["seq_len"],
                            cdt == torch.int64, q.to(torch.uint8).contiguous(),
                            qlen.to(i32).contiguous(), xx, int(min_len),
                            int(max_intv), active.to(torch.uint8).contiguous(),
-                           ret, found, *r, work)
+                           ret, found, *r, plan, work)
     strategy1_launches += 1
     return (ret, found.bool(), *r, xx.clone(), ret.clone())
 
@@ -894,8 +967,9 @@ def collect_intv_device(idx, q, qlen, min_seed_len, split_len, split_width,
                         max_mem_intv, cap: int, cap_s: int, key64: bool,
                         work=None):
     """mem_collect_intv's three passes fused, one read a lane: kernel K11
-    (csrc/smem_batch.cu, a warp a read on K10's device code; it shares no
-    code with K1, whose cross-check it is) for CUDA codes,
+    (csrc/smem_batch.cu, a read a warp on K10's device routines: K10a's
+    warp form; it shares only the group lookup with K1's kernels, whose
+    cross-check it is) for CUDA codes,
     collect_intv_device_plain for CPU ones; same arguments and outputs."""
     global collect_launches
     if not q.is_cuda:
@@ -914,7 +988,7 @@ def collect_intv_device(idx, q, qlen, min_seed_len, split_len, split_width,
     out = [torch.empty((B, cap_s), dtype=t, device=dev)
            for t in (cdt, cdt, cdt, i32, i32)]
     seed_n = torch.empty(B, dtype=i32, device=dev)
-    plan = _lists_plan(q, 13 * cap * cdt.itemsize)
+    plan = _smem_plan(idx, q, "K11", 13 * cap * cdt.itemsize, "warp")
     cuda_kernels.collect_intv(
         occtab, L2, idx["primary"], idx["seq_len"], cdt == torch.int64,
         q.to(torch.uint8).contiguous(), qlen.to(i32).contiguous(),
@@ -1317,7 +1391,7 @@ class BatchedFMEngine:
             self.idx, _to_dev(q_pad, dev), _to_dev(qlen, dev, np.int32),
             _to_dev(x, dev, np.int32),
             _to_dev(min_intv, dev, self.fm.coord_dtype), int(max_intv),
-            _to_dev(active, dev, bool), cap)
+            _to_dev(active, dev, bool), cap, form=smem1a_form(x, active))
         return [o.cpu().numpy() for o in out]
 
     def seed3_pass(self, q_pad, qlen, x, min_len: int, max_intv: int,

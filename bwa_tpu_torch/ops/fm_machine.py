@@ -482,6 +482,85 @@ def bwd_row_serial(ob2, keep, n0: int, last_x2: int, cap: int,
                 emit=emit, ovf=ovf, n=n, last_x2=lx)
 
 
+def smem1a_row_resolve(p2, e2, keep_all: bool, n0: int, last_x2: int,
+                       ik_x2: int, max_intv: int, minv: int, cap: int,
+                       emit_ok: bool, first: bool, cn: int, j0: int = 0,
+                       rounds: int | None = None):
+    """One backward row of bwt_smem1a (bwt.c:318-340) from entry j0 the
+    way kernels K10a and K11 take it (csrc/smem_batch.cu, warp_run's
+    backward round): `rounds` entries at a time (all at once by default;
+    one in the group form, 32 / 2R in the warp form), the order-dependent
+    rules of each round resolved for all its entries at once.
+    bwd_row_resolve's terms, but bwt_smem1a's: an entry is kept if the
+    row keeps all (keep_all: an N or the read's start), if ik's size
+    is below max_intv or if its extension's size is below minv; only the
+    row's first entry can emit (a kept entry while the target list is
+    empty and emit_ok: mem_n == 0 or i + 1 < the last mem's start), and
+    its emit rewrites ik's size (ik_x2) to its own, p2[0], for every later
+    entry; the first row (first) reads the forward list of cn rows
+    reversed, as smem1a_batch_plain does.  Nothing on the main path calls
+    it; the tests hold it to the one-entry-at-a-time rule.
+
+    p2, e2: [pn] sizes of the entries and of their extensions, in the row's
+    order; n0 and last_x2: the target list's count and last pushed size
+    when entry j0 is taken.  Returns a dict: read_slot [pn], push [pn]
+    bool, slot [pn] (each push's slot), writes [pn] bool (the pushes whose
+    round writes their row: of a round's pushes past cap - 2 only the
+    last), stack {slot: entry} after the rounds' writes in order, emit
+    (the entry, or -1), n, last_x2 and ik_x2 after the row."""
+    i64 = torch.int64
+    p2 = torch.as_tensor(p2).to(i64)
+    e2 = torch.as_tensor(e2).to(i64)
+    pn = e2.shape[0]
+    j = torch.arange(pn, dtype=i64)
+    jj = j.clamp(max=cap - 1)
+    read_slot = (cn - 1 - jj).clamp(0, cap - 1) if first else jj
+    push = torch.zeros(pn, dtype=torch.bool)
+    slot = torch.zeros(pn, dtype=i64)
+    writes = torch.zeros(pn, dtype=torch.bool)
+    stack, emit = {}, -1
+    n, lx, x2 = int(n0), int(last_x2), int(ik_x2)
+    if keep_all:  # every entry kept: the first taken may emit
+        if j0 < pn and n == 0 and emit_ok:
+            emit, x2 = j0, int(p2[j0])
+        return dict(read_slot=read_slot, push=push, slot=slot,
+                    writes=writes, stack=stack, emit=emit, n=n, last_x2=lx,
+                    ik_x2=x2)
+    step = rounds or max(pn - j0, 1)
+    for lo in range(j0, pn, step):
+        hi = min(lo + step, pn)
+        o = e2[lo:hi]
+        k = torch.arange(hi - lo, dtype=i64)
+        nx2 = x2
+        if lo == 0 and (x2 < max_intv or int(o[0]) < minv) and n == 0 \
+                and emit_ok:  # the row's first entry emits
+            emit, nx2 = 0, int(p2[0])
+        ref = torch.full_like(o, nx2)
+        if lo == 0:
+            ref[0] = x2
+        unk = ~((ref < max_intv) | (o < minv))
+        # the nearest earlier unkept entry of the round, or -1
+        upto = torch.cummax(torch.where(unk, k, torch.full_like(k, -1)),
+                            0).values
+        before = torch.cat([upto.new_full((1,), -1), upto[:-1]])
+        in_round = before >= 0
+        p = unk & torch.where(in_round, o != o[before.clamp(min=0)],
+                              torch.full_like(unk, n == 0) | (o != lx))
+        r = n + torch.cumsum(p.to(i64), 0) - p.to(i64)
+        last = n + int(p.sum()) - 1
+        w = p & ((r < cap - 1) | (r == last))
+        push[lo:hi], writes[lo:hi] = p, w
+        slot[lo:hi] = r.clamp(max=cap - 1)
+        for t in w.nonzero().flatten().tolist():
+            stack[min(int(r[t]), cap - 1)] = lo + t
+        if bool(unk.any()):
+            lx = int(o[int(upto[-1])])
+        n = last + 1
+        x2 = nx2
+    return dict(read_slot=read_slot, push=push, slot=slot, writes=writes,
+                stack=stack, emit=emit, n=n, last_x2=lx, ik_x2=x2)
+
+
 # launches of the K1 kernel (the CUDA wrapper below adds one per launch)
 launches = 0
 

@@ -65,19 +65,21 @@ def entry(device: str = "cuda"):
     q = _tiny_reads(fm)
     B, L = q.shape
     cdt = idx["cdt"]
+    x, active = np.zeros(B, np.int32), np.ones(B, bool)
+    form = fm_ops.smem1a_form(x, active)  # on the host's arrays
 
     def fn(idx, q, qlen, x, minv, active):
         ret, m0, _, _, _, _, mem_n = fm_ops.smem1a_batch(
-            idx, q, qlen, x, minv, 0, active, L + 2)
+            idx, q, qlen, x, minv, 0, active, L + 2, form=form)
         pos = fm_ops.sa_batch(idx, torch.where(mem_n > 0, m0[:, 0],
                                                torch.ones_like(m0[:, 0])))
         return ret, mem_n, pos
 
     return fn, (idx, torch.from_numpy(q).to(dev),
                 torch.full((B,), L, dtype=torch.int32, device=dev),
-                torch.zeros(B, dtype=torch.int32, device=dev),
+                torch.from_numpy(x).to(dev),
                 torch.ones(B, dtype=cdt, device=dev),
-                torch.ones(B, dtype=torch.bool, device=dev))
+                torch.from_numpy(active).to(dev))
 
 
 def dry_mesh(n_devices: int, device: str):

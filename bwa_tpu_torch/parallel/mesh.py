@@ -209,6 +209,11 @@ def sharded_seed_step(trees, mesh: Mesh, cap: int):
     from bwa_tpu_torch.ops import fm as fm_ops
 
     def step(q, qlen, x):
+        # K10a's form from the host's x (read once, before any shard is
+        # queued, where it lies on a card): the wrapper never waits
+        xh, lh = (a if isinstance(a, np.ndarray) else a.cpu().numpy()
+                  for a in (x, qlen))
+        form = fm_ops.smem1a_form(xh, xh < lh)
         parts = blocks(q.shape[0], mesh.size)
         ins = [(_to(q, sl, dev), _to(qlen, sl, dev), _to(x, sl, dev))
                for sl, dev in zip(parts, mesh.devices)]
@@ -219,7 +224,7 @@ def sharded_seed_step(trees, mesh: Mesh, cap: int):
                 minv = torch.ones(qd.shape[0], dtype=idx["cdt"],
                                   device=dev)
                 ret, m0, _, _, _, _, mem_n = fm_ops.smem1a_batch(
-                    idx, qd, qld, xd, minv, 0, xd < qld, cap)
+                    idx, qd, qld, xd, minv, 0, xd < qld, cap, form=form)
                 has = mem_n > 0
                 pos = fm_ops.sa_batch(
                     idx, torch.where(has, m0[:, 0], torch.ones_like(m0[:, 0])))

@@ -422,10 +422,16 @@ def serve(prefix: str, device: str = "cuda") -> int:
     sp = sock_path(prefix)
     sp.parent.mkdir(parents=True, exist_ok=True)
     sp.unlink(missing_ok=True)
+    # the path appears only once the socket listens: a client that
+    # connected between bind and listen would be refused, take the socket
+    # for a stale one and unlink it (daemon_available)
+    tmp = sp.with_suffix(".tmp")
     srv = socket.socket(socket.AF_UNIX)
     try:
-        srv.bind(str(sp))
+        tmp.unlink(missing_ok=True)
+        srv.bind(str(tmp))
         srv.listen(4)
+        os.replace(tmp, sp)
         _log(f"serving {key} on {sp} (pid {os.getpid()}, {device})")
         while True:
             conn, _ = srv.accept()
@@ -445,6 +451,7 @@ def serve(prefix: str, device: str = "cuda") -> int:
                 return 0 if state == "stop" else 1
     finally:
         srv.close()
+        tmp.unlink(missing_ok=True)
         sp.unlink(missing_ok=True)
 
 

@@ -118,8 +118,9 @@ Without, in order:
      unified route's read for read; sa_batch (K9) on 65,536 SA rows
      against fm.sa_lookup; sharded_seed_step on two shards of the card and
      the dry run's entry() on the 20 kb genome, each equal to its CPU run;
-     each new kernel's first launch (K12a's pass-2 launch too; K13's first
-     segment and one more) held to its plain version on the card on 256
+     each new kernel's first launch (K12a's pass-2 launch too, and K10a's,
+     the warp form's; K13's first segment and one more) held to its plain
+     version on the card on 256
      of its lanes and its longest (the whole machine state for K12 and
      K13), timed beside its bound;
   4e. (run right after 4b) the mesh, every visible card or, with one,
@@ -167,12 +168,14 @@ Any failure exits non-zero before the last line.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import inspect
 import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1513,6 +1516,26 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
+def busy_time(fn, reps):
+    """CUDA-event ms a call with the card kept busy ahead of the host (an
+    idle kernel of about 0.1 s queued first), so that the host's time
+    between calls is hidden: the device time of the call's kernels,
+    its small torch ops' included."""
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def k1_outputs(out):
     """seeds after sort_seeds, seed_n, ovf, done_step and steps (the
     longest lane's), on the host."""
@@ -2838,28 +2861,34 @@ def check_k13(seg):
     return info
 
 
-def check_smem_kernel(rec, name, keyed, count=256):
-    """A recorded K10a, K10b or K11 call (the first) on all its reads,
+def check_smem_kernel(rec, name, keyed, count=256, call=0):
+    """A recorded K10a, K10b or K11 call (rec.calls[call]) on all its reads,
     timed, its intervals extended counted by the kernel, and on `count`
     of its reads and the one that extends most (keyed(out): per read)
-    against the plain version on the card."""
+    against the plain version on the card; its launch plan (the form, the
+    reads a warp, the warps a block, the resident reads), its device time
+    (busy_time: the card kept busy ahead of the host) and, for K10a, the
+    other form on the same call, timed, its outputs equal."""
     import torch
 
     from bwa_tpu_torch.ops import fm as fm_ops
 
-    ph, args, kw = rec.calls[0]
+    ph, args, kw = rec.calls[call]
     fn = getattr(fm_ops, rec.name)
     plain = getattr(fm_ops, rec.name + "_plain")
     idx, q = args[0], args[1]
     work = torch.zeros(1, dtype=torch.int64, device=q.device)
     out = fn(*args, **kw, work=work)
+    plan = dict(fm_ops.smem_plans.get(name, {}) if q.is_cuda else {})
     ms = cuda_time(lambda: fn(*args, **kw), 5)
+    busy_ms = busy_time(lambda: fn(*args, **kw), 5) if q.is_cuda else None
     rows = torch.as_tensor(spread_rows(q.shape[0], [int(keyed(out).argmax())],
                                        count), device=q.device)
     sub = [idx] + [a[rows] if torch.is_tensor(a) and a.dim() >= 1
                    and a.shape[0] == q.shape[0] else a for a in args[1:]]
     got = fn(*sub, **kw)
-    want, plain_ms = timed_once(lambda: plain(*sub, **kw))
+    pkw = {k: v for k, v in kw.items() if k != "form"}  # a kernel's only
+    want, plain_ms = timed_once(lambda: plain(*sub, **pkw))
     equal = all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
     err = max(int((g.cpu().long() - w.cpu().long()).abs().max())
               if g.numel() else 0 for g, w in zip(got, want))
@@ -2868,12 +2897,27 @@ def check_smem_kernel(rec, name, keyed, count=256):
     nbytes = occ.numel() * 4 + sum(a.numel() * a.element_size()
                                    for a in args[1:] if torch.is_tensor(a)) \
         + sum(o.numel() * o.element_size() for o in out)
-    res = dict(phase=ph, call=0, ms=ms, plain_ms=plain_ms,
+    res = dict(phase=ph, call=call, ms=ms, busy_ms=busy_ms, plain_ms=plain_ms,
                plain_shape=f"{len(rows)} reads on the card", equal=equal,
                err=err, shape=f"B={q.shape[0]} L={q.shape[1]}"
                + "".join(f" {k}={v}" for k, v in kw.items()),
                extensions=n, bytes=int(nbytes),
-               ops=float(step_ops(n, occ.shape[1] - 4)))
+               ops=float(step_ops(n, occ.shape[1] - 4)), **{
+                   k: plan.get(k) for k in ("form", "reads_per_warp",
+                                        "warps_per_block", "blocks",
+                                        "resident_reads", "lists",
+                                        "registers")})
+    if plan and name == "K10a":  # the other form, the same call
+        other = next(f for f in fm_ops.SMEM_FORMS if f != plan["form"])
+        ko = dict(kw, form=other)
+        same = all(torch.equal(a, b) for a, b in zip(out, fn(*args, **ko)))
+        res["other_form"] = dict(
+            form=other, equal=same,
+            ms=cuda_time(lambda: fn(*args, **ko), 5),
+            busy_ms=busy_time(lambda: fn(*args, **ko), 5))
+        if not same:
+            fail(f"{name}'s {other} form disagrees with its "
+                 f"{plan['form']} form at {ph}'s launch")
     res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
     log(f"{name} {res}")
     if not equal:
@@ -3062,12 +3106,14 @@ def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
         hm = mesh.make_mesh(devices=["cpu", "cpu"])
         th = {hm.devices[0]: DeviceFMIndex(tiny, device="cpu").tree()}
         step = mesh.sharded_seed_step(tm, cm, qt.shape[1] + 2)
+        crecs["K10a"].phase = "sharded_seed_step"
         got, ph_s = counted("sharded_seed_step", lambda: step(qt, lt, xt))
         want = mesh.sharded_seed_step(th, hm, qt.shape[1] + 2)(qt, lt, xt)
         if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
             fail("sharded_seed_step: the card's differs from the CPU's")
         ph_s.update(n_seeded=int(got[3]), mean_pos=int(got[4]))
         fn, args = dryrun.entry(device)
+        crecs["K10a"].phase = "dryrun_entry"
         got, ph_e = counted("dryrun_entry", lambda: fn(*args))
         fh, ah = dryrun.entry("cpu")
         if not all(torch.equal(g.cpu(), w) for g, w in zip(got, fh(*ah))):
@@ -3095,6 +3141,30 @@ def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
                                           lambda o: o[0] - o[5]),
                 "K11": check_smem_kernel(crecs["K11"], "K11",
                                          lambda o: o[5], count=64)}
+    # K10a's first launch runs the group form (every read from x = 0); the
+    # unfused route's pass-2 launch, the warp form, is held to the plain
+    # version too, at its own shape (x inside the reads)
+    k10a = crecs["K10a"]
+    pass2 = max(i for i, (ph, _, _) in enumerate(k10a.calls)
+                if ph == "seeds_unfused_4096")
+    if device == "cuda" and k10a.calls[pass2][2].get("form") != "warp":
+        fail(f"step 4f: K10a's pass-2 launch ran the "
+             f"{k10a.calls[pass2][2].get('form')} form, not the warp form")
+    warp = check_smem_kernel(k10a, "K10a", lambda o: o[6], call=pass2)
+    # launches by form: the calls on `device` (the recorder also sees the
+    # CPU runs that the mesh step and the dry run are compared with)
+    by_form = collections.Counter(kw.get("form", "warp")
+                                  for _, args, kw in k10a.calls
+                                  if args[1].device.type == device)
+    rows["K10a"]["launches_by_form"] = dict(by_form)
+    rows["K10a"]["warp_form"] = dict(
+        launches=by_form["warp"], max_abs_err=warp["err"],
+        **{k: warp[k] for k in (
+            "phase", "call", "shape", "form", "ms", "busy_ms", "plain_ms",
+            "plain_shape", "equal", "bound_ms", "bound_by", "extensions",
+            "bytes", "ops", "reads_per_warp", "warps_per_block", "blocks",
+            "resident_reads", "lists", "registers", "other_form")
+           if k in warp})
     rows["K12a"]["pass2_launch"] = rows.pop("K12a pass 2")
     rows["K13"]["compaction_levels"] = [x for ph in phases
                                         for x in ph.get("compaction_levels",
@@ -3759,7 +3829,14 @@ def start_daemon(d: Path, prefix: str, sockdir: Path, device: str):
                 fail(f"daemon exited {proc.returncode} before its ping: "
                      f"{dlog.read_text()[-3000:]}")
             if time.perf_counter() - t0 > 600:
-                fail("daemon: no ping after 600 s")
+                # its stacks into its log (faulthandler on SIGUSR1), then
+                # stop it: no process of the smoke outlives a failure
+                proc.send_signal(signal.SIGUSR1)
+                time.sleep(2)
+                proc.kill()
+                proc.wait()
+                fail(f"daemon: no ping after 600 s: "
+                     f"{dlog.read_text()[-6000:]}")
             time.sleep(0.1)
     finally:
         os.environ.pop("BWA_TPU_DAEMON_DIR")
@@ -4436,7 +4513,11 @@ def main(argv) -> int:
                                     "one_read_lanes", "design", "int64",
                                     "attrs", "mesh_shard_checks",
                                     "pass2_launch", "compaction_levels",
-                                    "pacbio_refused", "kernel_ms")
+                                    "pacbio_refused", "kernel_ms",
+                                    "busy_ms", "form",
+                                    "reads_per_warp", "warps_per_block",
+                                    "resident_reads", "lists", "other_form",
+                                    "launches_by_form", "warp_form")
                if kk in k},
             **({"entry_past_4096": [
                 e for e in entry_past

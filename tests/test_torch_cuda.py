@@ -1337,6 +1337,7 @@ def test_k10a_matches_plain(world, max_intv, cap, occ_r, coords):
     n0 = fm_ops.smem1a_launches
     got, want = _both(fm_ops.smem1a_batch, tt, args)
     assert fm_ops.smem1a_launches == n0 + 1
+    assert fm_ops.smem_plans["K10a"]["form"] == "warp"  # the default
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and torch.equal(g, w), i
     assert int((want[6] > 0).sum()) > B // 2
@@ -1390,6 +1391,129 @@ def test_k11_matches_plain(world, repeat_world, rows, cap_s, occ_r,
         assert g.dtype == w.dtype and torch.equal(g, w), i
     if cap_s < 10:
         assert bool((want[5] > cap_s).any())
+
+
+def _edge_rows(world, repeat_world, rows):
+    """K10's and K11's edge inputs: `n<B>` the short reads and random
+    reads tiled to B rows (B not a multiple of the reads a warp: 1, 3,
+    4,097), `chimera` halves of two short reads joined (a call from the
+    join emits several mems), `repeat` the tandem-repeat lanes (rows of
+    tens of entries: the gather form's rounds), `long` 8,000-base reads
+    (lists past a block's shared memory: the scratch plan at int64 and at
+    R = 1)."""
+    if rows == "repeat":
+        return repeat_world
+    if rows == "chimera":
+        s = world["short"]
+        q = np.stack([np.concatenate([s[k][:75], s[k + 1][75:150]])
+                      for k in range(0, 63)])
+        return world["fm"], q, np.full(len(q), 150, np.int32)
+    q, ql = _read_rows(world, rows == "long")
+    if rows.startswith("n"):
+        B = int(rows[1:])
+        reps = -(-B // q.shape[0])
+        q, ql = np.tile(q, (reps, 1))[:B], np.tile(ql, reps)[:B]
+    return world["fm"], q, ql
+
+
+def _edge_x(ql, seed, join=None):
+    """Starts inside the read, at 0, at qlen and past it (and at an N where
+    the read has one) or, with join, at the join of a chimera for most
+    reads; every tenth read inactive."""
+    rng = np.random.default_rng(seed)
+    x = np.array([rng.integers(0, max(1, n)) for n in ql], np.int32)
+    if join is not None:
+        x[np.arange(len(ql)) % 4 != 3] = join
+    x[::7] = ql[::7]
+    x[3::11] = ql[3::11] + 2
+    x[5::13] = 0
+    return x, np.arange(len(ql)) % 10 != 9
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("form", ["group", "warp"])
+@pytest.mark.parametrize("rows,cap,max_intv,occ_r,coords", [
+    ("n1", None, 0, 4, "int32"), ("n3", None, 0, 1, "int64"),
+    ("n4097", None, 0, 4, "int32"), ("n4097", None, 30, 1, "int32"),
+    ("repeat", None, 0, 4, "int32"), ("repeat", None, 0, 1, "int64"),
+    ("chimera", 1, 0, 4, "int64"), ("chimera", 3, 0, 1, "int32"),
+    ("chimera", None, 30, 4, "int32"), ("chimera", None, 0, 1, "int64"),
+    ("long", None, 0, 1, "int32"),
+    ("long", None, 0, 4, "int64")])
+def test_k10a_edges_match_plain(world, repeat_world, form, rows, cap,
+                                max_intv, occ_r, coords):
+    """K10a in both backward-row forms: B not a multiple of the reads a
+    warp, x at or past qlen and at Ns, inactive reads, calls from a
+    chimera's join (several mems a call) at caps 1 and 3 (the lists
+    overwrite their last slot) and at L + 2, the repeat lanes' long rows,
+    and the shared and scratch list plans; every output equal."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm, q, ql = _edge_rows(world, repeat_world, rows)
+    x, active = _edge_x(ql, 4, 75 if rows == "chimera" else None)
+    tt = _tree(fm, coords, occ_r)
+    B, L = q.shape
+    minv = torch.from_numpy(np.random.default_rng(5).integers(1, 3, B)).to(
+        tt["cdt"])
+    args = (torch.from_numpy(q), torch.from_numpy(ql), torch.from_numpy(x),
+            minv, max_intv, torch.from_numpy(active), cap or L + 2)
+    n0 = fm_ops.smem1a_launches
+    got, want = _both(fm_ops.smem1a_batch, tt, args, dict(form=form))
+    assert fm_ops.smem1a_launches == n0 + 1
+    plan = fm_ops.smem_plans["K10a"]
+    assert plan["form"] == form
+    # one warp's lists past a block's shared memory: the scratch plan
+    wide = plan["reads_per_warp"] * plan["per_read"] > fm_ops.SMEM_BLOCK_BYTES
+    assert plan["lists"] == ("scratch" if wide else "shared")
+    if rows == "long":
+        assert wide
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    if rows == "chimera" and cap is None and max_intv == 0:
+        assert int(want[6].max()) > 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,occ_r,coords", [
+    ("n1", 4, "int32"), ("n3", 1, "int64"), ("n4097", 4, "int64"),
+    ("n4097", 1, "int32"), ("repeat", 4, "int32")])
+def test_k10b_edges_match_plain(world, repeat_world, rows, occ_r, coords):
+    """K10b: B not a multiple of the reads a warp, x at or past qlen and
+    at Ns, inactive reads; every output equal."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm, q, ql = _edge_rows(world, repeat_world, rows)
+    x, active = _edge_x(ql, 6)
+    args = (torch.from_numpy(q), torch.from_numpy(ql), torch.from_numpy(x),
+            12, 20, torch.from_numpy(active))
+    got, want = _both(fm_ops.seed_strategy1_batch,
+                      _tree(fm, coords, occ_r), args)
+    assert fm_ops.smem_plans["K10b"]["reads_per_warp"] == 32 // (2 * occ_r)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,cap,cap_s,occ_r,coords", [
+    ("n1", None, 96, 4, "int32"), ("n3", None, 96, 1, "int64"),
+    ("repeat", None, 64, 4, "int64"), ("repeat", 1, 64, 1, "int32"),
+    ("chimera", 3, 8, 4, "int32"), ("chimera", 1, 96, 1, "int64"),
+    ("long", None, 512, 1, "int64")])
+def test_k11_edges_match_plain(world, repeat_world, rows, cap, cap_s, occ_r,
+                               coords):
+    """K11: B of 1 and 3, the repeat lanes, chimeras with a mem list of cap
+    1 and 3 (overwritten), a seed store that overflows, and the scratch
+    plan; the sorted seeds and seed_n equal the plain version's."""
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm, q, ql = _edge_rows(world, repeat_world, rows)
+    L = q.shape[1]
+    args = (torch.from_numpy(q), torch.from_numpy(ql), 19, 28, 10, 20)
+    got, want = _both(fm_ops.collect_intv_device, _tree(fm, coords, occ_r),
+                      args, dict(cap=cap or L + 2, cap_s=cap_s, key64=False))
+    assert fm_ops.smem_plans["K11"]["form"] == "warp"
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
 
 
 @pytest.mark.requires_cuda
