@@ -1,6 +1,8 @@
-"""K10a, K10b and K11 (csrc/smem_batch.cu) alone on a CUDA card.
+"""K9, K10a, K10b, K11 (csrc/smem_batch.cu) and K1's state mode (K12a,
+K12b, K13: csrc/seed_machine.cu) alone on a CUDA card.
 
     python3 bwa_tpu_torch/bench_smem.py [--root DIR] [--reps N]
+                                        [--part smem|state|all]
 
 Times the kernels of this checkout or, with --root, of another checkout
 of the repository (a parent commit unpacked with `git archive`), so that
@@ -19,15 +21,25 @@ own.  The inputs, made from chip_smoke.py's seed:
   entries): K10a in each form and K11, at R = 1 and 4;
 - scratch: 512 reads of 8,000 bases, x inside each, whose lists pass a
   block's shared memory (the global-scratch plan): K10a in each form and
-  K11.
+  K11;
+- state (--part state or all): step 4f's first state-mode launches,
+  through the route functions (engine.collect_seeds under
+  BWA_TPU_SEED_MACHINE=split and BWA_TPU_SEED_COMPACT=1 on the first
+  bucket `mem` seeds of step 4d's 24,576 x 150 bp reads): each launch of
+  K12a pass 1, K12a pass 2, K12b and K13's first segment, its wrapper's
+  CUDA-event ms and the kernel alone; and K9 on step 4f's 65,536 rows
+  (its longest walk where the tree counts it).
 
-Each call is timed three ways over --reps launches after a warm-up: ms,
+Each K10/K11 call is timed three ways over --reps launches after a
+warm-up: ms,
 CUDA events around the wrapper calls; busy_ms, the same with the card
 kept busy ahead of the host (the device time of the wrapper's kernels);
-kernel_ms, the kernel alone (torch.profiler).  out_hash hashes the
-outputs: equal across forms and trees.  One JSON line a row, each naming
-the card and its power limit; the last line the 4f sums.  Without a card
-it exits non-zero.
+kernel_ms, the kernel alone (torch.profiler).  A state-mode launch is
+timed over --reps route calls: ms, its wrapper's CUDA events; kernel_ms,
+its own kernel in the profiler.  out_hash hashes the outputs: equal
+across forms and trees.  One JSON line a row, each naming the card and
+its power limit; the last line the 4f sums.  Without a card it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -67,6 +79,164 @@ def kernel_time(fn, reps, name):
              or getattr(e, "cuda_time_total", 0)
              for e in prof.key_averages() if name in e.key)
     return us / reps / 1e3 if us else None
+
+
+def launch_times(fn, reps, name):
+    """Device ms of each launch of the kernels whose name holds `name` in
+    a call of fn, in launch order, the mean over reps calls
+    (torch.profiler's kernel records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if name in e.name
+                  and e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per = len(evs) // reps
+    return [sum(evs[r * per + i].time_range.elapsed_us()
+                for r in range(reps)) / reps / 1e3 for i in range(per)]
+
+
+class WrapperTimer:
+    """CUDA events around each call of a module's function (restored by
+    restore()): ms() the mean ms of each call position over the runs
+    since begin()."""
+
+    def __init__(self, mod, name):
+        import torch
+
+        self.mod, self.name, self.real = mod, name, getattr(mod, name)
+        self.runs, self.cur = [], None
+        real, runs = self.real, self.runs
+
+        def timed(*a, **kw):
+            e = (torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = real(*a, **kw)
+            e[1].record()
+            runs[-1].append(e)
+            return out
+
+        setattr(mod, name, timed)
+
+    def begin(self):
+        self.runs.append([])
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        runs = [r for r in self.runs if r]
+        n = min(len(r) for r in runs)
+        return [sum(r[i][0].elapsed_time(r[i][1]) for r in runs) / len(runs)
+                for i in range(n)]
+
+    def restore(self):
+        setattr(self.mod, self.name, self.real)
+
+
+def state_part(cs, card, root, fa, fm, eng, codes, reps):
+    """The state part: step 4f's first K12a pass-1, K12a pass-2, K12b and
+    K13 launches through the route functions, and K9; one JSON line
+    each."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bwa_tpu_torch.cli import main as cli_main
+    from bwa_tpu_torch.ops import fm as fm_ops
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    d = REPO / "build" / "smoke"
+    fq = d / "bench_state_se.fq"
+    cs.write_fastq(fq, cs.simulate(codes, 24576, 150, cs.SEED + 12, 0.005,
+                                   0.0002, "t")[0])
+    first = []
+    real = fm_ops.BatchedFMEngine.collect_seeds
+
+    def grab(self, *a, **kw):
+        if not first:
+            first.append((a, kw))
+        return real(self, *a, **kw)
+
+    fm_ops.BatchedFMEngine.collect_seeds = grab
+    try:
+        with cs.env_set(BWA_TPU_SEED_MACHINE="split"):
+            with open(os.devnull, "w") as null:
+                cli_main(["mem", "--device", "cuda", str(fa), str(fq)],
+                         out_fp=null)
+    finally:
+        fm_ops.BatchedFMEngine.collect_seeds = real
+    a, kw = first[0]
+    # the wrappers the routes call: this tree's, else the parent's names
+    names = {"smem": "smem_pass" if hasattr(fmm, "smem_pass")
+             else "smem_machine",
+             "seed3": "seed3_pass" if hasattr(fmm, "seed3_pass")
+             else "seed3_machine", "segment": "segment"}
+    rows = []
+    for route, env, kinds in (
+            ("split", {"BWA_TPU_SEED_MACHINE": "split"},
+             (("K12a pass 1", "smem", 0), ("K12a pass 2", "smem", 1),
+              ("K12b", "seed3", 0))),
+            ("compact", {"BWA_TPU_SEED_COMPACT": "1"},
+             (("K13", "segment", 0),))):
+        timers = {k: WrapperTimer(fmm, n) for k, n in names.items()}
+        try:
+            def call():
+                for t in timers.values():
+                    t.begin()
+                return eng.collect_seeds(*a, **kw)
+
+            with cs.env_set(**env):
+                h = hashlib.sha256()
+                for o in call():
+                    h.update(np.ascontiguousarray(o).tobytes())
+                kern = launch_times(call, reps, "seed_machine_kernel")
+                for t in timers.values():  # the profiled runs' events out
+                    t.runs.clear()
+                for _ in range(reps):
+                    call()
+                wms = {w: timers[w].ms() for _, w, _ in kinds}
+        finally:
+            for t in timers.values():
+                t.restore()
+        # the kernel launches of a split call: pass 1, pass 2, pass 3
+        order = {"K12a pass 1": 0, "K12a pass 2": 1, "K12b": 2, "K13": 0}
+        for kernel, w, i in kinds:
+            k_ms = kern[order[kernel]] if order[kernel] < len(kern) else None
+            row = dict(card=card, root=str(root), kernel=kernel, input="4f",
+                       route=route, B=int(a[0].shape[0]),
+                       L=int(a[0].shape[1]), ms=wms[w][i], kernel_ms=k_ms,
+                       gap_ms=None if k_ms is None else wms[w][i] - k_ms,
+                       out_hash=h.hexdigest()[:16])
+            print(json.dumps(dict(state_bench=row)), flush=True)
+            rows.append(row)
+    rng = np.random.default_rng(cs.SEED + 13)  # step 4f's K9 rows
+    ks = torch.from_numpy(rng.integers(0, fm.seq_len, 65536)).to(
+        eng.idx["cdt"]).cuda()
+    work = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out = fm_ops.sa_batch(eng.idx, ks, work=work)
+    longest = int(work[1]) or None  # a tree that counts the longest walk
+    row = dict(card=card, root=str(root), kernel="K9", input="4f",
+               B=int(ks.numel()), walk_steps=int(work[0]),
+               longest_walk=longest,
+               ms=cs.cuda_time(lambda: fm_ops.sa_batch(eng.idx, ks), reps),
+               kernel_ms=kernel_time(lambda: fm_ops.sa_batch(eng.idx, ks),
+                                     reps, "sa_kernel"),
+               out_hash=hashlib.sha256(out.cpu().numpy().tobytes())
+               .hexdigest()[:16])
+    row["ns_per_step"] = None if longest is None or row["kernel_ms"] is None \
+        else row["kernel_ms"] * 1e6 / longest
+    print(json.dumps(dict(state_bench=row)), flush=True)
+    return rows + [row]
 
 
 def repeat_input(d, seed, B=4096):
@@ -110,6 +280,7 @@ def main(argv) -> int:
     root = Path(argv[argv.index("--root") + 1]).resolve() \
         if "--root" in argv else REPO
     reps = int(argv[argv.index("--reps") + 1]) if "--reps" in argv else 10
+    part = argv[argv.index("--part") + 1] if "--part" in argv else "all"
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -140,6 +311,10 @@ def main(argv) -> int:
                         "s")[0]
     opt = MemOptions()
     eng = fm_ops.BatchedFMEngine(fm, device="cuda")
+    if part in ("state", "all"):
+        state_part(cs, card, root, fa, fm, eng, codes, reps)
+    if part == "state":
+        return 0
     recs = {k: cs.Recorder(fm_ops, w) for k, w in WRAPPERS.items()}
     try:
         reads_ = [r for _, r in reads]

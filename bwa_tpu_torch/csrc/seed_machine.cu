@@ -72,8 +72,17 @@
 //     version's step, inside a backward row if that is where it falls:
 //     the row resumes at entry j with the target stack's count and last
 //     pushed size, from which the row's rules follow (K13, the tail
-//     compaction of bwa_tpu/ops/fm.py:903-982).  The state is int64, as
-//     the plain version's: state and seeds cost 8 bytes a field each way.
+//     compaction of bwa_tpu/ops/fm.py:903-982).  The state is held at the
+//     kernel's own widths, on the card, for a whole route call
+//     (ops/fm_machine.py::typed_state): the int fields in the rows of an
+//     int32 [18, B] tensor, the coordinates in the rows of a [5, B] tensor
+//     of C, field f of lane b at row f, column b, so that a block's four
+//     lanes share each row's sectors; the stacks in [B, 2, cap, 4] of C,
+//     copied to and from shared memory as 16-byte vectors; the seed store
+//     [B, cap_s, 5] of C, the one the route sorts and fetches.  So a launch
+//     needs no packing on the host, and a state costs 4 bytes a field at
+//     C = int32.  A pass starts from a few fills of those tensors
+//     (start_state); compaction gathers one tensor at a time.
 //
 // Kernels of the same source, on the same occtab through the group lookup
 // (glookup, csrc/fm_occ.cuh, shared with K10a, K10b and K11): K1's
@@ -86,8 +95,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "fm_occ.cuh"
 
 namespace {
@@ -95,9 +102,6 @@ namespace {
 constexpr int P_NEXT = 0, P_FWD = 1, P_BWD = 2, P_DONE = 3;
 constexpr int S_P1 = 0, S_P2 = 1, S_P3 = 2;
 constexpr int WARPS = 4;  // lanes (warps) a block
-// the state mode's per-lane fields, rows of a [SEG_NF, B] int64 tensor in
-// ops/fm_machine.py::SEG_FIELDS's order
-constexpr int SEG_NF = 23;
 
 template <typename C>
 struct SeedArgs {
@@ -110,7 +114,7 @@ struct SeedArgs {
   int min_seed_len, split_len;
   int64_t split_width, max_intv3;
   int cap, cap_s, use_p3, tagged, cap_r;
-  void *seeds;             // [B, cap_s, 5|6] coordinates (int64: state mode)
+  void *seeds;             // [B, cap_s, 5|6] coordinates
   int32_t *seed_n, *done_step, *steps;
   uint8_t *ovf;
   uint8_t *qmask;          // [B, cap_s] scratch
@@ -119,9 +123,13 @@ struct SeedArgs {
   // job table, the per-lane fields and stacks loaded and stored, the run's
   // steps before the launch and the launch's step budget
   int last_stage;
-  const int64_t *jobs;     // [B, cap_s, 5], or null: the live seed store
-  int64_t *lanes;          // [SEG_NF, B]
-  int64_t *stk;            // [B, 2, cap, 4]
+  const C *jobs;           // [B, cap_s, 5], or null: the live seed store
+  // the per-lane fields: the rows of an int32 [18, B] tensor in
+  // ops/fm_machine.py::INT_FIELDS's order and of a [5, B] tensor of
+  // coordinates (minv, ik0, ik1, ik2, last_x2)
+  int32_t *ints;
+  C *coords;
+  C *stk;                  // [B, 2, cap, 4]
   const int32_t *steps_in;
   int64_t max_steps;
 };
@@ -130,13 +138,11 @@ struct SeedArgs {
 // per-lane fields, both stacks; seeds and qualification bits stay in
 // place) from the state tensors, runs until it is done, exhausts
 // last_stage or reaches steps_in + max_steps plain steps, and stores it
-// back; seeds are int64, as in the plain version's state.  A backward row
-// may start and end part way: it resumes at entry j with the target
-// stack's count and last pushed size.
+// back.  A backward row may start and end part way: it resumes at entry j
+// with the target stack's count and last pushed size.
 template <typename C, int NW, bool SEG>
 __global__ void __launch_bounds__(WARPS * 32)
     seed_machine_kernel(SeedArgs<C> a) {
-  using S = typename std::conditional<SEG, int64_t, C>::type;  // seed type
   constexpr int G = 2 * NW / WPT;  // threads a group (one interval)
   constexpr int E = 32 / G;        // backward entries a round
   constexpr unsigned LEADERS = FULL / ((1u << G) - 1);  // first of each group
@@ -151,11 +157,10 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int ncol = a.tagged ? 6 : 5;
   C *stkA = reinterpret_cast<C *>(smem_raw) + (size_t)warp * 2 * cap * 4;
   C *stkB = stkA + cap * 4;
-  S *seeds = static_cast<S *>(a.seeds) + (size_t)b * cap_s * ncol;
+  C *seeds = static_cast<C *>(a.seeds) + (size_t)b * cap_s * ncol;
   uint8_t *qmask = a.qmask + (size_t)b * cap_s;
   // a fixed pass-2 job table (the state mode's pass 2 alone), or none
-  const int64_t *jobs =
-      SEG && a.jobs ? a.jobs + (size_t)b * cap_s * 5 : nullptr;
+  const C *jobs = SEG && a.jobs ? a.jobs + (size_t)b * cap_s * 5 : nullptr;
   // the lane's read: row b, or in refill mode each read it draws
   int rid = b, qlen = 0, hi1 = 0, hi3 = 0;
   const uint8_t *q = a.q;
@@ -181,24 +186,28 @@ __global__ void __launch_bounds__(WARPS * 32)
   int64_t cur_tag = 0;
   int steps = 0, done_step = 0;
   int stop_at = 0x7fffffff;
+  // the stacks' 16-byte vectors a lane (2 * cap * 4 coordinates)
+  const int nvec = 2 * cap * 4 * (int)sizeof(C) / 16;
   if (SEG) {
     take_read(b);
-    const int64_t *f = a.lanes + b;
+    const int32_t *f = a.ints + b;
+    const C *g = a.coords + b;
     const size_t B = a.B;
-    phase = (int)f[0]; stage = (int)f[B]; old_n = (int)f[2 * B];
-    job = (int)f[3 * B]; x = (int)f[4 * B]; minv = (C)f[5 * B];
-    ik0 = (C)f[6 * B]; ik1 = (C)f[7 * B]; ik2 = (C)f[8 * B];
-    info_end = (int)f[9 * B]; i = (int)f[10 * B]; j = (int)f[11 * B];
-    an = (int)f[12 * B]; bn = (int)f[13 * B]; cur_is_a = f[14 * B] != 0;
-    rev_read = f[15 * B] != 0; last_x2 = (C)f[16 * B];
-    call_last_start = (int)f[17 * B]; call_mem_n = (int)f[18 * B];
-    ret = (int)f[19 * B]; seed_n = (int)f[20 * B]; ovf = f[21 * B] != 0;
-    done_step = (int)f[22 * B];
+    phase = f[0]; stage = f[B]; old_n = f[2 * B]; job = f[3 * B];
+    x = f[4 * B]; info_end = f[5 * B]; i = f[6 * B]; j = f[7 * B];
+    an = f[8 * B]; bn = f[9 * B]; cur_is_a = f[10 * B] != 0;
+    rev_read = f[11 * B] != 0; call_last_start = f[12 * B];
+    call_mem_n = f[13 * B]; ret = f[14 * B]; ovf = f[15 * B] != 0;
+    done_step = f[16 * B]; seed_n = f[17 * B];
+    minv = g[0]; ik0 = g[B]; ik1 = g[2 * B]; ik2 = g[3 * B];
+    last_x2 = g[4 * B];
     steps = *a.steps_in;
     const int64_t stop = (int64_t)steps + a.max_steps;
     stop_at = stop < 0x7fffffff ? (int)stop : 0x7fffffff;
-    const int64_t *st = a.stk + (size_t)b * 2 * cap * 4;
-    for (int t = lane; t < 2 * cap * 4; t += 32) stkA[t] = (C)st[t];
+    const uint4 *st =
+        reinterpret_cast<const uint4 *>(a.stk + (size_t)b * 2 * cap * 4);
+    for (int t = lane; t < nvec; t += 32)
+      reinterpret_cast<uint4 *>(stkA)[t] = st[t];
     __syncwarp();
   } else if (b < a.n_queue) {
     take_read(b);
@@ -239,8 +248,9 @@ __global__ void __launch_bounds__(WARPS * 32)
           bool qs = false;
           if (s < lim) {
             if (jobs) {
-              const int64_t *r = jobs + (size_t)s * 5;
-              qs = r[4] - r[3] >= a.split_len && r[2] <= a.split_width;
+              const C *r = jobs + (size_t)s * 5;
+              qs = (int)(r[4] - r[3]) >= a.split_len &&
+                   (int64_t)r[2] <= a.split_width;
             } else {
               qs = qmask[s];
             }
@@ -253,18 +263,12 @@ __global__ void __launch_bounds__(WARPS * 32)
         }
         have_s1 = jj < old_n;
         if (have_s1) {
-          C r2;
-          int r3, r4;
-          if (jobs) {
-            const int64_t *row = jobs + (size_t)jj * 5;
-            r2 = (C)row[2]; r3 = (int)row[3]; r4 = (int)row[4];
-          } else {
-            const S *row = seeds + (size_t)jj * ncol;
-            r2 = (C)row[2]; r3 = (int)row[3]; r4 = (int)row[4];
-          }
+          const C *row =
+              jobs ? jobs + (size_t)jj * 5 : seeds + (size_t)jj * ncol;
+          const int r3 = (int)row[3], r4 = (int)row[4];
           x_s1 = (r3 + r4) >> 1;
           if (a.tagged) cur_tag = ((int64_t)r3 << 15) | r4;
-          minv = r2 + 1;
+          minv = row[2] + 1;
         }
         job = jj + (have_s1 ? 1 : 0);
       } else {
@@ -469,19 +473,22 @@ __global__ void __launch_bounds__(WARPS * 32)
 
   if (SEG) {
     if (lane == 0) {
-      int64_t *f = a.lanes + b;
+      int32_t *f = a.ints + b;
+      C *g = a.coords + b;
       const size_t B = a.B;
       f[0] = phase; f[B] = stage; f[2 * B] = old_n; f[3 * B] = job;
-      f[4 * B] = x; f[5 * B] = minv; f[6 * B] = ik0; f[7 * B] = ik1;
-      f[8 * B] = ik2; f[9 * B] = info_end; f[10 * B] = i; f[11 * B] = j;
-      f[12 * B] = an; f[13 * B] = bn; f[14 * B] = cur_is_a;
-      f[15 * B] = rev_read; f[16 * B] = last_x2;
-      f[17 * B] = call_last_start; f[18 * B] = call_mem_n; f[19 * B] = ret;
-      f[20 * B] = seed_n; f[21 * B] = ovf; f[22 * B] = done_step;
+      f[4 * B] = x; f[5 * B] = info_end; f[6 * B] = i; f[7 * B] = j;
+      f[8 * B] = an; f[9 * B] = bn; f[10 * B] = cur_is_a;
+      f[11 * B] = rev_read; f[12 * B] = call_last_start;
+      f[13 * B] = call_mem_n; f[14 * B] = ret; f[15 * B] = ovf;
+      f[16 * B] = done_step; f[17 * B] = seed_n;
+      g[0] = minv; g[B] = ik0; g[2 * B] = ik1; g[3 * B] = ik2;
+      g[4 * B] = last_x2;
       atomicMax(a.steps, steps);
     }
-    int64_t *st = a.stk + (size_t)b * 2 * cap * 4;
-    for (int t = lane; t < 2 * cap * 4; t += 32) st[t] = stkA[t];
+    uint4 *st = reinterpret_cast<uint4 *>(a.stk + (size_t)b * 2 * cap * 4);
+    for (int t = lane; t < nvec; t += 32)
+      st[t] = reinterpret_cast<const uint4 *>(stkA)[t];
     return;
   }
   // the slots no push reached hold zeros, as in the plain version
@@ -1146,6 +1153,37 @@ int attrs_of(int which, int cap, int L, int32_t *out) {
   }
 }
 
+// K1's state mode (K12, K13): B lanes of q resumed from the typed state
+// (ints [18, B] int32, coords [5, B], stk [B, 2, cap, 4], seeds
+// [B, cap_s, 5] of the coordinate type and qmask [B, cap_s], all updated
+// in place) for at most max_steps steps past steps_in[0]; each lane ends
+// with last_stage, pass 2 reading its jobs from `jobs` when given;
+// steps_out, which must not hold more than steps_in, ends as the largest
+// lane's count.
+template <typename C>
+int seed_state(const uint32_t *occtab, int nw, const int64_t *L2,
+               int64_t primary, int64_t seq_len, const uint8_t *q, int B,
+               int L, const int32_t *qlen, const int32_t *nv,
+               int min_seed_len, int split_len, int64_t split_width,
+               int64_t max_intv3, int cap, int cap_s, int use_p3,
+               int last_stage, const void *jobs, int32_t *ints, void *coords,
+               void *stk, void *seeds, uint8_t *qmask,
+               const int32_t *steps_in, int32_t *steps_out,
+               int64_t max_steps, cudaStream_t stream) {
+  SeedArgs<C> a{};
+  a.occtab = occtab; a.L2 = L2; a.primary = (C)primary;
+  a.seq_len = (C)seq_len; a.q = q; a.B = B; a.n_queue = B; a.L = L;
+  a.qlen = qlen; a.nv = nv; a.hi1 = a.hi3 = qlen;
+  a.min_seed_len = min_seed_len; a.split_len = split_len;
+  a.split_width = split_width; a.max_intv3 = max_intv3; a.cap = cap;
+  a.cap_s = cap_s; a.use_p3 = use_p3; a.seeds = seeds; a.steps = steps_out;
+  a.qmask = qmask; a.last_stage = last_stage;
+  a.jobs = static_cast<const C *>(jobs); a.ints = ints;
+  a.coords = static_cast<C *>(coords); a.stk = static_cast<C *>(stk);
+  a.steps_in = steps_in; a.max_steps = max_steps;
+  return launch_nw<C, true>(a, nw, stream);
+}
+
 }  // namespace
 
 extern "C" int bwa_seed_machine(
@@ -1175,44 +1213,19 @@ extern "C" int bwa_seed_machine(
   return launch_any(a, nw, group, (cudaStream_t)stream);
 }
 
-// K1's state mode (K12, K13): B lanes of q resumed from the state tensors
-// (lanes [SEG_NF, B] int64, stk [B, 2, cap, 4] int64, seeds [B, cap_s, 5]
-// int64 and qmask [B, cap_s], all updated in place) for at most max_steps
-// steps past steps_in[0]; each lane ends with last_stage, pass 2 reading
-// its jobs from `jobs` when given; steps_out (set to steps_in) ends as the
-// largest lane's count.
 extern "C" int bwa_seed_state(
     int coord64, const uint32_t *occtab, int nw, const int64_t *L2,
     int64_t primary, int64_t seq_len, const uint8_t *q, int B, int L,
     const int32_t *qlen, const int32_t *nv, int min_seed_len, int split_len,
     int64_t split_width, int64_t max_intv3, int cap, int cap_s, int use_p3,
-    int last_stage, const int64_t *jobs, int64_t *lanes, int64_t *stk,
-    int64_t *seeds, uint8_t *qmask, const int32_t *steps_in,
+    int last_stage, const void *jobs, int32_t *ints, void *coords, void *stk,
+    void *seeds, uint8_t *qmask, const int32_t *steps_in,
     int32_t *steps_out, int64_t max_steps, void *stream) {
-  if (coord64) {
-    SeedArgs<int64_t> a{};
-    a.occtab = occtab; a.L2 = L2; a.primary = primary; a.seq_len = seq_len;
-    a.q = q; a.B = B; a.n_queue = B; a.L = L; a.qlen = qlen; a.nv = nv;
-    a.hi1 = a.hi3 = qlen; a.min_seed_len = min_seed_len;
-    a.split_len = split_len; a.split_width = split_width;
-    a.max_intv3 = max_intv3; a.cap = cap; a.cap_s = cap_s;
-    a.use_p3 = use_p3; a.seeds = seeds; a.steps = steps_out;
-    a.qmask = qmask; a.last_stage = last_stage; a.jobs = jobs;
-    a.lanes = lanes; a.stk = stk; a.steps_in = steps_in;
-    a.max_steps = max_steps;
-    return launch_nw<int64_t, true>(a, nw, (cudaStream_t)stream);
-  }
-  SeedArgs<int32_t> a{};
-  a.occtab = occtab; a.L2 = L2; a.primary = (int32_t)primary;
-  a.seq_len = (int32_t)seq_len; a.q = q; a.B = B; a.n_queue = B; a.L = L;
-  a.qlen = qlen; a.nv = nv; a.hi1 = a.hi3 = qlen;
-  a.min_seed_len = min_seed_len; a.split_len = split_len;
-  a.split_width = split_width; a.max_intv3 = max_intv3; a.cap = cap;
-  a.cap_s = cap_s; a.use_p3 = use_p3; a.seeds = seeds; a.steps = steps_out;
-  a.qmask = qmask; a.last_stage = last_stage; a.jobs = jobs;
-  a.lanes = lanes; a.stk = stk; a.steps_in = steps_in;
-  a.max_steps = max_steps;
-  return launch_nw<int32_t, true>(a, nw, (cudaStream_t)stream);
+  auto f = coord64 ? seed_state<int64_t> : seed_state<int32_t>;
+  return f(occtab, nw, L2, primary, seq_len, q, B, L, qlen, nv, min_seed_len,
+           split_len, split_width, max_intv3, cap, cap_s, use_p3, last_stage,
+           jobs, ints, coords, stk, seeds, qmask, steps_in, steps_out,
+           max_steps, (cudaStream_t)stream);
 }
 
 extern "C" int bwa_probe_breaks(int coord64, const uint32_t *occtab, int nw,

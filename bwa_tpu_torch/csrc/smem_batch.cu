@@ -5,7 +5,19 @@
 //       sa_batch (an XLA while_loop): a thread a row walks inverse Psi
 //       (the BWT base at the row and its count, from ckpt and the text
 //       words) until the row is a multiple of 32, then adds the sampled
-//       position.  Bound: the walk's dependent loads, a step each.
+//       position.  Bound: every row is resident at once, so the launch
+//       takes its longest walk's chain of dependent steps (439 on step
+//       4f's 65,536 rows).  A step is one memory round trip: the base and
+//       its count lie in one 128-base block (the row's $-removed position
+//       serves both; at the $ row the count is not used), so the block's
+//       eight text words (two 16-byte loads) and four counts (one, two at
+//       int64) are issued together and the base is taken from the words
+//       already loaded.  Loading the base's word first costs less than a
+//       second round trip: the block's loads after it, of the same 32-byte
+//       sector, mostly hit L1.  What is left is a step's L2 latency and
+//       the count after it (PERF.md).
+//       One row a thread: more would lengthen the chain.  `work` gets the
+//       steps and the longest walk.
 //  K10a smem1a: bwt_smem1a (bwt.c:289-351) one read a lane, replacing
 //       bwa_tpu/ops/fm.py:319 _smem1a_core (smem1a_batch :478); the mems
 //       in the reference's pre-reversal order, each list overwriting its
@@ -690,7 +702,7 @@ __global__ void __launch_bounds__(MAX_THREADS, WARP_FORM_BLOCKS)
   add_work(a.work, work);
 }
 
-// K9: bwt_sa a thread a row
+// K9: bwt_sa a thread a row (design note at the top)
 template <typename C>
 __global__ void __launch_bounds__(128)
     sa_kernel(const C *ckpt, const uint32_t *words, const C *ssa,
@@ -704,36 +716,58 @@ __global__ void __launch_bounds__(128)
   if (t < N) {
     C k = k_in[t];
     while ((k & 31) != 0) {
-      // the BWT base at the $-removed row
-      const C x = k - (k > primary ? 1 : 0);
-      const uint32_t wx = words[(size_t)(x >> 7) * 8 + ((x >> 4) & 7)];
-      const int c = (int)(wx >> ((15 - (int)(x & 15)) << 1)) & 3;
-      // its count in B[0..k] (bwt_occ)
-      C kk = k - (k >= primary ? 1 : 0);
-      kk = kk < 0 ? 0 : (kk > seq_len - 1 ? seq_len - 1 : kk);
-      const uint32_t *w = words + (size_t)(kk >> 7) * 8;
+      ++steps;
+      if (k == primary) {  // the $ row: bwt_sa's k = 0, its count unused
+        k = 0;
+        break;
+      }
+      // the $-removed row: the position of the BWT base and of its count
+      // in B[0..k] (bwt_occ) alike, so one block holds both
+      C kk = k - (k > primary ? 1 : 0);
+      kk = kk > seq_len - 1 ? seq_len - 1 : kk;
+      const size_t blk = (size_t)(kk >> 7);
+      const uint4 *wp = reinterpret_cast<const uint4 *>(words + blk * 8);
+      const uint4 *cp = reinterpret_cast<const uint4 *>(ckpt + blk * 4);
+      // the block's text words and counts, all issued before any is used
+      const uint4 w0 = ldg_now(wp), w1 = ldg_now(wp + 1);
+      const uint4 c0 = ldg_now(cp);
+      const uint4 c1 = sizeof(C) == 8 ? ldg_now(cp + 1) : c0;
+      const uint32_t ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
       const int kw = (int)(kk >> 4) & 7, kb = (int)(kk & 15);
+      uint32_t wx = ws[0];
+#pragma unroll
+      for (int u = 1; u < 8; ++u) wx = u == kw ? ws[u] : wx;
+      const int c = (int)(wx >> ((15 - kb) << 1)) & 3;
       int n = 0;
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int nkeep = clampi((kw - u) * 16 + kb + 1, 0, 16);
         const uint32_t mask = nkeep > 0 ? FULL << ((16 - nkeep) << 1) : 0u;
-        const uint32_t word = w[u] & mask, m55 = mask & M55;
+        const uint32_t word = ws[u] & mask, m55 = mask & M55;
         const uint32_t hi = (word >> 1) & M55, lo = word & M55;
         n += __popc(((c & 2) ? hi : ~hi & m55) & ((c & 1) ? lo : ~lo & m55));
       }
-      C occ = ckpt[(size_t)(kk >> 7) * 4 + c] + n;
+      C cnt;
+      if (sizeof(C) == 4) {
+        cnt = (C)sel4(c0.x, c0.y, c0.z, c0.w, c);
+      } else {  // two 64-bit counts a vector
+        const uint4 h = c < 2 ? c0 : c1;
+        const uint64_t lo = (c & 1) ? h.z : h.x, hi = (c & 1) ? h.w : h.y;
+        cnt = (C)(lo | hi << 32);
+      }
+      C occ = cnt + n;
       if (k == seq_len) occ = pick(L2, c + 1) - pick(L2, c);
-      k = k == primary ? 0 : pick(L2, c) + occ;
-      ++steps;
+      k = pick(L2, c) + occ;
     }
     out[t] = (C)steps + ssa[k >> 5];
   }
-  if (work) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      steps += __shfl_xor_sync(FULL, steps, off);
-    if ((threadIdx.x & 31) == 0) atomicAdd(work, (unsigned long long)steps);
+  if (work) {  // the walk steps summed and the longest walk
+    const unsigned longest = __reduce_max_sync(FULL, steps);
+    steps = __reduce_add_sync(FULL, steps);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(work, (unsigned long long)steps);
+      atomicMax(work + 1, (unsigned long long)longest);
+    }
   }
 }
 

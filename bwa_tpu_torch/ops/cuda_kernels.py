@@ -93,7 +93,7 @@ def _bind(libs) -> None:
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, i32, i32,
                   i64, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
-                  i64, vp]
+                  vp, i64, vp]
     f = libs["smem_batch.cu"].bwa_sa_batch
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, i32, vp, vp]
@@ -194,13 +194,16 @@ def seed_machine(occtab, L2, primary, seq_len, q, qlen, nv, job_lo, hi1,
 
 def seed_state(occtab, L2, primary, seq_len, coord64, q, qlen, nv,
                min_seed_len, split_len, split_width, max_intv3, cap, cap_s,
-               use_p3, last_stage, jobs, lanes, stk, seeds, qmask, steps_in,
-               steps_out, max_steps) -> None:
+               use_p3, last_stage, jobs, ints, coords, stk, seeds, qmask,
+               steps_in, steps_out, max_steps) -> None:
     """Launch K1's state mode (csrc/seed_machine.cu, bwa_seed_state: K12,
-    K13) on the current stream: the B lanes of q resumed from lanes
-    [23, B], stk [B, 2, cap, 4], seeds [B, cap_s, 5] (int64) and qmask,
-    updated in place, for at most max_steps steps past steps_in; each lane
-    ends with last_stage, pass 2 reading jobs (or None: the seed store)."""
+    K13) on the current stream: the B lanes of q resumed from a typed
+    state (ops/fm_machine.py::typed_state: ints [18, B] int32, coords
+    [5, B], stk [B, 2, cap, 4], seeds [B, cap_s, 5], all of the coordinate
+    type but ints, and qmask), updated in place, for at most max_steps
+    steps past steps_in; each lane ends with last_stage, pass 2 reading
+    jobs (or None: the seed store); steps_out, holding no more than
+    steps_in, ends as the largest lane's count."""
     lib = build_all()["seed_machine.cu"]
     B, L = q.shape
     _call(lib.bwa_seed_state, "seed_state", q.device, int(coord64),
@@ -208,9 +211,9 @@ def seed_state(occtab, L2, primary, seq_len, coord64, q, qlen, nv,
           int(seq_len), _ptr(q), B, L, _ptr(qlen), _ptr(nv),
           int(min_seed_len), int(split_len), int(split_width),
           int(max_intv3), int(cap), int(cap_s), int(use_p3),
-          int(last_stage), None if jobs is None else _ptr(jobs),
-          _ptr(lanes), _ptr(stk), _ptr(seeds), _ptr(qmask), _ptr(steps_in),
-          _ptr(steps_out), int(max_steps), _stream(q))
+          int(last_stage), _opt(jobs), _ptr(ints), _ptr(coords), _ptr(stk),
+          _ptr(seeds), _ptr(qmask), _ptr(steps_in), _ptr(steps_out),
+          int(max_steps), _stream(q))
 
 
 def _opt(t):
@@ -220,8 +223,8 @@ def _opt(t):
 def sa_batch(ckpt, words, ssa, L2, primary, seq_len, coord64, k, out,
              work=None) -> None:
     """Launch K9 (csrc/smem_batch.cu, bwa_sa_batch: bwt_sa a thread a row
-    of k) on the current stream; work: an int64 [1] tensor that the walk
-    steps are added to, or None."""
+    of k) on the current stream; work: an int64 [2] tensor, [0] gaining
+    the walk steps and [1] raised to the longest walk, or None."""
     lib = build_all()["smem_batch.cu"]
     _call(lib.bwa_sa_batch, "sa_batch", k.device, int(coord64), _ptr(ckpt),
           _ptr(words), _ptr(ssa), _ptr(L2), int(primary), int(seq_len),

@@ -491,11 +491,13 @@ def _probe_breaks_cuda(idx, q):
 # tensor launches csrc/smem_batch.cu, a CPU tensor takes the plain version.
 # ---------------------------------------------------------------------------
 
-def sa_batch_plain(idx, k):
+def sa_batch_plain(idx, k, work=None):
     """bwt_sa (bwt.c:86-96) over a vector of SA rows k: the inverse-Psi walk
     (the BWT base at the row, _B0, and its count, _occ1) until the row is a
     multiple of sa_intv, then the sampled position plus the steps taken.
-    Returns positions in the coordinate dtype."""
+    Returns positions in the coordinate dtype.  work: an int64 [2] tensor
+    to whose [0] the walk steps are added and whose [1] is raised to the
+    longest walk, as K9 does."""
     if "ssa" not in idx:
         raise ValueError("sa_batch needs the sampled suffix array, which a "
                          "light index (more than 2^20 text blocks) does not "
@@ -517,6 +519,9 @@ def sa_batch_plain(idx, k):
         occ = _occ1(idx, kl, c).to(i64)
         k[lv] = torch.where(kl == primary, torch.zeros_like(kl), L2[c] + occ)
         steps[lv] += 1
+    if work is not None and steps.numel():
+        work[0] += int(steps.sum())
+        work[1] = max(int(work[1]), int(steps.max()))
     return (steps + idx["ssa"][k >> 5].to(i64)).to(cdt)
 
 
@@ -786,10 +791,13 @@ collect_launches = 0
 def sa_batch(idx, k, work=None):
     """bwt_sa over the SA rows k [N]: kernel K9 (csrc/smem_batch.cu, a
     thread a row) for a CUDA k, sa_batch_plain for a CPU one.  work: an
-    int64 [1] CUDA tensor to which K9 adds the walk steps it took."""
+    int64 [2] tensor on k's device: [0] gains the walk steps taken, [1]
+    is raised to the longest walk."""
     global sa_launches
+    if work is not None and work.shape != (2,):
+        raise ValueError("sa_batch's work is an int64 [2] tensor")
     if not k.is_cuda:
-        return sa_batch_plain(idx, k)
+        return sa_batch_plain(idx, k, work)
     from bwa_tpu_torch.ops import cuda_kernels
 
     if "ssa" not in idx:
@@ -801,8 +809,12 @@ def sa_batch(idx, k, work=None):
     cdt = idx["cdt"]
     kk = k.to(cdt).contiguous()
     out = torch.empty_like(kk)
-    cuda_kernels.sa_batch(idx["ckpt"].contiguous(), idx["words"].contiguous(),
-                          idx["ssa"].contiguous(),
+    ckpt, words = idx["ckpt"].contiguous(), idx["words"].contiguous()
+    if ckpt.dtype != cdt or ckpt.data_ptr() % 16 or words.data_ptr() % 16:
+        raise ValueError("K9 reads a block's counts and text words as "
+                         "16-byte vectors: ckpt in the coordinate dtype, "
+                         "both aligned to 16 bytes")
+    cuda_kernels.sa_batch(ckpt, words, idx["ssa"].contiguous(),
                           idx["L2"].to(torch.int64).contiguous(),
                           idx["primary"], idx["seq_len"], cdt == torch.int64,
                           kk, out, work)
@@ -1242,13 +1254,13 @@ class BatchedFMEngine:
         fused=True: collect_intv_device (kernel K11 on a CUDA engine), the
         lock-step cross-check program, lists of L + 2 rows, seed_n as it
         counted.  seed_route() "split": pass 1, pass 2 and pass 3 as three
-        runs of the machine (smem_machine, seed3_machine; K12); "compact":
-        the machine in segments, the lanes still running gathered into
-        fewer between them (_compact; K13).  The split and compact routes
-        run on the engine's first device even on a mesh, take their stack
-        cap from BWA_TPU_STACK_CAP alone and do not read shard (their seed
-        store has no tag column), as bwa_tpu's do; every route leaves
-        last_done and last_steps as bwa_tpu's engine does."""
+        runs of the machine on one typed state (smem_pass, seed3_pass;
+        K12); "compact": the machine in segments, the lanes still running
+        gathered into fewer between them (_compact; K13).  The split and
+        compact routes run on the engine's first device even on a mesh,
+        take their stack cap from BWA_TPU_STACK_CAP alone and do not read
+        shard (their seed store has no tag column), as bwa_tpu's do; every
+        route leaves last_done and last_steps as bwa_tpu's engine does."""
         B, L = q_pad.shape
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
         route = seed_route()
@@ -1281,38 +1293,44 @@ class BatchedFMEngine:
     def _split(self, qd, qld, nvd, opt, split_len, cap, cap_s):
         """The three-call route (bwa_tpu's BWA_TPU_SEED_MACHINE=split): pass
         1, pass 2 from pass 1's rows, then pass 3 when max_mem_intv > 0
-        (its own overflow flag dropped, as bwa_tpu's).  Returns (seeds,
-        seed_n, ovf); last_done holds each SMEM pass's done_step,
-        last_steps the three runs' steps (0 for a pass 3 not run)."""
+        (its own overflow flag dropped, as bwa_tpu's), all on one typed
+        state, with no host read between them.  Returns (seeds, seed_n,
+        ovf); last_done holds each SMEM pass's done_step, last_steps the
+        three runs' steps (0 for a pass 3 not run), from one copy at the
+        end."""
         from bwa_tpu_torch.ops import fm_machine as fmm
 
-        B = qd.shape[0]
-        seeds = torch.zeros((B, cap_s, 5), dtype=self.idx["cdt"],
-                            device=qd.device)
-        seed_n = torch.zeros(B, dtype=torch.int32, device=qd.device)
+        st = fmm.typed_state(qd.shape[0], cap, cap_s, self.idx["cdt"],
+                             qd.device)
+        r_ovf = fmm.INT_FIELDS.index("ovf")  # ovf, done_step
         consts = (opt.min_seed_len, split_len, opt.split_width)
-        seeds, seed_n, st1, ov1, ds1 = fmm.smem_machine(
-            self.idx, qd, qld, nvd, *consts, seeds, seed_n,
-            torch.zeros_like(seed_n), cap=cap, cap_s=cap_s, pass2=False)
-        seeds, seed_n, st2, ov2, ds2 = fmm.smem_machine(
-            self.idx, qd, qld, nvd, *consts, seeds, seed_n, seed_n,
-            cap=cap, cap_s=cap_s, pass2=True)
-        st3 = 0
+        fmm.smem_pass(st, self.idx, qd, qld, nvd, *consts, cap=cap,
+                      cap_s=cap_s, pass2=False)
+        p1 = [st["steps"].clone(), st["ints"][r_ovf:r_ovf + 2].clone()]
+        fmm.smem_pass(st, self.idx, qd, qld, nvd, *consts, cap=cap,
+                      cap_s=cap_s, pass2=True)
+        ovf = (p1[1][0] | st["ovf"]) != 0
+        p2 = [st["steps"].clone(), st["done_step"].clone()]
+        p3 = [torch.zeros_like(p2[0])]
         if opt.max_mem_intv > 0:
-            seeds, seed_n, st3 = fmm.seed3_machine(
-                self.idx, qd, qld, nvd, opt.min_seed_len, opt.max_mem_intv,
-                seeds, seed_n, cap_s=cap_s)
-        self.last_done = (ds1.cpu().numpy(), ds2.cpu().numpy())
-        self.last_steps = tuple(int(s) for s in (st1, st2, st3))
-        return seeds, seed_n, ov1 | ov2
+            fmm.seed3_pass(st, self.idx, qd, qld, nvd, opt.min_seed_len,
+                           opt.max_mem_intv, cap_s=cap_s)
+            p3 = [st["steps"]]
+        meta = torch.cat([p1[0], p2[0], p3[0], p1[1][1], p2[1]]).cpu() \
+            .numpy()
+        B = qd.shape[0]
+        self.last_done = (meta[3:3 + B], meta[3 + B:])
+        self.last_steps = tuple(int(s) for s in meta[:3])
+        return st["seeds"], st["seed_n"], ovf
 
     def _compact(self, qd, qld, nvd, opt, split_len, cap, cap_s):
         """Tail compaction (bwa_tpu's BWA_TPU_SEED_COMPACT): a first segment
         of BWA_TPU_SEED_SEG (448) steps, later ones of BWA_TPU_SEED_SEG2
-        (256), each lane's results written home after every segment; then
-        the lanes still running are gathered into max(256, next power of
-        two) lanes (the rest parked, writing to a junk row B), or, if that
-        would not shrink the launch, run out in place; at 256 lanes or
+        (256), each lane's results written home after every segment (a
+        scatter a tensor); then the lanes still running are gathered into
+        max(256, next power of two) lanes (one index_select a tensor of
+        the typed state; the rest parked, writing to a junk row B), or, if
+        that would not shrink the launch, run out in place; at 256 lanes or
         fewer a segment runs to the end.  One host read a segment (steps
         and phases).  Returns (seeds, seed_n, ovf); last_done is zeros,
         last_steps the run's steps, last_levels (lanes, steps so far,
@@ -1333,11 +1351,11 @@ class BatchedFMEngine:
         seg0 = int(os.environ.get("BWA_TPU_SEED_SEG", "448"))
         seg = int(os.environ.get("BWA_TPU_SEED_SEG2", "256"))
         min_b = 256
-        state = fmm.seed_state_init(B, cap, cap_s, dev)
-        out_seeds = torch.zeros((B + 1, cap_s, 5), dtype=torch.int64,
-                                device=dev)
-        out_sn = torch.zeros(B + 1, dtype=torch.int64, device=dev)
-        out_ovf = torch.zeros(B + 1, dtype=torch.bool, device=dev)
+        cdt = self.idx["cdt"]
+        state = fmm.typed_state(B, cap, cap_s, cdt, dev)
+        out_seeds = torch.zeros((B + 1, cap_s, 5), dtype=cdt, device=dev)
+        out_sn = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+        out_ovf = torch.zeros(B + 1, dtype=torch.int32, device=dev)
         orig = torch.arange(B, device=dev)
         q_l, ql_l, nv_l = qd, qld, nvd
         B_l, ms = B, seg0
@@ -1364,21 +1382,16 @@ class BatchedFMEngine:
             pad = np.zeros(B2, np.int64)
             pad[:alive.size] = alive
             pidx = torch.from_numpy(pad).to(dev)
-            live = torch.arange(B2, device=dev) < alive.size
-            state = {k: v[pidx] if torch.is_tensor(v) and v.dim() >= 1
-                     and v.shape[0] == B_l else v for k, v in state.items()}
-            state["phase"] = torch.where(
-                live, state["phase"],
-                torch.full_like(state["phase"], fmm.P_DONE))
-            orig = torch.where(live, orig[pidx],
-                               torch.full_like(orig[pidx], B))
+            parked = torch.arange(B2, device=dev) >= alive.size
+            state = fmm.gather_state(state, pidx)
+            state["phase"].masked_fill_(parked, fmm.P_DONE)
+            orig = orig[pidx].masked_fill_(parked, B)
             q_l, ql_l, nv_l = q_l[pidx], ql_l[pidx], nv_l[pidx]
             B_l, ms = B2, seg
         self.last_done = (np.zeros(B, np.int32),)
         self.last_steps = (levels[-1][1],)
         self.last_levels = levels
-        return (out_seeds[:B].to(self.idx["cdt"]),
-                out_sn[:B].to(torch.int32), out_ovf[:B])
+        return out_seeds[:B], out_sn[:B], out_ovf[:B] != 0
 
     def smem_pass(self, q_pad: np.ndarray, qlen: np.ndarray, x: np.ndarray,
                   min_intv: np.ndarray, max_intv: int, active: np.ndarray,
@@ -1432,11 +1445,7 @@ def _to_dev(a, dev, dtype=None) -> torch.Tensor:
 
 
 def _steps_phase(state) -> tuple[int, np.ndarray]:
-    """A machine state's steps and per-lane phases on the host, in one
-    copy when they lie on a card."""
-    st = state["steps"]
-    if torch.is_tensor(st):
-        both = torch.cat([st.to(torch.int64).reshape(1),
-                          state["phase"].to(torch.int64)]).cpu().numpy()
-        return int(both[0]), both[1:]
-    return int(st), state["phase"].cpu().numpy()
+    """A typed state's steps and per-lane phases on the host, in one
+    copy."""
+    both = torch.cat([state["steps"], state["phase"]]).cpu().numpy()
+    return int(both[0]), both[1:]

@@ -18,13 +18,14 @@ at once; bwd_row_resolve is the plain form of how it orders that row's
 pushes and emit.  Its refill mode runs a warp a lane below twice the lanes
 resident at once, and from there in a group form, 2R threads a lane
 taking one plain step at a time (a backward row one entry a step:
-bwd_row_serial).  Its state mode (segment: the per-lane state loaded from
-and stored to the state dict, a step budget, a stage range) runs the
-split route's passes (smem_machine, seed3_machine: K12) and the tail
-compaction's segments (K13).
-seed_machine, seed_machine_refill, segment, smem_machine and seed3_machine
-dispatch: a CUDA tensor launches the kernel, a CPU tensor takes the plain
-version.
+bwd_row_serial).  Its state mode (a typed state, typed_state: each
+lane's fields loaded from and stored to tensors at the kernel's own
+widths, a step budget, a stage range) runs the split route's passes
+(smem_pass, seed3_pass: K12) and the tail compaction's segments (segment:
+K13).
+seed_machine, seed_machine_refill, segment, smem_pass and seed3_pass (and
+smem_machine, seed3_machine on them) dispatch: a CUDA tensor launches the
+kernel, a CPU tensor takes the plain version.
 
 Emission order within a lane differs from the reference's collection
 order; sort_seeds (stable by (start, end)) makes the result identical.
@@ -776,51 +777,160 @@ def sort_seeds(seeds, seed_n, key64: bool):
     return torch.gather(seeds, 1, order[:, :, None].expand_as(seeds))
 
 
+
+
 # ---------------------------------------------------------------------------
 # K1's state mode: the split route's passes (K12) and tail compaction's
 # segments (K13)
 # ---------------------------------------------------------------------------
 
-# the per-lane scalar fields of the state dict, in the kernel's row order
-# (ik takes three rows: x0, x1, x2)
+# the per-lane scalar fields of the plain version's state dict
 SEG_FIELDS = ("phase", "stage", "old_n", "job", "x", "minv", "ik",
               "info_end", "i", "j", "an", "bn", "cur_is_a", "rev_read",
               "last_x2", "call_last_start", "call_mem_n", "ret", "seed_n",
               "ovf", "done_step")
-_BOOL_FIELDS = ("cur_is_a", "rev_read", "ovf")
+# The typed state, K1's state mode's own (csrc/seed_machine.cu, design
+# item 8), allocated once for a route call on the route's device: the int
+# fields in the rows of an int32 [18, B] tensor ("ints"; flags as 0/1;
+# seed_n last, the one row a pass's start keeps), the coordinate fields in
+# the rows of a [5, B] tensor of the coordinate dtype ("coords": minv, ik
+# three rows, last_x2), both stacks in [B, 2, cap, 4] ("stk", a view of
+# "stk_buf") and the seed store in [B, cap_s, 5] of that dtype, qmask
+# [B, cap_s] bool, and the step count, "steps2": the count before a launch
+# and the one it leaves, in turns ("sp" indexes the count); "L2", the
+# index's L2 as the kernel reads it (int64), is cast at the first launch.
+# Every field is also under the plain dict's name, a view of these
+# tensors.
+INT_FIELDS = ("phase", "stage", "old_n", "job", "x", "info_end", "i", "j",
+              "an", "bn", "cur_is_a", "rev_read", "call_last_start",
+              "call_mem_n", "ret", "ovf", "done_step", "seed_n")
+_ROW = {k: r for r, k in enumerate(INT_FIELDS)}
+_FLAGS = ("cur_is_a", "rev_read", "ovf")
 BIG_STEPS = 1 << 62  # a segment that runs every lane to done
 
 # launches of K1's state mode: the split route's pass 1 and pass 2
-# (smem_machine, K12a), its pass 3 (seed3_machine, K12b), and tail
-# compaction's segments (segment, K13); each wrapper adds one a launch
+# (smem_pass, K12a), its pass 3 (seed3_pass, K12b), and tail compaction's
+# segments (segment, K13); each wrapper adds one a launch
 smem_launches = 0
 seed3_launches = 0
 segment_launches = 0
 
+_starts: dict = {}  # (stage, device, coordinate dtype): a start's rows
 
-def segment(d: dict, idx: dict, q, qlen, next_valid, min_seed_len,
-            split_len, split_width, max_intv3, max_steps: int, cap: int,
-            cap_s: int, use_p3: bool, last_stage: int = S_P3,
-            jobs=None) -> dict:
-    """At most max_steps more steps of every lane of the state d (from
-    seed_state_init, untagged), resumed where d stands: kernel K13 (K1's
-    state mode) for CUDA codes, seed_machine_seg for CPU ones.  Returns
-    the state, the same on both devices field for field (steps a [1]
-    int32 tensor after a launch, an int after the plain version)."""
-    global segment_launches
-    args = (d, idx, q, qlen, next_valid, min_seed_len, split_len,
-            split_width, max_intv3, max_steps, cap, cap_s, use_p3,
-            last_stage, jobs)
-    if q.is_cuda:
-        d = _launch_state(*args)
-        segment_launches += 1
-        return d
-    return _plain_state(*args)
+
+def _start_rows(stage, device, cdt):
+    """The int rows (all but seed_n) and the coordinate rows a lane starts
+    a pass in at `stage`, as [n, 1] tensors on the device (made once)."""
+    key = (stage, str(device), cdt)
+    if key not in _starts:
+        ints = torch.zeros((len(INT_FIELDS) - 1, 1), dtype=torch.int32)
+        ints[_ROW["phase"]] = P_NEXT
+        ints[_ROW["stage"]] = stage
+        ints[_ROW["cur_is_a"]] = ints[_ROW["rev_read"]] = 1
+        coords = torch.zeros((5, 1), dtype=cdt)
+        coords[0] = 1  # minv
+        _starts[key] = (ints.to(device), coords.to(device))
+    return _starts[key]
+
+
+def _views(st: dict) -> dict:
+    """st's fields under the plain dict's names, as views of its base
+    tensors."""
+    for r, k in enumerate(INT_FIELDS):
+        st[k] = st["ints"][r]
+    c = st["coords"]
+    st["minv"], st["ik"], st["last_x2"] = c[0], c[1:4].T, c[4]
+    st["stkA"], st["stkB"] = st["stk"][:, 0], st["stk"][:, 1]
+    st["steps"] = st["steps2"][st["sp"]:st["sp"] + 1]
+    return st
+
+
+def typed_state(B: int, cap: int, cap_s: int, cdt, device) -> dict:
+    """A typed state of B lanes with an empty seed store, started in pass
+    1 (start_state)."""
+    st = dict(ints=torch.zeros((len(INT_FIELDS), B), dtype=torch.int32,
+                               device=device),
+              coords=torch.empty((5, B), dtype=cdt, device=device),
+              stk_buf=torch.empty(B * 2 * cap * 4, dtype=cdt, device=device),
+              seeds=torch.zeros((B, cap_s, 5), dtype=cdt, device=device),
+              qmask=torch.empty((B, cap_s), dtype=torch.bool, device=device),
+              steps2=torch.zeros(2, dtype=torch.int32, device=device), sp=0)
+    st["stk"] = st["stk_buf"].view(B, 2, cap, 4)
+    return start_state(_views(st), S_P1)
+
+
+def start_state(st: dict, stage: int, cap: int | None = None,
+                old_n=None) -> dict:
+    """Start every lane of st afresh in `stage`, in place: field for field
+    the plain version's start (_stage_state), the seed store and seed_n
+    kept, old_n = seed_n for pass 2 (or old_n, given), stacks of `cap`
+    entries (a view of the state's stack buffer; cap=None keeps them)
+    zeroed, qmask and the step count zeroed.  A few fills on the state's
+    device."""
+    ints = st["ints"]
+    B = ints.shape[1]
+    rows, coords = _start_rows(stage, ints.device, st["coords"].dtype)
+    ints[:-1].copy_(rows)
+    if stage == S_P2:
+        ints[_ROW["old_n"]].copy_(ints[-1] if old_n is None else old_n)
+    st["coords"].copy_(coords)
+    if cap is not None and cap != st["stk"].shape[2]:
+        n = B * 2 * cap * 4
+        if st["stk_buf"].numel() < n:
+            st["stk_buf"] = torch.empty(n, dtype=coords.dtype,
+                                        device=ints.device)
+        st["stk"] = st["stk_buf"][:n].view(B, 2, cap, 4)
+        st["stkA"], st["stkB"] = st["stk"][:, 0], st["stk"][:, 1]
+    st["stk"].zero_()
+    st["qmask"].zero_()
+    st["steps2"].zero_()
+    st["sp"] = 0
+    st["steps"] = st["steps2"][:1]
+    return st
+
+
+def gather_state(st: dict, rows=None) -> dict:
+    """The lanes `rows` of a typed state (an index tensor on its device),
+    one index_select a base tensor; rows=None copies every lane."""
+    def take(t, dim):
+        return t.clone() if rows is None else t.index_select(dim, rows)
+
+    g = dict(ints=take(st["ints"], 1), coords=take(st["coords"], 1),
+             stk=take(st["stk"], 0), seeds=take(st["seeds"], 0),
+             qmask=take(st["qmask"], 0), steps2=st["steps2"].clone(),
+             sp=st["sp"], **{k: st[k] for k in ("L2",) if k in st})
+    g["stk_buf"] = g["stk"].view(-1)
+    return _views(g)
+
+
+def plain_dict(st: dict) -> dict:
+    """A typed state as the plain version's state dict (int64 fields,
+    bool flags, steps an int), a copy.  The CPU path runs the plain
+    version on it; tests and chip_smoke.py compare states with it."""
+    B, cap, cap_s = st["ints"].shape[1], st["stk"].shape[2], \
+        st["seeds"].shape[1]
+    d = seed_state_init(B, cap, cap_s, st["ints"].device)
+    for k in INT_FIELDS + ("minv", "ik", "last_x2", "stkA", "stkB",
+                           "seeds"):
+        d[k] = st[k] != 0 if k in _FLAGS else st[k].to(torch.int64)
+    d["qmask"] = st["qmask"].clone()
+    d["steps"] = int(st["steps"])
+    return d
+
+
+def _store_plain(st: dict, d: dict) -> None:
+    """The plain version's state d written into the typed state st."""
+    for k in INT_FIELDS + ("minv", "ik", "last_x2", "stkA", "stkB",
+                           "seeds", "qmask"):
+        st[k].copy_(d[k])
+    st["steps"].fill_(int(d["steps"]))
 
 
 def _plain_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
                  split_width, max_intv3, max_steps, cap, cap_s, use_p3,
                  last_stage, jobs):
+    """The plain version on the plain state dict d (seed_machine_seg with
+    a stage range and a fixed pass-2 job table)."""
     return seed_machine_seg(d, idx, q, qlen, next_valid, int(min_seed_len),
                             int(split_len), int(split_width),
                             int(max_intv3), max_steps, cap=cap, cap_s=cap_s,
@@ -829,68 +939,76 @@ def _plain_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
                             else jobs.to(torch.int64))
 
 
-def _launch_state(d, *args):
-    """One launch of K1's state mode: the state's per-lane fields packed
-    into one [fields, B] int64 tensor and its stacks into [B, 2, cap, 4],
-    loaded by each lane's warp, run for the step budget and stored back."""
-    from bwa_tpu_torch.ops import cuda_kernels
+def _run_state(st, idx, q, *args) -> None:
+    """One run of K1's state mode on the typed state st, in place: a
+    launch for CUDA codes, the plain version on its plain dict for CPU
+    ones."""
+    if q.is_cuda:
+        from bwa_tpu_torch.ops import cuda_kernels
 
-    kargs = _pack_state(d, *args)
-    cuda_kernels.seed_state(*kargs)
-    return _unpack_state(d, kargs)
+        cuda_kernels.seed_state(*_state_args(st, idx, q, *args))
+        st["sp"] ^= 1  # the launch left its count in the other slot
+        st["steps"] = st["steps2"][st["sp"]:st["sp"] + 1]
+    else:
+        _store_plain(st, _plain_state(plain_dict(st), idx, q, *args))
 
 
-def _pack_state(d, idx, q, qlen, next_valid, min_seed_len, split_len,
+def _state_args(st, idx, q, qlen, next_valid, min_seed_len, split_len,
                 split_width, max_intv3, max_steps, cap, cap_s, use_p3,
                 last_stage, jobs) -> tuple:
-    """The arguments of cuda_kernels.seed_state for one launch on the state
-    d: its per-lane fields and stacks packed, the rest as the kernel reads
-    them."""
-    i64, i32 = torch.int64, torch.int32
-    dev = q.device
+    """The arguments of cuda_kernels.seed_state for one launch on the
+    typed state st: its base tensors as they are, the step count read
+    from its slot and left in the other."""
     occtab = _check_occtab(idx, "K1's state mode")
-    if d["seeds"].shape[2] != 5:
-        raise ValueError("K1's state mode runs untagged lanes")
-    for t in (q, qlen, next_valid, occtab, d["phase"]):
-        if not t.is_cuda:
-            raise ValueError("K1's state mode takes CUDA tensors")
-    rows = [d[k].to(i64)[:, None] if d[k].dim() == 1 else d[k].to(i64)
-            for k in SEG_FIELDS]
-    lanes = torch.cat(rows, dim=1).T.contiguous()
-    stk = torch.stack([d["stkA"], d["stkB"]], dim=1).to(i64).contiguous()
-    seeds = d["seeds"].to(i64).contiguous()
-    qmask = d["qmask"].contiguous()
-    st = d["steps"]
-    steps_in = (st.to(i32).reshape(1) if torch.is_tensor(st)
-                else torch.tensor([st], dtype=i32, device=dev))
-    steps_out = steps_in.clone()
-    return (occtab, idx["L2"].to(i64).contiguous(), idx["primary"],
-            idx["seq_len"], idx["cdt"] == i64, q.to(torch.uint8).contiguous(),
-            qlen.to(i32).contiguous(), next_valid.to(i32).contiguous(),
-            int(min_seed_len), int(split_len), int(split_width),
-            int(max_intv3), cap, cap_s, bool(use_p3), int(last_stage),
-            None if jobs is None else jobs.to(i64).contiguous(), lanes, stk,
-            seeds, qmask, steps_in, steps_out, int(max_steps))
+    cdt = idx["cdt"]
+    for t in (q, qlen, next_valid, occtab, st["ints"]):
+        if not (t.is_cuda and t.is_contiguous()):
+            raise ValueError("K1's state mode takes contiguous CUDA tensors")
+    if st["seeds"].shape[2] != 5 or tuple(st["stk"].shape[1:]) != (2, cap, 4) \
+            or st["seeds"].shape[1] != cap_s:
+        raise ValueError("K1's state mode runs untagged lanes on a state of "
+                         "the launch's caps")
+    for t in (st["coords"], st["stk"], st["seeds"]) + (
+            () if jobs is None else (jobs,)):
+        if t.dtype != cdt or not t.is_contiguous():
+            raise ValueError("K1's state mode keeps coordinates, stacks and "
+                             "seeds in the index's coordinate dtype")
+    i32 = torch.int32
+    sp = st["sp"]
+    if "L2" not in st:  # the kernel reads L2 as int64: cast once a state
+        st["L2"] = idx["L2"].to(torch.int64).contiguous()
+    return (occtab, st["L2"], idx["primary"],
+            idx["seq_len"], cdt == torch.int64,
+            q.to(torch.uint8).contiguous(), qlen.to(i32).contiguous(),
+            next_valid.to(i32).contiguous(), int(min_seed_len),
+            int(split_len), int(split_width), int(max_intv3), cap, cap_s,
+            bool(use_p3), int(last_stage), jobs, st["ints"], st["coords"],
+            st["stk"], st["seeds"], st["qmask"], st["steps2"][sp:sp + 1],
+            st["steps2"][1 - sp:2 - sp], int(max_steps))
 
 
-def _unpack_state(d, kargs) -> dict:
-    """d updated from a launch's packed arguments (_pack_state)."""
-    lanes, stk, seeds, qmask, _, steps_out = kargs[-7:-1]
-    f = 0
-    for k in SEG_FIELDS:
-        n = 3 if k == "ik" else 1
-        v = lanes[f:f + n].T if n == 3 else lanes[f]
-        d[k] = v != 0 if k in _BOOL_FIELDS else v
-        f += n
-    d["stkA"], d["stkB"] = stk[:, 0], stk[:, 1]
-    d["seeds"], d["qmask"], d["steps"] = seeds, qmask, steps_out
-    return d
+def segment(st: dict, idx: dict, q, qlen, next_valid, min_seed_len,
+            split_len, split_width, max_intv3, max_steps: int, cap: int,
+            cap_s: int, use_p3: bool, last_stage: int = S_P3,
+            jobs=None) -> dict:
+    """At most max_steps more steps of every lane of the typed state st
+    (typed_state), resumed where it stands, in place: kernel K13 (K1's
+    state mode) for CUDA codes, seed_machine_seg on its plain dict for
+    CPU ones.  Returns st."""
+    global segment_launches
+    _run_state(st, idx, q, qlen, next_valid, min_seed_len, split_len,
+               split_width, max_intv3, max_steps, cap, cap_s, use_p3,
+               last_stage, jobs)
+    segment_launches += q.is_cuda
+    return st
 
 
 def _stage_state(idx, q, stage, cap, cap_s, seeds_in, seed_n_in,
                  old_n=None) -> dict:
-    """A fresh state whose lanes start in `stage` with the seeds of the
-    passes before it."""
+    """The plain version of start_state: a fresh plain dict whose lanes
+    start in `stage` with the seeds of the passes before it.  Nothing on
+    the route calls it; the tests and chip_smoke.py hold start_state and
+    the state mode's runs to it."""
     d = seed_state_init(q.shape[0], cap, cap_s, q.device)
     d["stage"].fill_(stage)
     d["seeds"] = seeds_in.to(torch.int64).clone()
@@ -900,47 +1018,83 @@ def _stage_state(idx, q, stage, cap, cap_s, seeds_in, seed_n_in,
     return d
 
 
+def _smem_run(st, idx, q, qlen, next_valid, min_seed_len, split_len,
+              split_width, cap, cap_s, pass2, old_n=None) -> tuple:
+    """st started for the split route's pass 1 or pass 2 (start_state; pass
+    2's job table a copy of the store as it stands at entry): the pass's
+    _run_state arguments."""
+    stage = S_P2 if pass2 else S_P1
+    start_state(st, stage, cap, old_n)
+    jobs = st["seeds"].clone() if pass2 else None
+    return (st, idx, q, qlen, next_valid, min_seed_len, split_len,
+            split_width, 0, BIG_STEPS, cap, cap_s, False, stage, jobs)
+
+
+def smem_pass(st: dict, idx, q, qlen, next_valid, min_seed_len, split_len,
+              split_width, cap: int, cap_s: int, pass2: bool,
+              old_n=None) -> dict:
+    """The split route's pass 1 (pass2=False) or pass 2 on the typed state
+    st, in place: st started in the pass's stage, then its stage range run
+    to completion, K12a (K1's state mode) for CUDA codes.  Pass 2 reads
+    its jobs from a copy of the store as it stands at entry (the JAX
+    package's fixed tables: its own pushes may overwrite the last row).
+    Returns st."""
+    global smem_launches
+    _run_state(*_smem_run(st, idx, q, qlen, next_valid, min_seed_len,
+                          split_len, split_width, cap, cap_s, pass2, old_n))
+    smem_launches += q.is_cuda
+    return st
+
+
+def _seed3_run(st, idx, q, qlen, next_valid, min_len, max_intv,
+               cap_s) -> tuple:
+    """st started for the split route's pass 3 (stacks of one entry, which
+    it never pushes): the pass's _run_state arguments."""
+    start_state(st, S_P3, 1)
+    return (st, idx, q, qlen, next_valid, min_len, 0, 0, max_intv,
+            BIG_STEPS, 1, cap_s, True, S_P3, None)
+
+
+def seed3_pass(st: dict, idx, q, qlen, next_valid, min_len, max_intv,
+               cap_s: int) -> dict:
+    """The split route's pass 3, bwt_seed_strategy1 over every start, on
+    the typed state st, in place: K12b (K1's state mode) for CUDA codes.
+    Returns st."""
+    global seed3_launches
+    _run_state(*_seed3_run(st, idx, q, qlen, next_valid, min_len,
+                           max_intv, cap_s))
+    seed3_launches += q.is_cuda
+    return st
+
+
+def _state_of(idx, q, cap, cap_s, seeds_in, seed_n_in) -> dict:
+    st = typed_state(q.shape[0], cap, cap_s, idx["cdt"], q.device)
+    st["seeds"].copy_(seeds_in)
+    st["seed_n"].copy_(seed_n_in)
+    return st
+
+
 def smem_machine(idx, q, qlen, next_valid, min_seed_len, split_len,
                  split_width, seeds_in, seed_n_in, old_n, cap: int,
                  cap_s: int, pass2: bool):
-    """The split route's pass 1 (pass2=False) or pass 2 (pass2=True) run to
-    completion (the JAX package's ops/fm_machine.py::smem_machine): the
-    machine's stage range of that pass alone.  seeds_in [B, cap_s, 5]
-    coord dtype, seed_n_in [B]; pass 2 takes its jobs from the fixed
-    seeds_in[:old_n] and appends.  Returns (seeds, seed_n [B] int32, steps,
-    ovf [B] bool, done_step [B] int32).  A CUDA q launches K12a (K1's
-    state mode), a CPU q runs the plain version."""
-    global smem_launches
-    stage = S_P2 if pass2 else S_P1
-    d = _stage_state(idx, q, stage, cap, cap_s, seeds_in, seed_n_in,
-                     old_n if pass2 else None)
-    args = (d, idx, q, qlen, next_valid, min_seed_len, split_len,
-            split_width, 0, BIG_STEPS, cap, cap_s, False, stage,
-            seeds_in if pass2 else None)
-    if q.is_cuda:
-        d = _launch_state(*args)
-        smem_launches += 1
-    else:
-        d = _plain_state(*args)
-    return (d["seeds"].to(idx["cdt"]), d["seed_n"].to(torch.int32),
-            d["steps"], d["ovf"], d["done_step"].to(torch.int32))
+    """The JAX package's ops/fm_machine.py::smem_machine: pass 1
+    (pass2=False) or pass 2 run to completion on a typed state made from
+    seeds_in [B, cap_s, 5] and seed_n_in [B] (smem_pass); pass 2 takes its
+    jobs from the fixed seeds_in[:old_n] and appends.  Returns (seeds
+    coord dtype, seed_n [B] int32, steps [1] int32, ovf [B] bool,
+    done_step [B] int32), views of the state."""
+    st = smem_pass(_state_of(idx, q, cap, cap_s, seeds_in, seed_n_in), idx,
+                   q, qlen, next_valid, min_seed_len, split_len,
+                   split_width, cap, cap_s, pass2, old_n if pass2 else None)
+    return st["seeds"], st["seed_n"], st["steps"], st["ovf"] != 0, \
+        st["done_step"]
 
 
 def seed3_machine(idx, q, qlen, next_valid, min_len, max_intv, seeds_in,
                   seed_n_in, cap_s: int):
-    """The split route's pass 3, bwt_seed_strategy1 over every start (the
-    JAX package's ops/fm_machine.py::seed3_machine): the machine's stage
-    range of pass 3 alone, appending to seeds_in.  Returns (seeds, seed_n
-    [B] int32, steps).  A CUDA q launches K12b (K1's state mode), a CPU q
-    runs the plain version."""
-    global seed3_launches
-    d = _stage_state(idx, q, S_P3, 1, cap_s, seeds_in, seed_n_in)
-    args = (d, idx, q, qlen, next_valid, min_len, 0, 0, max_intv,
-            BIG_STEPS, 1, cap_s, True, S_P3, None)
-    if q.is_cuda:
-        d = _launch_state(*args)
-        seed3_launches += 1
-    else:
-        d = _plain_state(*args)
-    return d["seeds"].to(idx["cdt"]), d["seed_n"].to(torch.int32), \
-        d["steps"]
+    """The JAX package's ops/fm_machine.py::seed3_machine: pass 3 on a
+    typed state made from seeds_in and seed_n_in (seed3_pass), appending.
+    Returns (seeds, seed_n [B] int32, steps [1] int32)."""
+    st = seed3_pass(_state_of(idx, q, 1, cap_s, seeds_in, seed_n_in), idx,
+                    q, qlen, next_valid, min_len, max_intv, cap_s)
+    return st["seeds"], st["seed_n"], st["steps"]

@@ -2552,46 +2552,46 @@ ROUTE_PHASES = (
      "mem_se_150bp_primary5"),
     ("mem_pacbio_primary5", ["mem_pacbio_primary5"], ["-x", "pacbio", "-5"],
      "mem_pacbio_primary5"))
-# K1's state mode: its per-lane fields, in and out (ops/fm_machine.py::
-# SEG_FIELDS, ik three of them)
-STATE_FIELDS = 23
+class StateRecorder:
+    """Stands in for a wrapper of K1's state mode that the routes call
+    (fm_machine.smem_pass, seed3_pass or segment): keeps a copy of the
+    typed state (the kernel updates it in place) and the inputs of the
+    first call of each key (key(kw): smem_pass's pass 1 and pass 2 apart),
+    brackets every call with CUDA events, notes each call's phase and
+    lanes (and a segment's step budget)."""
 
-
-class SegmentRecorder:
-    """Stands in for fm_machine.segment (K13): keeps a copy of the first
-    call's state (the kernel updates the state in place) and inputs,
-    brackets every call with CUDA events, notes each call's phase, lanes
-    and step budget."""
-
-    def __init__(self):
+    def __init__(self, name, key=lambda kw: None):
         from bwa_tpu_torch.ops import fm_machine
 
-        self.mod, self.real = fm_machine, fm_machine.segment
-        self.phase, self.first, self.calls, self.events = None, None, [], []
+        self.mod, self.name = fm_machine, name
+        self.real = getattr(fm_machine, name)
+        self.key = key
+        self.phase, self.first, self.calls, self.events = None, {}, [], []
         self.call_ms = {}
-        fm_machine.segment = self
+        setattr(fm_machine, name, self)
 
-    def __call__(self, d, idx, q, qlen, nv, *rest):
+    def __call__(self, st, idx, q, *rest, **kw):
         import torch
 
-        if self.first is None:
-            self.first = ({k: v.clone() if torch.is_tensor(v) else v
-                           for k, v in d.items()}, idx, q.clone(),
-                          qlen.clone(), nv.clone(), rest)
+        k = self.key(kw)
+        if k not in self.first:
+            self.first[k] = (self.mod.gather_state(st), idx, q.clone(),
+                             [a.clone() if torch.is_tensor(a) else a
+                              for a in rest], dict(kw), self.phase)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = self.real(d, idx, q, qlen, nv, *rest)
+        out = self.real(st, idx, q, *rest, **kw)
         b.record()
         self.events.append((len(self.calls), a, b))
-        self.calls.append(dict(phase=self.phase, lanes=int(q.shape[0]),
-                               max_steps=int(rest[4])))
+        self.calls.append(dict(phase=self.phase, lanes=int(q.shape[0]), **(
+            {"max_steps": int(rest[6])} if self.name == "segment" else {})))
         return out
 
     take_ms = Recorder.take_ms
 
     def restore(self):
-        self.mod.segment = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 class LevelLog:
@@ -2659,24 +2659,17 @@ def counted(phase, fn):
                      launches=read_launches())
 
 
-def state_rows(d, rows):
-    """Rows `rows` of a machine state (its per-lane tensors), a copy."""
-    import torch
-
-    B = d["phase"].shape[0]
-    return {k: v[rows].clone() if torch.is_tensor(v) and v.dim() >= 1
-            and v.shape[0] == B else v for k, v in d.items()}
-
-
-def states_equal(a, b):
-    """(every field of two machine states equal, the largest difference)."""
+def states_equal(st, d):
+    """(a typed state equal to a plain dict field for field, the largest
+    difference)."""
     import torch
 
     from bwa_tpu_torch.ops import fm_machine as fmm
 
+    p = fmm.plain_dict(st)
     ok, err = True, 0
     for k in fmm.SEG_FIELDS + ("stkA", "stkB", "seeds", "qmask", "steps"):
-        x, y = a[k], b[k]
+        x, y = p[k], d[k]
         x = x.cpu().long().reshape(-1) if torch.is_tensor(x) \
             else torch.tensor([int(x)])
         y = y.cpu().long().reshape(-1) if torch.is_tensor(y) \
@@ -2693,13 +2686,18 @@ def spread_rows(n, extra, count=256):
     return sorted(rows)
 
 
-def state_bytes(B, cap, cap_s, q, nv, occ):
-    """A launch of K1's state mode: the occtab, codes, lengths and
-    next-valid table read once; the per-lane fields and both stacks
-    (int64), the seed store (int64) and its bits read and written once."""
-    return (occ.numel() * 4 + q.numel() + q.shape[0] * 4 + nv.numel() * 4
-            + 2 * B * (STATE_FIELDS * 8 + 2 * cap * 4 * 8 + cap_s * 5 * 8
-                       + cap_s))
+def state_bytes(args):
+    """A launch of K1's state mode (its _run_state arguments): the occtab,
+    codes, lengths and next-valid table read once; the typed state's
+    per-lane fields (18 int32, 5 coordinates), both stacks and the seed
+    store (coordinates) and its bits read and written once; pass 2's job
+    table read once."""
+    st, idx, q, qlen, nv = args[:5]
+    cap, cap_s, jobs = args[10], args[11], args[14]
+    B, c = q.shape[0], st["seeds"].element_size()
+    return (idx["occtab"].numel() * 4 + q.numel() + B * 4 + nv.numel() * 4
+            + 2 * B * (18 * 4 + 5 * c + 2 * cap * 4 * c + cap_s * 5 * c
+                       + cap_s) + (0 if jobs is None else jobs.numel() * c))
 
 
 def step_ops(steps, nw):
@@ -2708,15 +2706,29 @@ def step_ops(steps, nw):
     return steps * (2 * 2 * 5 * (nw / 2 + 1) + 64)
 
 
-def state_kernel_ms(pack, reps=5):
+def state_run_args(name, st, idx, q, rest, kw):
+    """The run of K1's state mode that fm_machine's wrapper `name` makes on
+    the typed state st (started as the wrapper starts it, pass 2's job
+    table copied): _run_state's arguments."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    if name == "segment":
+        return (st, idx, q, *rest, *(fmm.S_P3, None)[len(rest) - 10:])
+    prep = fmm._smem_run if name == "smem_pass" else fmm._seed3_run
+    return prep(st, idx, q, *rest, **kw)
+
+
+def state_kernel_ms(args, reps=5):
     """CUDA-event ms a launch of K1's state mode alone (cuda_kernels.
-    seed_state), on states packed in advance: pack() returns a fresh
-    launch's arguments (fm_machine._pack_state), not timed."""
+    seed_state), on states started in advance: args() returns a fresh
+    launch's _run_state arguments (state_run_args on a copy), not
+    timed."""
     import torch
 
     from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import fm_machine as fmm
 
-    packs = [pack() for _ in range(reps + 1)]
+    packs = [fmm._state_args(*args()) for _ in range(reps + 1)]
     cuda_kernels.seed_state(*packs.pop())  # warm
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -2729,135 +2741,111 @@ def state_kernel_ms(pack, reps=5):
     return a.elapsed_time(b) / reps
 
 
-def check_k12(rec, name, pass2=None):
-    """A recorded K12 call (smem_machine, pass 1 or 2, or seed3_machine:
-    the first of step 4f) on all its lanes, timed; then the same launch of
-    K1's state mode on 256 of its lanes and its longest, its whole state
-    against the plain version's on the card (and its lane steps, from
-    done_step, for the bound)."""
+def wrapper_ms(fn, copies):
+    """CUDA-event ms a call of fn on each state of `copies` (made in
+    advance: a call updates its state), after one to warm."""
     import torch
 
-    from bwa_tpu_torch.ops import fm_machine as fmm
-
-    i = 0 if pass2 is None else next(
-        j for j, (_, a, kw) in enumerate(rec.calls) if kw["pass2"] == pass2)
-    ph, args, kw = rec.calls[i]
-    fn = getattr(fmm, rec.name)
-    idx, q, qlen, nv = args[:4]
-    ms = cuda_time(lambda: fn(*args, **kw), 5)
-    if rec.name == "smem_machine":
-        p2 = kw["pass2"]
-        stage, cap = (fmm.S_P2 if p2 else fmm.S_P1), kw["cap"]
-        seeds, seed_n, old_n = args[7], args[8], args[9] if p2 else None
-        consts, use_p3, jobs = (*args[4:7], 0), False, p2
-    else:
-        stage, cap = fmm.S_P3, 1
-        seeds, seed_n, old_n = args[6], args[7], None
-        consts, use_p3, jobs = (args[4], 0, 0, args[5]), True, False
-
-    def state(rows=None):
-        r = (lambda t: t) if rows is None else (lambda t: t[rows])
-        d = fmm._stage_state(idx, r(q), stage, cap, kw["cap_s"], r(seeds),
-                             r(seed_n), None if old_n is None else r(old_n))
-        return d, idx, r(q), r(qlen), r(nv), *consts, fmm.BIG_STEPS, cap, \
-            kw["cap_s"], use_p3, stage, r(seeds) if jobs else None
-
-    kernel_ms = state_kernel_ms(lambda: fmm._pack_state(*state()))
-    done = fmm._launch_state(*state())["done_step"]
-    rows = torch.as_tensor(spread_rows(q.shape[0], [int(done.argmax())]),
-                           device=q.device)
-    got = fmm._launch_state(*state(rows))
-    sub = state(rows)
-    want, plain_ms = timed_once(lambda: fmm._plain_state(*sub))
-    equal, err = states_equal(got, want)
-    steps = int(done.sum())
-    occ = idx["occtab"]
-    nbytes = state_bytes(q.shape[0], cap, kw["cap_s"], q, nv, occ)
-    res = dict(phase=ph, call=i, ms=ms, kernel_ms=kernel_ms,
-               plain_ms=plain_ms,
-               plain_shape=f"{len(rows)} lanes on the card",
-               equal=bool(equal), err=err,
-               shape=f"B={q.shape[0]} L={q.shape[1]} cap={cap} "
-                     f"cap_s={kw['cap_s']}" + (f" pass2={kw['pass2']}"
-                                               if "pass2" in kw else ""),
-               lane_steps=steps, longest_lane_steps=int(done.max()),
-               ns_per_step=per_unit(kernel_ms, int(done.max())),
-               bytes=int(nbytes),
-               ops=float(step_ops(steps, occ.shape[1] - 4)))
-    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
-    log(f"{name} {res}")
-    if not equal:
-        fail(f"{name} disagrees with its plain version at {ph}'s launch")
-    return res
-
-
-def check_k13(seg):
-    """K13's first main-path launch (the compaction route's first
-    segment) on all its lanes, timed from copies of its first state, and
-    on 256 of its lanes and the one that runs longest, two segments (the
-    first's budget, then a second of 256 steps) against the plain version
-    on the card, the whole state compared after each."""
-    import torch
-
-    from bwa_tpu_torch.ops import fm_machine as fmm
-
-    d0, idx, q, qlen, nv, rest = seg.first
-    B = q.shape[0]
-    copies = [state_rows(d0, torch.arange(B, device=q.device))
-              for _ in range(6)]
-    fmm.segment(copies.pop(), idx, q, qlen, nv, *rest)  # warm
+    fn(copies.pop())
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
     for c in copies:
-        fmm.segment(c, idx, q, qlen, nv, *rest)
+        fn(c)
     b.record()
     torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / len(copies)
-    kernel_ms = state_kernel_ms(lambda: fmm._pack_state(
-        state_rows(d0, torch.arange(B, device=q.device)), idx, q, qlen, nv,
-        *rest, fmm.S_P3, None))
-    out = copies[-1]
-    steps_in, stop = (int(torch.as_tensor(x).reshape(-1)[0])
-                      for x in (d0["steps"], out["steps"]))
+    return a.elapsed_time(b) / len(copies)
+
+
+def lane_rows(rest, rows, B):
+    """The per-lane tensors of a wrapper's arguments at rows `rows`."""
+    import torch
+
+    return [a[rows] if torch.is_tensor(a) and a.dim() >= 1
+            and a.shape[0] == B else a for a in rest]
+
+
+def check_state(rec, name, key=None):
+    """The first call of a K1 state-mode wrapper that step 4f recorded
+    under `key` (smem_pass, pass 1 or pass 2; seed3_pass; segment: the
+    compaction route's first segment): the wrapper timed on copies of its
+    state, on all its lanes; the kernel alone on states started in
+    advance; then the same call on 256 of its lanes and its longest,
+    against the plain version on the card from the plain start
+    (fm_machine._stage_state; a segment's from the state as it stood),
+    the whole state compared (a segment: the first's budget, then another
+    of 256 steps, compared after each)."""
+    import torch
+
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    st0, idx, q, rest, kw, ph = rec.first[key]
+    fn = getattr(fmm, rec.name)
+    B = q.shape[0]
+
+    def call(st, q_=q, rest_=rest):
+        return fn(st, idx, q_, *rest_, **kw)
+
+    ms = wrapper_ms(call, [fmm.gather_state(st0) for _ in range(6)])
+    kernel_ms = state_kernel_ms(lambda: state_run_args(
+        rec.name, fmm.gather_state(st0), idx, q, rest, kw))
+    run = state_run_args(rec.name, fmm.gather_state(st0), idx, q, rest, kw)
+    steps_in = int(st0["steps"]) if rec.name == "segment" else 0
+    out = call(fmm.gather_state(st0))
+    stop = int(out["steps"])
     ran = torch.where(out["done_step"] > 0, out["done_step"],
                       torch.full_like(out["done_step"], stop)) - steps_in
-    ran = torch.where(d0["phase"] == fmm.P_DONE, torch.zeros_like(ran), ran)
-    lane_steps = int(ran.sum())
-    longest = int(ran.argmax())
-    rows = torch.as_tensor(spread_rows(B, [longest]), device=q.device)
-    dc = state_rows(d0, rows)
-    dp = state_rows(d0, rows)
-    ins = (q[rows], qlen[rows], nv[rows])
-    res, plain_ms = [], None
-    for budget in (rest[4], 256):
-        r2 = (*rest[:4], budget, *rest[5:])
-        dc = fmm.segment(dc, idx, *ins, *r2)
+    if rec.name == "segment":  # lanes already done at entry ran no step
+        ran = torch.where(st0["phase"] == fmm.P_DONE,
+                          torch.zeros_like(ran), ran)
+    rows = torch.as_tensor(spread_rows(B, [int(ran.argmax())]),
+                           device=q.device)
+    sub = fmm.gather_state(st0, rows)
+    q_r, rest_r = q[rows], lane_rows(rest, rows, B)
+    budgets = (run[9], 256) if rec.name == "segment" else (None,)
+    got, res, plain_ms = fmm.gather_state(sub), [], None
+    if rec.name == "segment":
+        want = fmm.plain_dict(sub)
+    else:  # the plain start of the pass, on the seeds it starts from
+        stage, cap = run[13], run[10]
+        want = fmm._stage_state(idx, q_r, stage, cap, run[11],
+                                sub["seeds"], sub["seed_n"],
+                                sub["seed_n"] if stage == fmm.S_P2 else None)
+    for budget in budgets:
+        r2 = list(rest_r)
+        if budget is not None:
+            r2[6] = budget
+        got = call(got, q_r, r2)
         torch.cuda.synchronize()
-        dp, t = timed_once(lambda: fmm._plain_state(dp, idx, *ins, *r2,
-                                                    fmm.S_P3, None))
+        pa = state_run_args(rec.name, fmm.gather_state(sub), idx, q_r, r2,
+                            kw)
+        want, t = timed_once(lambda: fmm._plain_state(want, *pa[1:]))
         plain_ms = t if plain_ms is None else plain_ms
-        res.append(states_equal(dc, dp))
+        res.append(states_equal(got, want))
     equal = all(e for e, _ in res)
-    cap, cap_s = rest[5], rest[6]
+    lane_steps = int(ran.sum())
     occ = idx["occtab"]
-    nbytes = state_bytes(B, cap, cap_s, q, nv, occ)
-    info = dict(phase=seg.calls[0]["phase"], call=0, ms=ms,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
-                plain_shape=f"{len(rows)} lanes, the first segment",
+    nbytes = state_bytes(run)
+    cap, cap_s = run[10], run[11]
+    info = dict(phase=ph, call=0, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms,
+                plain_shape=f"{len(rows)} lanes on the card"
+                + (", two segments" if rec.name == "segment" else ""),
                 equal=bool(equal), err=max(e for _, e in res),
-                shape=f"B={B} L={q.shape[1]} cap={cap} cap_s={cap_s} "
-                      f"max_steps={rest[4]}",
+                shape=f"B={B} L={q.shape[1]} cap={cap} cap_s={cap_s}"
+                + "".join(f" {k}={v}" for k, v in kw.items()
+                          if k == "pass2")
+                + (f" max_steps={run[9]}" if rec.name == "segment" else ""),
                 lane_steps=lane_steps, longest_lane_steps=int(ran.max()),
                 ns_per_step=per_unit(kernel_ms, int(ran.max())),
                 bytes=int(nbytes),
-                ops=float(step_ops(lane_steps, occ.shape[1] - 4)))
+                ops=float(step_ops(lane_steps, occ.shape[1] - 4)),
+                coords=str(idx["cdt"]).replace("torch.", ""))
     info["bound_ms"], info["bound_by"] = bound(nbytes, info["ops"])
-    log(f"K13 {info}")
+    log(f"{name} {info}")
     if not equal:
-        fail("K13 disagrees with its plain version at its first main-path "
-             "segment")
+        fail(f"{name} disagrees with its plain version at {ph}'s launch")
     return info
 
 
@@ -2884,8 +2872,7 @@ def check_smem_kernel(rec, name, keyed, count=256, call=0):
     busy_ms = busy_time(lambda: fn(*args, **kw), 5) if q.is_cuda else None
     rows = torch.as_tensor(spread_rows(q.shape[0], [int(keyed(out).argmax())],
                                        count), device=q.device)
-    sub = [idx] + [a[rows] if torch.is_tensor(a) and a.dim() >= 1
-                   and a.shape[0] == q.shape[0] else a for a in args[1:]]
+    sub = [idx] + lane_rows(args[1:], rows, q.shape[0])
     got = fn(*sub, **kw)
     pkw = {k: v for k, v in kw.items() if k != "form"}  # a kernel's only
     want, plain_ms = timed_once(lambda: plain(*sub, **pkw))
@@ -2926,18 +2913,21 @@ def check_smem_kernel(rec, name, keyed, count=256, call=0):
 
 
 def check_k9(idx, ks):
-    """K9 on the 65,536 rows: timed, its walk steps counted by the kernel,
-    against the plain version on the card (all rows)."""
+    """K9 on the 65,536 rows: timed, its walk steps and longest walk
+    counted by the kernel (the longest walk's ns a step), against the
+    plain version on the card (all rows, positions and counts)."""
     import torch
 
     from bwa_tpu_torch.ops import fm as fm_ops
 
-    work = torch.zeros(1, dtype=torch.int64, device=ks.device)
+    work = torch.zeros(2, dtype=torch.int64, device=ks.device)
     got = fm_ops.sa_batch(idx, ks, work=work)
     ms = cuda_time(lambda: fm_ops.sa_batch(idx, ks), 10)
-    want, plain_ms = timed_once(lambda: fm_ops.sa_batch_plain(idx, ks))
-    equal = torch.equal(got, want)
-    walk = int(work)
+    want_work = torch.zeros_like(work)
+    want, plain_ms = timed_once(lambda: fm_ops.sa_batch_plain(
+        idx, ks, work=want_work))
+    equal = torch.equal(got, want) and torch.equal(work, want_work)
+    walk, longest = (int(w) for w in work)
     nbytes = sum(idx[k].numel() * idx[k].element_size()
                  for k in ("ckpt", "words", "ssa")) + 2 * ks.numel() * 4
     # a walk step: the base at the row (a word), then its count at one end,
@@ -2947,7 +2937,9 @@ def check_k9(idx, ks):
     res = dict(phase="sa_batch_65536", call=0, ms=ms, plain_ms=plain_ms,
                plain_shape="all 65,536 rows on the card", equal=equal,
                err=int((got.long() - want.long()).abs().max()),
-               shape=f"N={ks.numel()}", walk_steps=walk, bytes=int(nbytes),
+               shape=f"N={ks.numel()}", walk_steps=walk,
+               longest_walk=longest, ns_per_step=per_unit(ms, longest),
+               plain_work=[int(w) for w in want_work], bytes=int(nbytes),
                ops=float(walk * ((nw / 2 + 1) * 5 + 16)))
     res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
     log(f"K9 {res}")
@@ -2991,11 +2983,9 @@ def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
     from bwa_tpu_torch.parallel import dryrun, mesh
 
     t0 = time.perf_counter()
-    recs = {"K12a": Recorder(fm_machine, "smem_machine",
-                             keep=lambda out: None),
-            "K12b": Recorder(fm_machine, "seed3_machine",
-                             keep=lambda out: None),
-            "K13": SegmentRecorder()}
+    recs = {"K12a": StateRecorder("smem_pass", key=lambda kw: kw["pass2"]),
+            "K12b": StateRecorder("seed3_pass"),
+            "K13": StateRecorder("segment")}
     levels = LevelLog()
     phases, refused = [], {}
     try:
@@ -3130,17 +3120,17 @@ def seeding_route_kernels(d, prefix, fm, reads150, device="cuda"):
         for r in crecs.values():
             r.restore()
     # each kernel's first launch against its plain version, timed
-    rows = {"K12a": check_k12(recs["K12a"], "K12a", pass2=False),
-                "K12a pass 2": check_k12(recs["K12a"], "K12a", pass2=True),
-                "K12b": check_k12(recs["K12b"], "K12b"),
-                "K13": check_k13(recs["K13"]),
-                "K9": check_k9(eng.idx, ks),
-                "K10a": check_smem_kernel(crecs["K10a"], "K10a",
-                                          lambda o: o[6]),
-                "K10b": check_smem_kernel(crecs["K10b"], "K10b",
-                                          lambda o: o[0] - o[5]),
-                "K11": check_smem_kernel(crecs["K11"], "K11",
-                                         lambda o: o[5], count=64)}
+    rows = {"K12a": check_state(recs["K12a"], "K12a", False),
+            "K12a pass 2": check_state(recs["K12a"], "K12a", True),
+            "K12b": check_state(recs["K12b"], "K12b"),
+            "K13": check_state(recs["K13"], "K13"),
+            "K9": check_k9(eng.idx, ks),
+            "K10a": check_smem_kernel(crecs["K10a"], "K10a",
+                                      lambda o: o[6]),
+            "K10b": check_smem_kernel(crecs["K10b"], "K10b",
+                                      lambda o: o[0] - o[5]),
+            "K11": check_smem_kernel(crecs["K11"], "K11",
+                                     lambda o: o[5], count=64)}
     # K10a's first launch runs the group form (every read from x = 0); the
     # unfused route's pass-2 launch, the warp form, is held to the plain
     # version too, at its own shape (x inside the reads)
@@ -4418,12 +4408,12 @@ def main(argv) -> int:
              "K2 ksw_band host-array mode": lambda c: c["K2 host-array"],
              "K5 ksw_full": lambda c: c["K5"], "K7 gap_machine":
              lambda c: c["K7"], "K7w cal_width": lambda c: c["K7w"],
-             "K12a smem_machine, K1's state mode (split route passes 1, 2)":
+             "K12a smem_pass, K1's state mode (split route passes 1, 2)":
              lambda c: c["K12a"],
-             "K12b seed3_machine, K1's state mode (split route pass 3)":
+             "K12b seed3_pass, K1's state mode (split route pass 3)":
              lambda c: c["K12b"],
-             "K13 seed_machine_seg segments, K1's state mode (tail "
-             "compaction)": lambda c: c["K13"],
+             "K13 segment, K1's state mode (tail compaction)":
+             lambda c: c["K13"],
              "K9 sa_batch": lambda c: c["K9"],
              "K10a smem1a_batch": lambda c: c["K10a"],
              "K10b seed_strategy1_batch": lambda c: c["K10b"],
@@ -4461,16 +4451,16 @@ def main(argv) -> int:
             ("K7w cal_width", "bwa_tpu_torch/csrc/gap_machine.cu",
              "bwa_tpu/ops/gap_machine.py:100", k7w, None,
              (phase_aln_se, phase_aln_pe), k7w["calls"]),
-            ("K12a smem_machine, K1's state mode (split route passes 1, 2)",
+            ("K12a smem_pass, K1's state mode (split route passes 1, 2)",
              "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:93", rows_4f["K12a"], None, mains,
              None),
-            ("K12b seed3_machine, K1's state mode (split route pass 3)",
+            ("K12b seed3_pass, K1's state mode (split route pass 3)",
              "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:733", rows_4f["K12b"], None, mains,
              None),
-            ("K13 seed_machine_seg segments, K1's state mode (tail "
-             "compaction)", "bwa_tpu_torch/csrc/seed_machine.cu",
+            ("K13 segment, K1's state mode (tail compaction)",
+             "bwa_tpu_torch/csrc/seed_machine.cu",
              "bwa_tpu/ops/fm_machine.py:369", rows_4f["K13"], None, mains,
              None),
             ("K9 sa_batch", "bwa_tpu_torch/csrc/smem_batch.cu",
@@ -4498,6 +4488,7 @@ def main(argv) -> int:
             entry_shapes=k.get("shapes"),
             work={kk: k[kk] for kk in ("bytes", "ops", "lane_steps",
                                        "occ_pair_steps", "walk_steps",
+                                       "longest_walk", "coords",
                                        "occ_pair_positions",
                                        "overflow_lanes",
                                        "longest_lane_steps", "ns_per_step",

@@ -1150,13 +1150,15 @@ def test_kernels_on_second_card_match_first(world, aln_reads):
 
 # ------------------------------------------ K12, K13: K1's state mode
 def _state_equal(got, want, what):
+    """Two typed states (ops/fm_machine.py::typed_state) equal field for
+    field, read as the plain version's dicts."""
     from bwa_tpu_torch.ops import fm_machine as fmm
 
+    g, w = fmm.plain_dict(got), fmm.plain_dict(want)
     for k in fmm.SEG_FIELDS + ("stkA", "stkB", "seeds", "qmask", "steps"):
-        g, w = got[k], want[k]
-        g = g.cpu().long() if torch.is_tensor(g) else torch.tensor(int(g))
-        w = w.cpu().long() if torch.is_tensor(w) else torch.tensor(int(w))
-        assert torch.equal(g.reshape(w.shape), w), f"{what}: {k}"
+        x = g[k].cpu() if torch.is_tensor(g[k]) else torch.tensor(g[k])
+        y = w[k].cpu() if torch.is_tensor(w[k]) else torch.tensor(w[k])
+        assert torch.equal(x, y), f"{what}: {k}"
 
 
 # (lanes, stack cap, seed cap, occtab R, coordinates) of the state mode's
@@ -1167,57 +1169,7 @@ STATE_CASES = [("pack2", 16, 48, 1, "int32"), ("pack2", 16, 48, 4, "int64"),
                ("edge", 32, 64, 4, "int32"), ("edge", 32, 64, 1, "int64")]
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
-def test_k12_split_passes_match_plain(world, repeat_world, lanes, cap, cap_s,
-                                      occ_r, coords):
-    """K12 (smem_machine's pass 1 and pass 2, seed3_machine) against the
-    plain stage range on the same device tensors: seeds as emitted,
-    seed_n, steps, ovf and done_step, each launch counted once."""
-    from bwa_tpu_torch.ops import fm_machine as fmm
-    from bwa_tpu_torch.ops.fm import _next_valid_device
-
-    if lanes == "edge":
-        fm, q, ql = repeat_world
-    else:
-        fm, (q, ql, _) = world["fm"], _lanes(world, "pack2")
-    tt = _tree(fm, coords, occ_r)
-    qd, qld = torch.from_numpy(q).cuda(), torch.from_numpy(ql).cuda()
-    nv = _next_valid_device(qd, qld)
-    c = (19, 28, 10, 20)
-    outs = []
-    for plain in (False, True):
-        dev = "cpu" if plain else "cuda"
-        t = {k: (v.cpu() if torch.is_tensor(v) else v)
-             for k, v in tt.items()} if plain else tt
-        a = [x.to(dev) for x in (qd, qld, nv)]
-        s = torch.zeros((q.shape[0], cap_s, 5), dtype=tt["cdt"], device=dev)
-        n = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
-        n1 = (fmm.smem_launches, fmm.seed3_launches)
-        p1 = fmm.smem_machine(t, *a, *c[:3], s, n, n, cap=cap, cap_s=cap_s,
-                              pass2=False)
-        p2 = fmm.smem_machine(t, *a, *c[:3], p1[0], p1[1], p1[1], cap=cap,
-                              cap_s=cap_s, pass2=True)
-        p3 = fmm.seed3_machine(t, *a, c[0], c[3], p2[0], p2[1], cap_s=cap_s)
-        assert (fmm.smem_launches, fmm.seed3_launches) == (
-            (n1[0], n1[1]) if plain else (n1[0] + 2, n1[1] + 1))
-        outs.append([[x.cpu() if torch.is_tensor(x) else torch.tensor(x)
-                      for x in p] for p in (p1, p2, p3)])
-    for p, (g, w) in enumerate(zip(*outs)):
-        for i, (x, y) in enumerate(zip(g, w)):
-            assert torch.equal(x.long().reshape(y.shape), y.long()), (p, i)
-    if cap <= 3:
-        assert bool(outs[1][0][3].any())
-
-
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
-def test_k13_segments_match_plain(world, repeat_world, lanes, cap, cap_s,
-                                  occ_r, coords):
-    """K13 (K1's state mode with a step budget) run in segments of odd
-    sizes, a segment ending inside backward rows: the whole state after
-    each segment equals the plain version's."""
-    from bwa_tpu_torch.ops import fm_machine as fmm
+def _state_world(world, repeat_world, lanes, coords, occ_r):
     from bwa_tpu_torch.ops.fm import _next_valid_device
 
     if lanes == "edge":
@@ -1227,17 +1179,96 @@ def test_k13_segments_match_plain(world, repeat_world, lanes, cap, cap_s,
     tt = _tree(fm, coords, occ_r)
     th = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in tt.items()}
     qh, qlh = torch.from_numpy(q), torch.from_numpy(ql)
-    nvh = _next_valid_device(qh, qlh)
-    dc = fmm.seed_state_init(q.shape[0], cap, cap_s, "cuda")
-    dh = fmm.seed_state_init(q.shape[0], cap, cap_s, "cpu")
+    return tt, th, (qh, qlh, _next_valid_device(qh, qlh))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
+def test_k12_split_passes_match_plain(world, repeat_world, lanes, cap, cap_s,
+                                      occ_r, coords):
+    """K12 against the plain version on the same inputs: the split route's
+    three passes on one typed state (smem_pass twice, seed3_pass), the
+    whole state after each; and the JAX package's entry points on them
+    (smem_machine's pass 1 and pass 2, seed3_machine): seeds as emitted,
+    seed_n, steps, ovf and done_step; each launch counted once."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    tt, th, ins = _state_world(world, repeat_world, lanes, coords, occ_r)
+    B = ins[0].shape[0]
+    c = (19, 28, 10, 20)
+    sts = {d: fmm.typed_state(B, cap, cap_s, tt["cdt"], d)
+           for d in ("cuda", "cpu")}
+
+    def passes(d, t, a):
+        st = sts[d]
+        fmm.smem_pass(st, t, *a, *c[:3], cap=cap, cap_s=cap_s, pass2=False)
+        yield "pass 1"
+        fmm.smem_pass(st, t, *a, *c[:3], cap=cap, cap_s=cap_s, pass2=True)
+        yield "pass 2"
+        fmm.seed3_pass(st, t, *a, c[0], c[3], cap_s=cap_s)
+        yield "pass 3"
+
+    n0 = (fmm.smem_launches, fmm.seed3_launches)
+    for what, _ in zip(passes("cuda", tt, [x.cuda() for x in ins]),
+                       passes("cpu", th, ins)):
+        torch.cuda.synchronize()
+        _state_equal(sts["cuda"], sts["cpu"], what)
+    assert (fmm.smem_launches, fmm.seed3_launches) == (n0[0] + 2, n0[1] + 1)
+    outs = []
+    for plain in (False, True):
+        dev = "cpu" if plain else "cuda"
+        t = th if plain else tt
+        a = [x.to(dev) for x in ins]
+        s = torch.zeros((B, cap_s, 5), dtype=tt["cdt"], device=dev)
+        n = torch.zeros(B, dtype=torch.int32, device=dev)
+        n1 = (fmm.smem_launches, fmm.seed3_launches)
+        p1 = fmm.smem_machine(t, *a, *c[:3], s, n, n, cap=cap, cap_s=cap_s,
+                              pass2=False)
+        p1 = [x.clone() for x in p1]
+        p2 = fmm.smem_machine(t, *a, *c[:3], p1[0], p1[1], p1[1], cap=cap,
+                              cap_s=cap_s, pass2=True)
+        p3 = fmm.seed3_machine(t, *a, c[0], c[3], p2[0], p2[1], cap_s=cap_s)
+        assert (fmm.smem_launches, fmm.seed3_launches) == (
+            (n1[0], n1[1]) if plain else (n1[0] + 2, n1[1] + 1))
+        outs.append([[x.cpu() for x in p] for p in (p1, p2, p3)])
+    for p, (g, w) in enumerate(zip(*outs)):
+        for i, (x, y) in enumerate(zip(g, w)):
+            assert x.dtype == y.dtype and torch.equal(x, y), (p, i)
+    if cap <= 3:
+        assert bool(outs[1][0][3].any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lanes,cap,cap_s,occ_r,coords", STATE_CASES)
+def test_k13_segments_match_plain(world, repeat_world, lanes, cap, cap_s,
+                                  occ_r, coords):
+    """K13 (K1's state mode with a step budget) run in segments of odd
+    sizes on a typed state, a segment ending inside backward rows, and
+    after the fourth every other lane gathered as compaction gathers
+    them: the whole state after each segment equals the plain version's
+    on the same typed state on the host."""
+    from bwa_tpu_torch.ops import fm_machine as fmm
+
+    tt, th, (qh, qlh, nvh) = _state_world(world, repeat_world, lanes,
+                                          coords, occ_r)
+    B = qh.shape[0]
+    dc = fmm.typed_state(B, cap, cap_s, tt["cdt"], "cuda")
+    dh = fmm.typed_state(B, cap, cap_s, tt["cdt"], "cpu")
+    ins = (qh.cuda(), qlh.cuda(), nvh.cuda())
     mid_row = 0
-    for n in (37, 53, 101, 1, 64, fmm.BIG_STEPS):
+    for s, n in enumerate((37, 53, 101, 1, 64, fmm.BIG_STEPS)):
+        if s == 4:
+            rows = torch.arange(0, B, 2)
+            dc = fmm.gather_state(dc, rows.cuda())
+            dh = fmm.gather_state(dh, rows)
+            ins = tuple(x[rows.cuda()] for x in ins)
+            qh, qlh, nvh = qh[rows], qlh[rows], nvh[rows]
         n0 = fmm.segment_launches
-        dc = fmm.segment(dc, tt, qh.cuda(), qlh.cuda(), nvh.cuda(),
-                         19, 28, 10, 20, n, cap, cap_s, True)
+        dc = fmm.segment(dc, tt, *ins, 19, 28, 10, 20, n, cap, cap_s, True)
         assert fmm.segment_launches == n0 + 1
         dh = fmm.segment(dh, th, qh, qlh, nvh, 19, 28, 10, 20, n, cap,
                          cap_s, True)
+        torch.cuda.synchronize()
         _state_equal(dc, dh, f"after {n}")
         mid_row += int(((dh["phase"] == fmm.P_BWD) & (dh["j"] > 0)).sum())
     assert mid_row > 0
@@ -1257,6 +1288,10 @@ def _to_host(tt):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("coords", ["int32", "int64"])
 def test_k9_matches_plain(world, coords):
+    """K9 against the plain version on random rows and the edge rows: the
+    $ row (k == primary) and its neighbours, k == seq_len, k = 0, and k at
+    128 n - 1, 128 n and 128 n + 1 (a row's block and the next); the walk
+    steps and the longest walk equal the plain version's count."""
     from bwa_tpu_torch.index.fmindex import DeviceFMIndex
     from bwa_tpu_torch.ops import fm as fm_ops
 
@@ -1265,17 +1300,23 @@ def test_k9_matches_plain(world, coords):
     if coords == "int64":
         tt = _tree64(tt)
     rng = np.random.default_rng(0)
+    blocks = 128 * rng.integers(1, fm.seq_len // 128, 40)
     ks = np.concatenate([rng.integers(0, fm.seq_len + 1, 5000),
-                         [0, fm.primary, fm.seq_len]])
+                         [0, fm.primary, fm.primary - 1, fm.primary + 1,
+                          fm.seq_len, fm.seq_len - 1],
+                         blocks - 1, blocks, blocks + 1])
+    ks = np.clip(ks, 0, fm.seq_len)
     k = torch.from_numpy(ks).to(tt["cdt"])
     n0 = fm_ops.sa_launches
-    work = torch.zeros(1, dtype=torch.int64, device="cuda")
+    work = torch.zeros(2, dtype=torch.int64, device="cuda")
     got = fm_ops.sa_batch(tt, k.cuda(), work=work)
     torch.cuda.synchronize()
     assert fm_ops.sa_launches == n0 + 1 and got.dtype == tt["cdt"]
-    want = fm_ops.sa_batch_plain(_to_host(tt), k)
+    want_work = torch.zeros(2, dtype=torch.int64)
+    want = fm_ops.sa_batch_plain(_to_host(tt), k, work=want_work)
     assert torch.equal(got.cpu(), want)
-    assert int(work) > len(ks)  # walk steps counted
+    assert torch.equal(work.cpu(), want_work)
+    assert int(work[0]) > len(ks) and int(work[1]) > 31  # walks counted
     ok = ks < fm.seq_len
     assert np.array_equal(want.numpy()[ok], fm.sa_lookup(ks[ok]))
 

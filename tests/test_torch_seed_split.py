@@ -4,8 +4,8 @@ JAX package on its CPU backend, tolerance 0 (integers throughout):
   * the split route's machines, smem_machine (pass 1, pass 2 from pass 1's
     rows) and seed3_machine, whose kernel is K12 (K1's state mode with a
     stage range), at default and tiny caps, int32 and int64 coordinates;
-  * seed_machine_seg in segments (the plain version of K13), its state
-    held field by field after each segment;
+  * segment in segments on a typed state (the plain version of K13 on
+    its plain dict), the state held field by field after each segment;
   * engine.collect_seeds under BWA_TPU_SEED_MACHINE=split and
     BWA_TPU_SEED_COMPACT, last_done and last_steps included, the latter on
     about 1,080 lanes compacted twice; and where bwa_tpu's compaction stops
@@ -222,13 +222,14 @@ def test_segments_resume_exactly(world, cap, cap_s):
     tt = world["eng"].idx
     qd, qld = torch.from_numpy(q), torch.from_numpy(ql)
     nv = _next_valid_device(qd, qld)
-    d = tm.seed_state_init(q.shape[0], cap, cap_s, "cpu")
+    d = tm.typed_state(q.shape[0], cap, cap_s, tt["cdt"], "cpu")
     mid_row = 0
     for n, w in zip(sizes, want):
         d = tm.segment(d, tt, qd, qld, nv, *CONSTS, n, cap, cap_s, True)
+        p = tm.plain_dict(d)
         for k in tm.SEG_FIELDS + ("stkA", "stkB", "seeds", "qmask",
                                   "steps"):
-            np.testing.assert_array_equal(_i64(d[k]), _i64(w[k]),
+            np.testing.assert_array_equal(_i64(p[k]), _i64(w[k]),
                                           err_msg=f"{k} after {n} steps")
         mid_row += int(((w["phase"] == tm.P_BWD) & (w["j"] > 0)).sum())
     assert mid_row > 0  # some segment ended inside a backward row
