@@ -154,8 +154,11 @@ def main_mem(argv: list[str], out_fp=None, chunk_done_hook=None) -> int:
                                        MEM_F_SMARTPE, MEM_F_SOFTCLIP,
                                        MEM_F_XB, MemOptions)
 
+    import itertools
     import queue
     import threading
+
+    from bwa_tpu_torch import tracing
 
     argv, device = _pop_device(argv)
     opt = MemOptions()
@@ -289,7 +292,8 @@ def main_mem(argv: list[str], out_fp=None, chunk_done_hook=None) -> int:
     # the kt_pipeline analog (kthread.c:119-147, fastmap.c:64-123): a reader
     # thread parses chunk k+1 and a writer thread writes chunk k-1's SAM
     # while chunk k aligns; only this thread touches torch and the card.
-    # The chunks are the same, so the bytes are too.
+    # The chunks are the same, so the bytes are too.  Each thread traces
+    # its part of chunk k under the ordinal k (tracing.set_chunk).
     rq: queue.Queue = queue.Queue(maxsize=2)
     wq: queue.Queue = queue.Queue(maxsize=2)
     stop = threading.Event()
@@ -306,9 +310,14 @@ def main_mem(argv: list[str], out_fp=None, chunk_done_hook=None) -> int:
 
     def _reader():
         try:
-            while not stop.is_set():
-                batch = read_batch(ks1, ks2, chunk, copy_comment)
-                _put(batch)
+            for k in itertools.count():
+                if stop.is_set():
+                    return
+                tracing.set_chunk(k)
+                with tracing.span("io.parse"):
+                    batch = read_batch(ks1, ks2, chunk, copy_comment)
+                with tracing.span("io.queue_full"):
+                    _put(batch)
                 if not batch:
                     return
         except BaseException as e:  # a malformed or truncated FASTQ, IO
@@ -317,36 +326,42 @@ def main_mem(argv: list[str], out_fp=None, chunk_done_hook=None) -> int:
 
     def _writer():
         try:
-            while True:
+            for k in itertools.count():
                 batch = wq.get()
                 if batch is None:
                     return
-                for r in batch:
-                    out_fp.write(r.sam)
+                tracing.set_chunk(k)
+                with tracing.span("io.write"):
+                    for r in batch:
+                        out_fp.write(r.sam)
         except BaseException as e:  # ENOSPC, EPIPE on out_fp
             pipe_err.append(e)
             while wq.get() is not None:  # drain: wq.put never blocks
                 pass
 
-    rt = threading.Thread(target=_reader, daemon=True)
-    wt = threading.Thread(target=_writer, daemon=True)
+    rt = threading.Thread(target=_reader, name="mem-reader", daemon=True)
+    wt = threading.Thread(target=_writer, name="mem-writer", daemon=True)
     rt.start()
     wt.start()
     try:
-        while True:
-            reads = rq.get()
+        for k in itertools.count():
+            tracing.set_chunk(k)
+            with tracing.span("cli.wait_reads"):
+                reads = rq.get()
             if pipe_err:
                 raise pipe_err[0]
             if not reads:
                 break
             run(opt, engine, fm, reads, n_processed, pes0, rg_id)
             n_processed += len(reads)
-            wq.put(reads)
-            if chunk_done_hook is not None:
-                chunk_done_hook(len(reads))
+            with tracing.span("cli.hand_off"):
+                wq.put(reads)
+                if chunk_done_hook is not None:
+                    chunk_done_hook(len(reads))
             if pipe_err:
                 raise pipe_err[0]
     finally:
+        tracing.set_chunk(None)
         # both threads end with the command (a daemon serves on after it):
         # the writer once it has drained, the reader at its next chunk
         wq.put(None)

@@ -25,6 +25,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from bwa_tpu_torch import tracing
 from bwa_tpu_torch.index.build import read_bwt_file, read_sa_file, index_build
 from bwa_tpu_torch.index.pack import Bnt, read_ann_amb, load_pac, unpack_pac
 
@@ -145,35 +146,42 @@ class FMIndex:
     def sa_lookup(self, ranks: np.ndarray) -> np.ndarray:
         """Batched SA rank -> position (bwt_sa, bwt.c:86-96 semantics,
         incl. the rank-0 -1 poison): the dense sidecar when present, else
-        the native inverse-Psi walker (bsw2.cpp fm_sa_batch)."""
-        ranks = np.ascontiguousarray(ranks, dtype=np.int64)
-        sad = self.sad
-        if sad is not None:
-            return np.asarray(sad[ranks], dtype=np.int64)
-        import ctypes
+        the native inverse-Psi walker (bsw2.cpp fm_sa_batch).  Traced
+        as the span sa_lookup, counting the ranks and the walk's steps
+        (none on the sidecar)."""
+        with tracing.span("sa_lookup") as sp:
+            ranks = np.ascontiguousarray(ranks, dtype=np.int64)
+            sp.count("ranks", ranks.shape[0])
+            sad = self.sad
+            if sad is not None:
+                sp.count("walk_steps", 0)
+                return np.asarray(sad[ranks], dtype=np.int64)
+            import ctypes
 
-        from bwa_tpu_torch.native.build import get_lib
+            from bwa_tpu_torch.native.build import get_lib
 
-        lib = get_lib()
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.fm_sa_batch.restype = None
-        lib.fm_sa_batch.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
-                                    i64p, i64p, ctypes.c_int32, i64p,
-                                    ctypes.c_int64, i64p]
-        if not hasattr(self, "_sa_args"):
-            self._sa_args = (self.occ_inter,
-                             np.ascontiguousarray(self.L2, np.int64),
-                             np.ascontiguousarray(self.ssa, np.int64))
-        inter, L2, ssa = self._sa_args
-        out = np.empty(ranks.shape[0], dtype=np.int64)
-        if ranks.shape[0]:
-            lib.fm_sa_batch(inter.ctypes.data_as(u8p), self.seq_len,
-                            self.primary, L2.ctypes.data_as(i64p),
-                            ssa.ctypes.data_as(i64p), self.sa_intv,
-                            ranks.ctypes.data_as(i64p), ranks.shape[0],
-                            out.ctypes.data_as(i64p))
-        return out
+            lib = get_lib()
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.fm_sa_batch.restype = ctypes.c_int64
+            lib.fm_sa_batch.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                        i64p, i64p, ctypes.c_int32, i64p,
+                                        ctypes.c_int64, i64p]
+            if not hasattr(self, "_sa_args"):
+                self._sa_args = (self.occ_inter,
+                                 np.ascontiguousarray(self.L2, np.int64),
+                                 np.ascontiguousarray(self.ssa, np.int64))
+            inter, L2, ssa = self._sa_args
+            out = np.empty(ranks.shape[0], dtype=np.int64)
+            steps = 0
+            if ranks.shape[0]:
+                steps = lib.fm_sa_batch(
+                    inter.ctypes.data_as(u8p), self.seq_len, self.primary,
+                    L2.ctypes.data_as(i64p), ssa.ctypes.data_as(i64p),
+                    self.sa_intv, ranks.ctypes.data_as(i64p),
+                    ranks.shape[0], out.ctypes.data_as(i64p))
+            sp.count("walk_steps", steps)
+            return out
 
     @cached_property
     def occ_inter(self) -> np.ndarray:

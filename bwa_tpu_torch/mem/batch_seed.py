@@ -18,6 +18,8 @@ import os
 
 import numpy as np
 
+from bwa_tpu_torch import tracing
+
 # Lanes per machine call.  The sizes are the JAX package's, where every
 # shape was a separately compiled program (12288 lanes measured ~7% faster
 # than 8192 on its TPU headline); K1 takes any shape, and keeping the
@@ -305,23 +307,32 @@ def _se_flat_refill(opt, engine, fm, codes_list, cap_s):
                                                  cap_s, lanes)
         pend[i] = (h, n, q, lens, lanes, cs_tot)
 
-    _dispatch(0)
+    with tracing.span("seed.dispatch"):
+        _dispatch(0)
     for i, lo in enumerate(los):
+        tracing.count("seed", "buckets")
         if i + 1 < len(los):
-            _dispatch(i + 1)
+            with tracing.span("seed.dispatch"):
+                _dispatch(i + 1)
         h, n, q, lens, lanes, cs_tot = pend.pop(i)
-        out, n_drawn = engine.collect_seeds_refill_wait(h)
+        with tracing.span("seed.wait"):
+            out, n_drawn = engine.collect_seeds_refill_wait(h)
         if (out[5] > cs_tot).any() or n_drawn < n:
             for mul, sc2 in ((2, 32), (4, 64)):
                 cs_tot *= mul
-                out, n_drawn = engine.collect_seeds_refill(
-                    q, lens, opt, cs_tot, cap_s, lanes, stack_cap=sc2)
+                tracing.count("seed", "ladder_climbs")
+                with tracing.span("seed.wait"):
+                    out, n_drawn = engine.collect_seeds_refill(
+                        q, lens, opt, cs_tot, cap_s, lanes, stack_cap=sc2)
                 if not (out[5] > cs_tot).any() and n_drawn == n:
                     break
             else:
+                tracing.count("seed", "host_fallbacks")
                 yield lo, n, None  # exactness fallback (tuple path)
                 continue
-        yield lo, n, _demux_refill(opt, fm, out, n)
+        with tracing.span("seed.demux"):
+            flat = _demux_refill(opt, fm, out, n)
+        yield lo, n, flat
 
 
 def trip_order(opt, engine, codes_list):
@@ -357,7 +368,16 @@ def trip_order(opt, engine, codes_list):
     L = _len_bucket(max(len(c) for c in codes_list))
     if L > 256:
         return None, None
-    pred, qdev = engine.probe_trips(codes_list)
+    with tracing.span("seed.trip_order"):
+        with tracing.span("seed.probe"):
+            pred, qdev = engine.probe_trips(codes_list)
+        return _trip_perm(pred, L), qdev
+
+
+def _trip_perm(pred, L):
+    """trip_order's permutation of the reads from their predicted trips
+    (L: the reads' padded length)."""
+    B = len(pred)
     perm = np.argsort(pred, kind="stable").astype(np.int64)
     bucket0 = _lane_bucket(L)
     nbk = (B + bucket0 - 1) // bucket0
@@ -385,7 +405,7 @@ def trip_order(opt, engine, codes_list):
                 out[lo + B2:lo + nb] = s[nb - 1:B2 - 1:-1]
         else:
             out[lo:lo + nb] = s
-    return out, qdev
+    return out
 
 
 def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
@@ -454,14 +474,18 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
             if can_async else None
         packed[idx] = (q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk)
 
-    _dispatch(0)
+    with tracing.span("seed.dispatch"):
+        _dispatch(0)
     for idx, lo in enumerate(los):
+        tracing.count("seed", "buckets")
         if idx + 1 < len(los):
-            _dispatch(idx + 1)  # next bucket's seeding in flight
+            with tracing.span("seed.dispatch"):
+                _dispatch(idx + 1)  # next bucket's seeding in flight
         q, lens, L, B2, pack_k, cs, shard, ns, h, nb, chunk = \
             packed.pop(idx)
-        out = engine.collect_seeds_wait(h) if h is not None \
-            else engine.collect_seeds(q, lens, opt, cs, shard=shard)
+        with tracing.span("seed.wait"):
+            out = engine.collect_seeds_wait(h) if h is not None \
+                else engine.collect_seeds(q, lens, opt, cs, shard=shard)
         if (out[5] > cs).any():
             # seed-rich / deep-stack bucket (repeat regions): the whole
             # bucket climbs the device cap ladder
@@ -470,14 +494,19 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
                     opt, chunk, cap_s)
             for cs2, sc2 in _cap_ladder(pack_k, q.shape[1]):
                 cs = cs2
-                out = engine.collect_seeds(q, lens, opt, cs2,
-                                           stack_cap=sc2, shard=shard)
+                tracing.count("seed", "ladder_climbs")
+                with tracing.span("seed.wait"):
+                    out = engine.collect_seeds(q, lens, opt, cs2,
+                                               stack_cap=sc2, shard=shard)
                 if not (out[5] > cs2).any():
                     break
             else:
+                tracing.count("seed", "host_fallbacks")
                 yield lo, nb, None  # exactness fallback (tuple path)
                 continue
-        yield lo, nb, _demux_bucket(opt, fm, out, nb, L, B2, cs, ns)
+        with tracing.span("seed.demux"):
+            flat = _demux_bucket(opt, fm, out, nb, L, B2, cs, ns)
+        yield lo, nb, flat
 
 
 def _reorder_flat(flat, order):

@@ -12,6 +12,7 @@ import struct
 
 import numpy as np
 
+from bwa_tpu_torch import tracing
 from bwa_tpu_torch.native.build import get_lib
 
 _configured = False
@@ -130,82 +131,95 @@ def _finalize(entry, opt, fm, ref_blob: RefBlob, reads, codes_list, mid,
     reads, *mid, seed arrays, *tail, out, cap, out_off).  device_ext (a
     torch device, or None/False) routes the chain2aln seed extensions
     through the band kernel (mem/ext_device.py) instead of the scalar C++
-    DP.  Returns the SAM text of each read."""
-    n = len(reads)
-    blob = pack_opt(opt)
+    DP.  Returns the SAM text of each read.  Traced as the span finalize:
+    finalize.pack, finalize.native (the call, with its phases, counts and
+    spans; reruns, the second call an undersized buffer takes) and
+    finalize.unpack."""
+    with tracing.span("finalize"):
+        with tracing.span("finalize.pack"):
+            n = len(reads)
+            blob = pack_opt(opt)
 
-    l_off = np.zeros(n + 1, np.int64)
-    for i, c in enumerate(codes_list):
-        l_off[i + 1] = l_off[i] + len(c)
-    codes_flat = np.concatenate(codes_list) if n else np.zeros(0, np.uint8)
-    codes_flat = np.ascontiguousarray(codes_flat, np.uint8)
+            l_off = np.zeros(n + 1, np.int64)
+            for i, c in enumerate(codes_list):
+                l_off[i + 1] = l_off[i] + len(c)
+            codes_flat = (np.concatenate(codes_list) if n
+                          else np.zeros(0, np.uint8))
+            codes_flat = np.ascontiguousarray(codes_flat, np.uint8)
 
-    def blobify(items):
-        out = []
-        offs = np.full(n, -1, np.int64)
-        pos = 0
-        for i, s in enumerate(items):
-            if s is None:
-                continue
-            b = s if isinstance(s, bytes) else s.encode()
-            offs[i] = pos
-            out.append(b + b"\x00")
-            pos += len(b) + 1
-        return b"".join(out), offs
+            def blobify(items):
+                out = []
+                offs = np.full(n, -1, np.int64)
+                pos = 0
+                for i, s in enumerate(items):
+                    if s is None:
+                        continue
+                    b = s if isinstance(s, bytes) else s.encode()
+                    offs[i] = pos
+                    out.append(b + b"\x00")
+                    pos += len(b) + 1
+                return b"".join(out), offs
 
-    names_b, name_off = blobify([r.name for r in reads])
-    quals_b, qual_off = blobify([r.qual for r in reads])
-    comm_b, comm_off = blobify([r.comment for r in reads])
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    seeds = [np.ascontiguousarray(a, dt) for a, dt in zip(
-        seeds, (np.int32, np.int64, np.int32, np.int32, np.int64, np.int32))]
-    seed_args = [a.ctypes.data_as(i64p if a.dtype == np.int64 else i32p)
-                 for a in seeds]
+            names_b, name_off = blobify([r.name for r in reads])
+            quals_b, qual_off = blobify([r.qual for r in reads])
+            comm_b, comm_off = blobify([r.comment for r in reads])
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            seeds = [np.ascontiguousarray(a, dt) for a, dt in zip(
+                seeds, (np.int32, np.int64, np.int32, np.int32, np.int64,
+                        np.int32))]
+            seed_args = [a.ctypes.data_as(i64p if a.dtype == np.int64
+                                          else i32p) for a in seeds]
 
-    out_off = np.zeros(n + 1, np.int64)
-    # initial output-buffer guess: a SAM record carries SEQ+QUAL (~2x qlen)
-    # plus name/tags; long reads also emit supplementary records.  An
-    # undersized guess is CORRECT but costs a full second finalize run
-    # (the C++ side computes everything, then reports the needed size —
-    # that silent 2x was the entire pacbio finalize overhead once), so
-    # scale with total query bytes, not just read count.
-    cap = max(1 << 20, 1024 * n + 6 * int(l_off[-1]))
+            out_off = np.zeros(n + 1, np.int64)
+            # initial output-buffer guess: a SAM record carries SEQ+QUAL
+            # (~2x qlen) plus name/tags; long reads also emit supplementary
+            # records.  An undersized guess is CORRECT but costs a full
+            # second finalize run (the C++ side computes everything, then
+            # reports the needed size — that silent 2x was the entire
+            # pacbio finalize overhead once), so scale with total query
+            # bytes, not just read count.
+            cap = max(1 << 20, 1024 * n + 6 * int(l_off[-1]))
 
-    def run(cap):
-        out = ctypes.create_string_buffer(cap)
-        rc = entry(
-            blob,
-            ref_blob.pac.ctypes.data_as(u8p), ref_blob.l_pac,
-            ref_blob.offsets.ctypes.data_as(i64p),
-            ref_blob.lens.ctypes.data_as(i32p),
-            ref_blob.is_alt.ctypes.data_as(u8p),
-            ref_blob.names, ref_blob.name_off.ctypes.data_as(i32p),
-            ref_blob.n,
-            n, codes_flat.ctypes.data_as(u8p), l_off.ctypes.data_as(i64p),
-            names_b, name_off.ctypes.data_as(i64p),
-            quals_b, qual_off.ctypes.data_as(i64p),
-            comm_b, comm_off.ctypes.data_as(i64p),
-            *mid, *seed_args, *tail, out, cap, out_off.ctypes.data_as(i64p))
-        return rc, out
+        def run(cap):
+            out = ctypes.create_string_buffer(cap)
+            rc = entry(
+                blob,
+                ref_blob.pac.ctypes.data_as(u8p), ref_blob.l_pac,
+                ref_blob.offsets.ctypes.data_as(i64p),
+                ref_blob.lens.ctypes.data_as(i32p),
+                ref_blob.is_alt.ctypes.data_as(u8p),
+                ref_blob.names, ref_blob.name_off.ctypes.data_as(i32p),
+                ref_blob.n,
+                n, codes_flat.ctypes.data_as(u8p),
+                l_off.ctypes.data_as(i64p),
+                names_b, name_off.ctypes.data_as(i64p),
+                quals_b, qual_off.ctypes.data_as(i64p),
+                comm_b, comm_off.ctypes.data_as(i64p),
+                *mid, *seed_args, *tail, out, cap,
+                out_off.ctypes.data_as(i64p))
+            return rc, out
 
-    def run_sized():
-        rc, out = run(cap)
-        if rc < 0:  # the buffer was short: -rc is the size needed
-            rc, out = run(-rc)
-        return rc, out
+        with tracing.span("finalize.native") as sp, tracing.native(sp):
+            def run_sized():
+                rc, out = run(cap)
+                if rc < 0:  # the buffer was short: -rc is the size needed
+                    sp.count("reruns")
+                    rc, out = run(-rc)
+                return rc, out
 
-    if device_ext:
-        from bwa_tpu_torch.mem.ext_device import DeviceExtContext
+            if device_ext:
+                from bwa_tpu_torch.mem.ext_device import DeviceExtContext
 
-        with DeviceExtContext(opt, fm, codes_flat, device_ext):
-            rc, out = run_sized()
-    else:
-        rc, out = run_sized()
-    assert rc >= 0
-    raw = out.raw[:rc].decode()
-    return [raw[out_off[i]:out_off[i + 1]] for i in range(n)]
+                with DeviceExtContext(opt, fm, codes_flat, device_ext):
+                    rc, out = run_sized()
+            else:
+                rc, out = run_sized()
+        assert rc >= 0
+        with tracing.span("finalize.unpack"):
+            raw = out.raw[:rc].decode()
+            return [raw[out_off[i]:out_off[i + 1]] for i in range(n)]
 
 
 def finalize_se_arrays(opt, fm, ref_blob: RefBlob, reads, codes_list,

@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 
+from bwa_tpu_torch import tracing
 from bwa_tpu_torch.index.pack import NT4_TABLE
 from bwa_tpu_torch.mem import chain as chain_mod
 from bwa_tpu_torch.mem.extend import chain2aln
@@ -149,12 +150,22 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
     device/host seed extension on the C++ route; None chooses by
     use_device_ext.  The Python route (SE -5, BWA_TPU_FINALIZE other than
     "native") extends on the host, as bwa_tpu's does."""
-    if not reads:
-        return
-    if os.environ.get("BWA_TPU_FINALIZE", "native") != "native" or (
-            opt.flag & MEM_F_PRIMARY5 and not opt.flag & MEM_F_PE):
-        _process_python(opt, engine, fm, reads, n_processed, pes0, rg_id)
-        return
+    with tracing.span("process_seqs"):
+        if not reads:
+            return
+        if os.environ.get("BWA_TPU_FINALIZE", "native") != "native" or (
+                opt.flag & MEM_F_PRIMARY5 and not opt.flag & MEM_F_PE):
+            _process_python(opt, engine, fm, reads, n_processed, pes0, rg_id)
+            return
+        _process_native(opt, engine, fm, reads, n_processed, pes0, rg_id,
+                        device_ext)
+
+
+def _process_native(opt, engine, fm, reads, n_processed, pes0, rg_id,
+                    device_ext):
+    """process_seqs' C++ route.  Traced: seeding in spans named seed (the
+    trip order and the PE batch's seeds together; SE, the trip order and
+    each bucket's seeds apart, the finalize of a bucket between them)."""
     from bwa_tpu_torch.mem.batch_seed import (collect_se_flat, host_reseed,
                                               occurrence_positions,
                                               se_flat_buckets, trip_order)
@@ -174,15 +185,20 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
         else None
     if not hasattr(fm, "_ref_blob"):
         fm._ref_blob = RefBlob(fm)
-    # trip-sorted packing (batch_seed.trip_order): the reads seed in the
-    # order of their predicted trips, so that packed lanes finish together
-    order, qdev = trip_order(opt, engine, codes)
-    if opt.flag & MEM_F_PE:
+    pe = bool(opt.flag & MEM_F_PE)
+    with tracing.span("seed"):
+        # trip-sorted packing (batch_seed.trip_order): the reads seed in
+        # the order of their predicted trips, so that packed lanes finish
+        # together
+        order, qdev = trip_order(opt, engine, codes)
+        if pe:
+            flat = collect_se_flat(opt, engine, fm, codes, order=order,
+                                   qdev=qdev)
+    if pe:
         # one finalize over the whole batch, in file order: the insert-size
         # estimate and the pair ids of hash_64 cover every pair
-        flat = collect_se_flat(opt, engine, fm, codes, order=order,
-                               qdev=qdev) or host_seeds(codes)
-        sams = finalize_pe_arrays(opt, fm, fm._ref_blob, reads, codes, *flat,
+        sams = finalize_pe_arrays(opt, fm, fm._ref_blob, reads, codes,
+                                  *(flat or host_seeds(codes)),
                                   n_processed, pes0, rg_id, device_ext=ext)
         for r, s in zip(reads, sams):
             r.sam = s
@@ -190,8 +206,8 @@ def process_seqs(opt, engine, fm, reads: list[Read], n_processed: int = 0,
     # SE buckets finalize in seeding order; the SAM goes back to the file
     # order and hash_64 takes each read's index in the file
     src = codes if order is None else [codes[j] for j in order]
-    for lo, nb, flat in se_flat_buckets(opt, engine, fm, src, row_ids=order,
-                                        qdev=qdev):
+    for lo, nb, flat in tracing.each("seed", se_flat_buckets(
+            opt, engine, fm, src, row_ids=order, qdev=qdev)):
         ix = (np.arange(lo, lo + nb, dtype=np.int64) if order is None
               else order[lo:lo + nb])
         rd = [reads[j] for j in ix]

@@ -18,7 +18,6 @@
 #include <cstdio>
 #include <cstring>
 #include <algorithm>
-#include <chrono>
 #include <string>
 #include <vector>
 #include <cstdlib>
@@ -26,25 +25,6 @@
 #include "occ64.h"
 
 extern "C" int sais_u8_i32(const uint8_t *text, int32_t n, int32_t *sa_out);
-
-// phase/call profiling counters (see bsw2_prof_read)
-int64_t g_prof_cnt[8];
-
-// phase profiling accumulators (ns), read via bsw2_prof_read.
-// Slots: 0 = DAG traversal, 1 = SA-resolve/dedup, 2 = overlap resolution
-// + bookkeeping, 3 = read-BWT build + connectivity, 5 = extends.
-static int64_t g_prof[8];
-struct ProfTimer {
-  int slot;
-  std::chrono::steady_clock::time_point t0;
-  explicit ProfTimer(int s)
-      : slot(s), t0(std::chrono::steady_clock::now()) {}
-  ~ProfTimer() {
-    g_prof[slot] += std::chrono::duration_cast<std::chrono::nanoseconds>(
-                        std::chrono::steady_clock::now() - t0)
-                        .count();
-  }
-};
 
 namespace {
 
@@ -61,18 +41,13 @@ constexpr int32_t kMinusInf = -0x3fffffff;
 using GenomeFM = occ64::View;
 
 static inline void g_occ4(const GenomeFM &g, int64_t k, int64_t cnt[4]) {
-  ++g_prof_cnt[0];
   occ64::occ4(g, k, cnt);
 }
 
 // bwt_2occ4 idea (bwt.c:189-219): one pass serves both counts when k
-// and l share a block (occ64::occ4_pair); counter 4 tracks fused pairs
+// and l share a block (occ64::occ4_pair)
 static inline void g_2occ4(const GenomeFM &g, int64_t k, int64_t l,
                            int64_t cntk[4], int64_t cntl[4]) {
-  int64_t _k = k - (k >= g.primary && k != -1 ? 1 : 0);
-  int64_t _l = l - (l >= g.primary ? 1 : 0);
-  if (!(k == -1 || l == g.seq_len || (_k >> 7) != (_l >> 7)))
-    ++g_prof_cnt[4];
   occ64::occ4_pair(g, k, l, cntk, cntl);
 }
 
@@ -133,7 +108,6 @@ static int build_read_bwt(const uint8_t *seq, int len, ReadBwt *b) {
 
 // bwtl_occ4 (bwt_lite.c:72-86); k is uint32 with (uint32_t)-1 meaning "-1".
 static void r_occ4(const ReadBwt &b, uint32_t k, uint32_t cnt[4]) {
-  ++g_prof_cnt[1];
   if (k == (uint32_t)-1) {
     cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
     return;
@@ -559,12 +533,8 @@ int64_t bsw2_core_run(const uint8_t *g_inter,
   Opt opt{a, b_pen, q_pen, r_pen, q_pen + r_pen, t_thres, z_best, is_intv, bw};
   ReadBwt target;
   FlatMap64 chash;
-  {
-    ProfTimer pt(3);  // read-BWT build + connectivity
-    if (build_read_bwt(read, l, &target) != 0) return -2;
-    ProfTimer pt2(6);  // connectivity alone
-    connectivity(target, &chash);
-  }
+  if (build_read_bwt(read, l, &target) != 0) return -2;
+  connectivity(target, &chash);
 
   int score_mat[16];
   for (int i = 0; i < 4; ++i)
@@ -630,10 +600,8 @@ int64_t bsw2_core_run(const uint8_t *g_inter,
       const int *curr_score_mat = score_mat + tj * 4;
 
       for (int i = 0; i < v->cells.n; ++i) {  // v grows in-loop
-        ++g_prof_cnt[2];
         Cell *p = v->cells.a + i;
         if (p->ql == 0) continue;
-        ++g_prof_cnt[3];
         Cell *x = u->cells.slot();  // speculative slot; ++n commits it
         int is_added = 0;
         x->G = kMinusInf;
@@ -749,12 +717,13 @@ int64_t bsw2_core_run(const uint8_t *g_inter,
 
 // Batched genome SA lookup: positions for SA ranks ks[0..n) (bwt_sa,
 // bwt.c:86-96), walking inverse-Psi to the nearest sampled entry.
-void fm_sa_batch(const uint8_t *g_inter,
-                 int64_t g_seq_len, int64_t g_primary, const int64_t *g_L2,
-                 const int64_t *ssa, int32_t sa_intv, const int64_t *ks,
-                 int64_t n, int64_t *out) {
+// Returns the walk's steps over all ranks.
+int64_t fm_sa_batch(const uint8_t *g_inter,
+                    int64_t g_seq_len, int64_t g_primary, const int64_t *g_L2,
+                    const int64_t *ssa, int32_t sa_intv, const int64_t *ks,
+                    int64_t n, int64_t *out) {
   GenomeFM g{g_inter, g_seq_len, g_primary, g_L2};
-  int64_t mask = sa_intv - 1;
+  int64_t mask = sa_intv - 1, steps = 0;
   for (int64_t i = 0; i < n; ++i) {
     int64_t k = ks[i], s = 0;
     while (k & mask) {
@@ -762,7 +731,9 @@ void fm_sa_batch(const uint8_t *g_inter,
       k = g_inv_psi(g, k);
     }
     out[i] = s + ssa[k / sa_intv];
+    steps += s;
   }
+  return steps;
 }
 
 }  // extern "C"
@@ -1244,11 +1215,6 @@ static void chain_filter_c(int max_chain_gap, int bw, int t_seeds,
 
 extern "C" {
 
-void bsw2_prof_read(int64_t *out) {
-  for (int i = 0; i < 8; ++i) out[i] = g_prof[i];
-  for (int i = 0; i < 8; ++i) out[8 + i] = g_prof_cnt[i];
-}
-
 // Full native aln1 for one read.  seq0/seq1: forward / revcomp codes.
 // rows_out: 10-int64 Hit records; returns count, -1 if cap_out too small
 // (caller restores *rng_state and retries), -2 on core error.
@@ -1269,7 +1235,6 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
   std::unique_ptr<int64_t[]> out_b1;  // write-only: one memcpy at core end
   int64_t n1;
   {
-    ProfTimer pt(0);  // DAG core
     bool first = true;
     for (;;) {
       out_b1.reset(new int64_t[(size_t)cap1 * 10]);  // uninitialized
@@ -1300,12 +1265,8 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
     }
   };
   std::vector<Hit> B, B1;
-  {
-    ProfTimer pt(1);  // SA-resolve/dedup
-    if (!resolve_rows(out_b.data(), 2 * l, B)) return -2;
-    if (!resolve_rows(out_b1.get(), n1, B1)) return -2;
-  }
-  ProfTimer pt_rest(2);  // extends + overlap resolution + bookkeeping
+  if (!resolve_rows(out_b.data(), 2 * l, B)) return -2;
+  if (!resolve_rows(out_b1.get(), n1, B1)) return -2;
 
   // ---- strand split (reverse hits get read-space coordinates)
   std::vector<Hit> bb[2][2];
@@ -1331,7 +1292,6 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
   const uint8_t *seqs[2] = {seq0, seq1};
   std::vector<uint8_t> rq(l), target;
   int qle, tle, gtle, gscore, moff;
-  ProfTimer *pt_ext = new ProfTimer(5);  // extends (left/right + dedup)
   for (int kk = 0; kk < 2; ++kk) {
     const uint8_t *query = seqs[kk];
     for (int i = 0; i < l; ++i) rq[i] = query[l - 1 - i];
@@ -1359,8 +1319,6 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
       target.resize((size_t)tl_len);
       for (int64_t j = 0; j < tl_len; ++j)
         target[j] = (uint8_t)pac_at2(pac, p.k - 1 - j);
-      ++g_prof_cnt[5];
-      g_prof_cnt[6] += tl_len;
       int sc = bt_ksw_extend2((int)p.beg, rq.data() + (l - p.beg),
                               (int)tl_len, target.data(), 5, mat, q_pen,
                               r_pen, q_pen, r_pen, bw, 0, -1, (int)p.G,
@@ -1386,8 +1344,6 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
       target.resize((size_t)tl_len);
       for (int64_t j = 0; j < tl_len; ++j)
         target[j] = (uint8_t)pac_at2(pac, p.k + j);
-      ++g_prof_cnt[5];
-      g_prof_cnt[6] += tl_len;
       int sc = bt_ksw_extend2((int)(l - p.beg), query + p.beg, (int)tl_len,
                               target.data(), 5, mat, q_pen, r_pen, q_pen,
                               r_pen, bw, 0, -1, 1, &qle, &tle, &gtle,
@@ -1401,7 +1357,6 @@ int64_t bsw2_aln1_run(const uint8_t *g_inter, int64_t g_seq_len,
     }
     dedup_hits(bw0);
   }
-  delete pt_ext;
   // merge reverse-orientation hits (flip + flag 0x10)
   for (Hit &h : bb[1][0]) {
     int64_t x = h.beg;

@@ -25,7 +25,6 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <ctime>
 #include <memory>
 #include <string>
 #include <vector>
@@ -33,19 +32,6 @@
 #include "occ64.h"
 
 namespace {
-
-// BTCLI_PROF=1: per-phase wall times on stderr (index load / FASTQ
-// parse / search or finalize / output), for locating one-shot overhead
-static inline double now_s() {
-  timespec ts;
-  clock_gettime(CLOCK_MONOTONIC, &ts);
-  return ts.tv_sec + ts.tv_nsec * 1e-9;
-}
-static bool prof_on() {
-  static int v = -1;
-  if (v < 0) v = std::getenv("BTCLI_PROF") != nullptr;
-  return v;
-}
 
 constexpr int FALLBACK = 100;  // client.c execs the Python CLI on this
 constexpr int64_t CHUNK = 0x40000;  // reads per batch (aln CHUNK)
@@ -535,10 +521,8 @@ static int cmd_aln(int argc, char **argv) {
     opt.mode &= ~0x01;
   }
   if (o.args.size() < 2) return FALLBACK;  // Python prints the usage
-  double t0 = now_s();
   Idx x;
   if (!load_idx(o.args[0], &x, /*bwt_only=*/true)) return FALLBACK;
-  double t_idx = now_s() - t0, t_parse = 0, t_search = 0, t_pack = 0;
   FqStream st;
   if (!load_fq(o.args[1], &st)) return FALLBACK;
 
@@ -558,9 +542,7 @@ static int cmd_aln(int argc, char **argv) {
   int32_t mg_run = opt.max_gapo;  // sticky clamp (bwtaln.c:88-101)
   while (true) {
     Packed pk;
-    t0 = now_s();
     if (!next_batch(&st, opt.trim_qual, &pk)) return FALLBACK;
-    t_parse += now_s() - t0;
     if (pk.n == 0) break;
     int64_t n = pk.n;
     // reversed reads (bwtaln.c:116-117 searches back-to-front)
@@ -588,7 +570,6 @@ static int cmd_aln(int argc, char **argv) {
     out_n.assign(n, 0);
     int64_t cap = 64 * n > 65536 ? 64 * n : 65536;
     int64_t tot_rec;
-    t0 = now_s();
     while (true) {
       if (cap > rec_cap) {
         rec.reset(new int64_t[cap * 8]);
@@ -604,8 +585,6 @@ static int cmd_aln(int argc, char **argv) {
       if (tot_rec <= cap) break;
       cap = tot_rec;
     }
-    t_search += now_s() - t0;
-    t0 = now_s();
     // .sai records (sai.py pack_aln1): n_aln i32 + 24B per aln
     int64_t off = 0;
     for (int64_t i = 0; i < n; ++i) {
@@ -625,14 +604,9 @@ static int cmd_aln(int argc, char **argv) {
       off += c;
     }
     tot += n;
-    t_pack += now_s() - t0;
     std::fprintf(stderr, "[bwa_aln_core] %ld sequences have been "
                          "processed.\n", (long)tot);
   }
-  if (prof_on())
-    std::fprintf(stderr, "[btcli prof aln] idx=%.3f parse=%.3f "
-                 "search=%.3f pack=%.3f\n", t_idx, t_parse, t_search,
-                 t_pack);
   return write_out(out_path, out) ? 0 : 1;
 }
 
@@ -656,10 +630,8 @@ static int cmd_samse(int argc, char **argv) {
     }
   }
   if (o.args.size() < 3) return FALLBACK;
-  double t0 = now_s();
   Idx x;
   if (!load_idx(o.args[0], &x)) return FALLBACK;
-  double t_idx = now_s() - t0, t_parse = 0, t_fin = 0;
   std::vector<uint8_t> sai;
   if (!read_file(o.args[1], &sai) || sai.size() < 4 + sizeof(GapOpt) ||
       std::memcmp(sai.data(), "SAI\x01", 4) != 0)
@@ -676,11 +648,8 @@ static int cmd_samse(int argc, char **argv) {
   int64_t srem = (int64_t)sai.size() - 4 - (int64_t)sizeof(GapOpt);
   while (true) {
     Packed pk;
-    t0 = now_s();
     if (!next_batch(&st, opt.trim_qual, &pk)) return FALLBACK;
-    t_parse += now_s() - t0;
     if (pk.n == 0) break;
-    t0 = now_s();
     int64_t cap = 300 * pk.n > (1 << 20) ? 300 * pk.n : (1 << 20);
     std::vector<char> buf;
     int64_t used = 0;
@@ -709,11 +678,7 @@ static int cmd_samse(int argc, char **argv) {
     sp += used;
     srem -= used;
     out.append(buf.data(), (size_t)r);
-    t_fin += now_s() - t0;
   }
-  if (prof_on())
-    std::fprintf(stderr, "[btcli prof samse] idx=%.3f parse=%.3f "
-                 "finalize=%.3f\n", t_idx, t_parse, t_fin);
   return write_out(out_path, out) ? 0 : 1;
 }
 

@@ -157,6 +157,10 @@ def get_lib() -> ctypes.CDLL:
         lib.bt_ksw_align2.argtypes = [c_i, u8p, c_i, u8p, c_i, i8p,
                                       c_i, c_i, c_i, c_i,
                                       c_i, c_i, c_i, c_i, c_i, i32p]
+        lib.bt_trace_begin.restype = None
+        lib.bt_trace_begin.argtypes = []
+        lib.bt_trace_take.restype = None
+        lib.bt_trace_take.argtypes = [i64p]
         _lib = lib
         return lib
 

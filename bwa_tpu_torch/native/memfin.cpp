@@ -15,11 +15,12 @@
 #include <cstdint>
 #include <cstdio>
 #include <algorithm>
-#include <chrono>
 #include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "trace.h"
 
 namespace {
 
@@ -433,8 +434,6 @@ void chain_flt(const MemOpt &o, std::vector<Chain> &chains) {
 }
 
 // mem_flt_chained_seeds (bwamem.c:597-641); long reads only
-long g_flt_calls = 0;  // BWA_TPU_FIN_DEBUG counter
-
 void flt_chained_seeds(const MemOpt &o, const RefView &r, int l_query,
                        const uint8_t *q, std::vector<Chain> &chains) {
   const int MEM_SHORT_EXT = 50, MEM_SHORT_LEN = 200;
@@ -463,7 +462,6 @@ void flt_chained_seeds(const MemOpt &o, const RefView &r, int l_query,
           fetch_seq(r, rb, mid, re, &rid, rseq);
           std::vector<uint8_t> qv(q + qb, q + qe);
           int out[7];
-          ++g_flt_calls;
           bt_ksw_align2(qe - qb, qv.data(), (int)rseq.size(), rseq.data(), 5,
                         o.mat, o.o_del, o.e_del, o.o_ins, o.e_ins,
                         /*byte*/ 0, /*start*/ 1, /*subo*/ 0, /*stop*/ 0, 0,
@@ -677,6 +675,7 @@ void chain2aln(const MemOpt &o, const RefView &r, int l_query,
       for (int t = 0; t < MAX_BAND_TRY; ++t) {
         int prev = a.score;
         aw0 = o.w << t;
+        bt_trace::count(bt_trace::EXTENSIONS);
         a.score = bt_ksw_extend2(s->qbeg, qs.data(), (int)tmp, rs.data(), 5,
                                  o.mat, o.o_del, o.e_del, o.o_ins, o.e_ins,
                                  aw0, o.pen_clip5, o.zdrop, s->len * o.a,
@@ -714,6 +713,7 @@ void chain2aln(const MemOpt &o, const RefView &r, int l_query,
       for (int t = 0; t < MAX_BAND_TRY; ++t) {
         int prev = a.score;
         aw1 = o.w << t;
+        bt_trace::count(bt_trace::EXTENSIONS);
         a.score = bt_ksw_extend2(l_query - qe, query + qe,
                                  (int)(rmax1 - rmax0 - re), rseq.data() + re,
                                  5, o.mat, o.o_del, o.e_del, o.o_ins,
@@ -802,11 +802,13 @@ int gen_cigar2(const MemOpt &o, const RefView &r, int w_, int l_query,
       int cap = l_query + (int)rlen + 4;
       cigar->resize(cap);
       int nc = 0;
+      bt_trace::count(bt_trace::CIGARS);
       score = bt_ksw_global2(l_query, query.data(), (int)rlen, rseq.data(),
                              5, o.mat, o.o_del, o.e_del, o.o_ins, o.e_ins, w,
                              &nc, cigar->data(), cap);
       cigar->resize(nc);
     } else {
+      bt_trace::count(bt_trace::CIGARS);
       score = bt_ksw_global2(l_query, query.data(), (int)rlen, rseq.data(),
                              5, o.mat, o.o_del, o.e_del, o.o_ins, o.e_ins, w,
                              nullptr, nullptr, 0);
@@ -1604,6 +1606,7 @@ int mate_sw(const MemOpt &o, const RefView &r, const PeStat pes[4],
     if (a.rid == rid && re - rb >= o.min_seed_len) {
       int use_byte = l_ms * o.a < 250;
       int32_t outv[7];
+      bt_trace::count(bt_trace::RESCUE_TRIES);
       bt_ksw_align2(l_ms, seq.data(), (int)(re - rb), ref.data(), 5, o.mat,
                     o.o_del, o.e_del, o.o_ins, o.e_ins, use_byte,
                     /*start*/ 1, /*subo*/ 1, /*stop*/ 0,
@@ -1611,6 +1614,7 @@ int mate_sw(const MemOpt &o, const RefView &r, const PeStat pes[4],
       int score = outv[0], te = outv[1], qe = outv[2], score2 = outv[3];
       int tb = outv[5], qb = outv[6];
       if (score >= o.min_seed_len && qb >= 0) {
+        bt_trace::count(bt_trace::RESCUE_HITS);
         Reg b;
         b.rid = a.rid;
         b.is_alt = a.is_alt;
@@ -1705,11 +1709,13 @@ int mem_pair(const MemOpt &o, const RefView &r, const PeStat pes[4],
   return ret;
 }
 
-// mem_sam_pe (bwamem_pair.c:276-419); fills sam0/sam1
+// mem_sam_pe (bwamem_pair.c:276-419); fills sam0/sam1.  lap: marks the
+// rescue and the pairing; the caller marks the SAM text.
 int sam_pe(const MemOpt &o, const RefView &r, const PeStat pes[4],
            int64_t pair_id, const char *name, const uint8_t *codes[2],
            const int l_seq[2], const char *qual[2], const char *comment[2],
-           std::vector<Reg> a[2], const char *rg_id, std::string sams[2]) {
+           std::vector<Reg> a[2], const char *rg_id, std::string sams[2],
+           bt_trace::Lap &lap) {
   int n = 0, extra_flag = 1;
   if (!(o.flag & MEM_F_NO_RESCUE)) {  // mate rescue
     std::vector<Reg> b[2];
@@ -1722,6 +1728,7 @@ int sam_pe(const MemOpt &o, const RefView &r, const PeStat pes[4],
         n += mate_sw(o, r, pes, b[i][j], l_seq[1 - i], codes[1 - i],
                      a[1 - i]);
   }
+  lap.to(bt_trace::RESCUE);
   int n_pri[2] = {mark_primary_se(o, a[0], pair_id << 1 | 0),
                   mark_primary_se(o, a[1], pair_id << 1 | 1)};
   if (o.flag & MEM_F_PRIMARY5) {
@@ -1783,6 +1790,7 @@ int sam_pe(const MemOpt &o, const RefView &r, const PeStat pes[4],
             a[i][z[i]].secondary_all = -1;
           }
         }
+        lap.to(bt_trace::PAIR);
         std::vector<std::string> XA[2];
         bool have_xa = false;
         if (!(o.flag & MEM_F_ALL)) {
@@ -1818,6 +1826,7 @@ int sam_pe(const MemOpt &o, const RefView &r, const PeStat pes[4],
     }
   }
   // no_pairing (bwamem_pair.c:397-418)
+  lap.to(bt_trace::PAIR);
   Aln h[2];
   for (int i = 0; i < 2; ++i) {
     int which = -1;
@@ -1872,7 +1881,9 @@ void build_chains_and_jobs(
   chains_all.resize(n_reads);
   std::vector<int64_t> meta;
   std::vector<uint8_t> first;
+  const bool tr = bt_trace::on();
   for (int32_t i = 0; i < n_reads; ++i) {
+    bt_trace::Lap lap(tr);
     const uint8_t *codes = codes_flat + l_off[i];
     int l_query = (int)(l_off[i + 1] - l_off[i]);
     std::vector<Chain> &chains = chains_all[i];
@@ -1881,13 +1892,17 @@ void build_chains_and_jobs(
                iv_end + iv0, rbegs, rb_off + iv0, chains);
     chain_flt(o, chains);
     flt_chained_seeds(o, r, l_query, codes, chains);
+    lap.to(bt_trace::CHAIN);
     collect_ext_jobs(o, r, l_query, l_off[i], chains, meta, first);
+    lap.to(bt_trace::EXTEND);
   }
+  bt_trace::Lap lap(tr);
   int64_t njobs = (int64_t)meta.size() / 8;
   lres_v.assign((size_t)njobs * 6, EXT_UNRESOLVED);
   rres_v.assign((size_t)njobs * 6, EXT_UNRESOLVED);
   if (njobs)
     g_ext_cb(njobs, meta.data(), first.data(), lres_v.data(), rres_v.data());
+  lap.to(bt_trace::EXTEND);
 }
 
 }  // namespace
@@ -1945,6 +1960,25 @@ int bt_gen_cigar2(const uint8_t *pac, int64_t l_pac, int32_t a, int32_t b,
 
 void mem_set_ext_cb(void *cb) { g_ext_cb = (mem_ext_cb_t)cb; }
 
+// The calling thread's tracing (trace.h): begin zeroes it and switches it
+// on; take writes the phase ns, the counts, the span count and the spans
+// (5 int64 each), in trace.h's order, and switches it off.
+void bt_trace_begin() {
+  bt_trace::state() = bt_trace::State();
+  bt_trace::state().on = true;
+}
+
+void bt_trace_take(int64_t *out) {
+  bt_trace::State &s = bt_trace::state();
+  int64_t *p = out;
+  for (int i = 0; i < bt_trace::N_PHASES; ++i) *p++ = s.phase_ns[i];
+  for (int i = 0; i < bt_trace::N_COUNTS; ++i) *p++ = s.count[i];
+  *p++ = s.n_spans;
+  for (int j = 0; j < bt_trace::MAX_SPANS; ++j)
+    for (int k = 0; k < 5; ++k) *p++ = s.spans[j][k];
+  s.on = false;
+}
+
 // Finalize a batch of SE reads.  Layout:
 //  reads: codes_flat[sum l], l_off[n+1]; names/quals/comments as NUL-
 //  concatenated blobs with offsets (qual_off[i]<0 -> no qual).
@@ -1973,9 +2007,8 @@ int64_t mem_finalize_se_batch(
             {ctg_offset, ctg_len, ctg_is_alt, ctg_names, ctg_name_off, n_ctg}};
   std::string all;
   out_off[0] = 0;
-  const bool dbg = std::getenv("BWA_TPU_FIN_DEBUG") != nullptr;
-  double t_chain = 0, t_flt = 0, t_ext = 0, t_sam = 0;
-  auto now = [] { return std::chrono::steady_clock::now(); };
+  const bool tr = bt_trace::on();
+  bt_trace::Span regions(bt_trace::FIN_REGIONS);
   const bool use_cb = g_ext_cb != nullptr;
   std::vector<std::vector<Chain>> chains_all;
   std::vector<int32_t> lres_v, rres_v;
@@ -1989,17 +2022,15 @@ int64_t mem_finalize_se_batch(
     int l_query = (int)(l_off[i + 1] - l_off[i]);
     std::vector<Chain> chains_local;
     int iv0 = iv_off[i], iv1 = iv_off[i + 1];
-    auto tc = now();
+    bt_trace::Lap lap(tr);
     if (!use_cb) {
       chain_read(o, r, l_query, iv1 - iv0, iv_x2 + iv0, iv_start + iv0,
                  iv_end + iv0, rbegs, rb_off + iv0, chains_local);
       chain_flt(o, chains_local);
+      flt_chained_seeds(o, r, l_query, codes, chains_local);
     }
-    auto t0 = now();
-    if (dbg) t_chain += std::chrono::duration<double>(t0 - tc).count();
-    if (!use_cb) flt_chained_seeds(o, r, l_query, codes, chains_local);
+    lap.to(bt_trace::CHAIN);
     std::vector<Chain> &chains = use_cb ? chains_all[i] : chains_local;
-    auto t1 = now();
     std::vector<Reg> regs;
     for (const Chain &c : chains)
       chain2aln(o, r, l_query, codes, c, regs,
@@ -2007,7 +2038,7 @@ int64_t mem_finalize_se_batch(
                 use_cb ? rres_v.data() : nullptr,
                 use_cb ? &job_ctr : nullptr);
     sort_dedup_patch(o, r, codes, regs);
-    auto t2 = now();
+    lap.to(bt_trace::EXTEND);
     for (Reg &p : regs)
       if (p.rid >= 0 && r.bns.is_alt[p.rid]) p.is_alt = 1;
     // ids: per-read hash_64 seed (bwamem.c:1250's n_processed + i) when
@@ -2015,25 +2046,18 @@ int64_t mem_finalize_se_batch(
     // buckets) — the tie-break hash must use the ORIGINAL read index
     mark_primary_se(o, regs, ids ? ids[i] : id0 + i);
     if (o.flag & MEM_F_PRIMARY5) reorder_primary5(o.T, regs);
+    lap.to(bt_trace::PAIR);
     std::string sam;
     const char *qual = qual_off[i] >= 0 ? quals + qual_off[i] : nullptr;
     const char *comment =
         comment_off[i] >= 0 ? comments + comment_off[i] : nullptr;
     reg2sam_se(o, r, names + name_off[i], codes, l_query, qual, comment,
                regs, 0, nullptr, rg_id, sam);
-    auto t3 = now();
-    if (dbg) {
-      t_flt += std::chrono::duration<double>(t1 - t0).count();
-      t_ext += std::chrono::duration<double>(t2 - t1).count();
-      t_sam += std::chrono::duration<double>(t3 - t2).count();
-    }
     all += sam;
     out_off[i + 1] = (int64_t)all.size();
+    lap.to(bt_trace::SAM);
   }
-  if (dbg)
-    fprintf(stderr, "[memfin] n=%d chain=%.2fs flt_seeds=%.2fs (%ld sw) "
-            "extend+dedup=%.2fs reg2sam=%.2fs\n", n_reads, t_chain, t_flt,
-            g_flt_calls, t_ext, t_sam);
+  regions.end();
   if ((int64_t)all.size() > out_cap) return -(int64_t)all.size();
   memcpy(out, all.data(), all.size());
   return (int64_t)all.size();
@@ -2060,27 +2084,31 @@ int64_t mem_finalize_pe_batch(
   const MemOpt &o = *(const MemOpt *)opt_blob;
   RefView r{pac, l_pac,
             {ctg_offset, ctg_len, ctg_is_alt, ctg_names, ctg_name_off, n_ctg}};
+  const bool tr = bt_trace::on();
   // phase 1: per-read alignment regions (worker1)
   const bool use_cb = g_ext_cb != nullptr;
   std::vector<std::vector<Chain>> chains_all;
   std::vector<int32_t> lres_v, rres_v;
   int64_t job_ctr = 0;
+  std::vector<std::vector<Reg>> regs(n_reads);
+  bt_trace::Span regions(bt_trace::FIN_REGIONS);
   if (use_cb)
     build_chains_and_jobs(o, r, n_reads, codes_flat, l_off, iv_off, iv_x2,
                           iv_start, iv_end, rbegs, rb_off, chains_all,
                           lres_v, rres_v);
-  std::vector<std::vector<Reg>> regs(n_reads);
   for (int32_t i = 0; i < n_reads; ++i) {
     const uint8_t *codes = codes_flat + l_off[i];
     int l_query = (int)(l_off[i + 1] - l_off[i]);
     std::vector<Chain> chains_local;
     int iv0 = iv_off[i], iv1 = iv_off[i + 1];
+    bt_trace::Lap lap(tr);
     if (!use_cb) {
       chain_read(o, r, l_query, iv1 - iv0, iv_x2 + iv0, iv_start + iv0,
                  iv_end + iv0, rbegs, rb_off + iv0, chains_local);
       chain_flt(o, chains_local);
       flt_chained_seeds(o, r, l_query, codes, chains_local);
     }
+    lap.to(bt_trace::CHAIN);
     std::vector<Chain> &chains = use_cb ? chains_all[i] : chains_local;
     for (const Chain &c : chains)
       chain2aln(o, r, l_query, codes, c, regs[i],
@@ -2090,8 +2118,11 @@ int64_t mem_finalize_pe_batch(
     sort_dedup_patch(o, r, codes, regs[i]);
     for (Reg &p : regs[i])
       if (p.rid >= 0 && r.bns.is_alt[p.rid]) p.is_alt = 1;
+    lap.to(bt_trace::EXTEND);
   }
+  regions.end();
   // phase 2: insert-size statistics (the one batch-global sync)
+  bt_trace::Span pestat(bt_trace::FIN_PESTAT);
   PeStat pes[4];
   if (has_pes0) {
     for (int d = 0; d < 4; ++d) {
@@ -2104,10 +2135,13 @@ int64_t mem_finalize_pe_batch(
   } else {
     pe_stat(o, l_pac, regs, pes);
   }
+  pestat.end();
   // phase 3: per-pair rescue/pairing/SAM (worker2)
+  bt_trace::Span pairs(bt_trace::FIN_PAIRS);
   std::string all;
   out_off[0] = 0;
   for (int32_t i = 0; i < n_reads >> 1; ++i) {
+    bt_trace::Lap lap(tr);
     std::vector<Reg> a[2] = {std::move(regs[i * 2]),
                              std::move(regs[i * 2 + 1])};
     const uint8_t *codes[2] = {codes_flat + l_off[i * 2],
@@ -2123,12 +2157,14 @@ int64_t mem_finalize_pe_batch(
                                     : nullptr};
     std::string sams[2];
     sam_pe(o, r, pes, (id0 >> 1) + i, names + name_off[i * 2], codes, l_seq,
-           qual, comment, a, rg_id, sams);
+           qual, comment, a, rg_id, sams, lap);
     all += sams[0];
     out_off[i * 2 + 1] = (int64_t)all.size();
     all += sams[1];
     out_off[i * 2 + 2] = (int64_t)all.size();
+    lap.to(bt_trace::SAM);
   }
+  pairs.end();
   if ((int64_t)all.size() > out_cap) return -(int64_t)all.size();
   memcpy(out, all.data(), all.size());
   return (int64_t)all.size();

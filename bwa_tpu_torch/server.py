@@ -43,6 +43,8 @@ import time
 import traceback
 from pathlib import Path
 
+from bwa_tpu_torch import tracing
+
 # the commands that run on a device, and so take --device (cli._pop_device)
 DEVICE_CMDS = ("mem", "fastmap", "aln")
 # the switches that pick a route (read at call time by the port)
@@ -371,7 +373,8 @@ def _serve_one(conn, cli_mod, engine, device: str) -> str:
         _log(f"refused: {why}")
         return "serve"
     out = _BinOut()
-    n0 = launch_counts()
+    n0 = tracing.snapshot()["launches"]
+    tracing.drain()  # this request's spans alone
     t0 = time.perf_counter()
     try:
         with _route_env(env):
@@ -383,10 +386,17 @@ def _serve_one(conn, cli_mod, engine, device: str) -> str:
         _log(f"error: {traceback.format_exc()}"
              + (" (the CUDA context is lost: exiting)" if lost else ""))
         return "lost" if lost else "serve"
-    launches = {k: v - n0[k] for k, v in launch_counts().items()}
+    seconds = time.perf_counter() - t0
+    launches = {k: v - n0[k]
+                for k, v in tracing.snapshot()["launches"].items()}
+    traced = ""
+    if tracing.ON:
+        s = tracing.summary(tracing.drain())
+        traced = (f" spans={json.dumps(s['self_s'], sort_keys=True)}"
+                  f" counters={json.dumps(s['counters'], sort_keys=True)}")
     _log(f"done rc={rc} bytes={len(out.getvalue())} "
-         f"seconds={time.perf_counter() - t0:.6f} "
-         f"launches={json.dumps(launches)}{_memory(engine)}")
+         f"seconds={seconds:.6f} "
+         f"launches={json.dumps(launches)}{traced}{_memory(engine)}")
     conn.sendall(json.dumps({"ok": rc}).encode() + b"\n")
     conn.sendall(out.getvalue())
     return "serve"

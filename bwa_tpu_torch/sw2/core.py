@@ -38,7 +38,7 @@ def _lib():
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             _i64p, _i64p, ctypes.c_int64,
         ]
-        lib.fm_sa_batch.restype = None
+        lib.fm_sa_batch.restype = ctypes.c_int64  # the walk's steps
         lib.fm_sa_batch.argtypes = [
             _u8p, ctypes.c_int64, ctypes.c_int64, _i64p,
             _i64p, ctypes.c_int32, _i64p, ctypes.c_int64, _i64p,
