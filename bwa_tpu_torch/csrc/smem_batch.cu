@@ -18,6 +18,21 @@
 //       the count after it (PERF.md).
 //       One row a thread: more would lengthen the chain.  `work` gets the
 //       steps and the longest walk.
+//       Its occtab form (sa_occ_kernel) also replaces the host's walk
+//       (native/bsw2.cpp fm_sa_batch: one dependent DRAM miss a step, one
+//       walk after another) on the main path, on an index too large for
+//       ckpt and words to be uploaded (index/fmindex.py, light): it reads
+//       each step's base and count from K1's fused occtab, [n_rows, 4 +
+//       NW] uint32 (NW = 8R; R = 4 at chr1 scale: 512 bases a row), so no
+//       second copy of the BWT goes onto the card.  Bound: latency, as
+//       above; a bucket's ~88K rows are resident in one wave, and the
+//       launch takes the longest walk (~32 ln N steps, ~365) times one HBM
+//       round trip.  Design: a step is one round trip, the row's counts
+//       and its text words up to the row's word issued together as
+//       16-byte loads (predicated: words past the row's word are not
+//       read: 88 of a row's 144 bytes on average); the base is taken from
+//       the loaded words and its count is one xor and popcount a word;
+//       only k and the step count live across steps.
 //  K10a smem1a: bwt_smem1a (bwt.c:289-351) one read a lane, replacing
 //       bwa_tpu/ops/fm.py:319 _smem1a_core (smem1a_batch :478); the mems
 //       in the reference's pre-reversal order, each list overwriting its
@@ -771,6 +786,91 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// A 16-byte read-only load issued only where p holds (r kept elsewhere), in
+// program order with the other loads (ldg_now)
+__device__ __forceinline__ void ldg_if(bool p, const uint4 *ptr, uint4 &r) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %4, 0;\n\t"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%5];\n\t}"
+      : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w)
+      : "r"((int)p), "l"(ptr));
+}
+
+// K9's occtab form: bwt_sa a thread a row on K1's fused table, NW text
+// words a row (design note at the top)
+template <typename C, int NW>
+__global__ void __launch_bounds__(128)
+    sa_occ_kernel(const uint32_t *occtab, const C *ssa, const int64_t *L2p,
+                  C primary, C seq_len, const C *k_in, C *out, int N,
+                  unsigned long long *work) {
+  constexpr int RB = NW == 8 ? 0 : 2;  // log2(R)
+  constexpr int NV = NW / 4;           // 16-byte vectors of text a row
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  C L2[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) L2[c] = (C)L2p[c];
+  unsigned steps = 0;
+  if (t < N) {
+    C k = k_in[t];
+    while ((k & 31) != 0) {
+      ++steps;
+      if (k == primary) {  // the $ row: bwt_sa's k = 0, its count unused
+        k = 0;
+        break;
+      }
+      // the $-removed row, where the BWT base and its count lie alike
+      C kk = k - (k > primary ? 1 : 0);
+      kk = kk > seq_len - 1 ? seq_len - 1 : kk;
+      const uint4 *row = reinterpret_cast<const uint4 *>(
+          occtab + (size_t)(kk >> (7 + RB)) * (4 + NW));
+      const int kw = (int)(kk >> 4) & (NW - 1), kb = (int)(kk & 15);
+      const int last = kw >> 2;  // the vector that holds word kw
+      // the row's counts and its text up to word kw, all issued before
+      // any is used: one round trip a step
+      const uint4 cnt = ldg_now(row);
+      uint4 w[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        w[v] = make_uint4(0u, 0u, 0u, 0u);
+        ldg_if(v <= last, row + 1 + v, w[v]);
+      }
+      uint4 wl = w[0];
+#pragma unroll
+      for (int v = 1; v < NV; ++v) wl = v == last ? w[v] : wl;
+      const int c =
+          (int)(sel4(wl.x, wl.y, wl.z, wl.w, kw & 3) >> ((15 - kb) << 1)) &
+          3;
+      // base c's fields in B[row start .. kk]: a field equal to c is 00
+      // after the xor with c in every field
+      const uint32_t pat = (uint32_t)c * M55;
+      int n = 0;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const uint32_t ws[4] = {w[v].x, w[v].y, w[v].z, w[v].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int nkeep = clampi((kw - (4 * v + u)) * 16 + kb + 1, 0, 16);
+          const uint32_t mask = nkeep > 0 ? FULL << ((16 - nkeep) << 1) : 0u;
+          const uint32_t x = ws[u] ^ pat;
+          n += __popc(~(x | (x >> 1)) & mask & M55);
+        }
+      }
+      C occ = count_of<C>(cnt, c) + n;
+      if (k == seq_len) occ = l2_next(L2, c) - l2_at(L2, c);
+      k = l2_at(L2, c) + occ;
+    }
+    out[t] = (C)steps + ssa[k >> 5];
+  }
+  if (work) {  // the walk steps summed and the longest walk
+    const unsigned longest = __reduce_max_sync(FULL, steps);
+    steps = __reduce_add_sync(FULL, steps);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(work, (unsigned long long)steps);
+      atomicMax(work + 1, (unsigned long long)longest);
+    }
+  }
+}
+
 // a kernel on its lists: `wpb` warps a block, `blocks`, `smem` shared bytes
 template <typename C>
 int launch_with(void (*kern)(SmemArgs<C>), const SmemArgs<C> &a, int wpb,
@@ -871,6 +971,64 @@ extern "C" int bwa_sa_batch(int coord64, const void *ckpt,
         (int32_t)primary, (int32_t)seq_len, (const int32_t *)k,
         (int32_t *)out, N, wk);
   return (int)cudaGetLastError();
+}
+
+// K9's occtab form: out[t] = bwt_sa(k[t]) for N rows on the fused occtab
+// of nw (8 or 32) text words a row
+extern "C" int bwa_sa_occ(int coord64, const uint32_t *occtab, int nw,
+                          const void *ssa, const int64_t *L2,
+                          int64_t primary, int64_t seq_len, const void *k,
+                          void *out, int N, void *work, void *stream) {
+  if (N == 0) return 0;
+  if (nw != 8 && nw != 32) return (int)cudaErrorInvalidValue;
+  const int blocks = (N + 127) / 128;
+  auto *wk = static_cast<unsigned long long *>(work);
+  if (coord64) {
+    auto kern = nw == 8 ? sa_occ_kernel<int64_t, 8>
+                        : sa_occ_kernel<int64_t, 32>;
+    kern<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+        occtab, (const int64_t *)ssa, L2, primary, seq_len,
+        (const int64_t *)k, (int64_t *)out, N, wk);
+  } else {
+    auto kern = nw == 8 ? sa_occ_kernel<int32_t, 8>
+                        : sa_occ_kernel<int32_t, 32>;
+    kern<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+        occtab, (const int32_t *)ssa, L2, (int32_t)primary,
+        (int32_t)seq_len, (const int32_t *)k, (int32_t *)out, N, wk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K9 from host rows to host positions, in the occtab form where occtab is
+// given, else on ckpt and words: the N rows k_host (pinned) up into k,
+// work zeroed, the launch, the positions and work down into out_host and
+// work_host (pinned), the stream synchronised.  One call a lookup, so that
+// a Python caller need not let go of its interpreter lock between the
+// steps (ops/fm.py::DeviceSA)
+extern "C" int bwa_sa_round_trip(int coord64, const uint32_t *occtab,
+                                 int nw, const void *ckpt,
+                                 const uint32_t *words, const void *ssa,
+                                 const int64_t *L2, int64_t primary,
+                                 int64_t seq_len, const void *k_host,
+                                 void *k, void *out, void *out_host, int N,
+                                 void *work, void *work_host, void *stream) {
+  auto s = (cudaStream_t)stream;
+  const size_t bytes = (size_t)N * (coord64 ? 8 : 4);
+  cudaError_t e = cudaMemcpyAsync(k, k_host, bytes, cudaMemcpyHostToDevice,
+                                  s);
+  if (e == cudaSuccess) e = cudaMemsetAsync(work, 0, 16, s);
+  if (e != cudaSuccess) return (int)e;
+  const int rc = occtab ? bwa_sa_occ(coord64, occtab, nw, ssa, L2, primary,
+                                     seq_len, k, out, N, work, stream)
+                        : bwa_sa_batch(coord64, ckpt, words, ssa, L2,
+                                       primary, seq_len, k, out, N, work,
+                                       stream);
+  if (rc) return rc;
+  e = cudaMemcpyAsync(out_host, out, bytes, cudaMemcpyDeviceToHost, s);
+  if (e == cudaSuccess)
+    e = cudaMemcpyAsync(work_host, work, 16, cudaMemcpyDeviceToHost, s);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(s);
+  return (int)e;
 }
 
 // K10a: bwt_smem1a of each of the B reads from x, a group a read or, with

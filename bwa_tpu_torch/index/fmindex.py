@@ -143,19 +143,29 @@ class FMIndex:
                 return np.load(p, mmap_mode="r")
         return None
 
-    def sa_lookup(self, ranks: np.ndarray) -> np.ndarray:
+    def sa_lookup(self, ranks: np.ndarray, card=None) -> np.ndarray:
         """Batched SA rank -> position (bwt_sa, bwt.c:86-96 semantics,
-        incl. the rank-0 -1 poison): the dense sidecar when present, else
-        the native inverse-Psi walker (bsw2.cpp fm_sa_batch).  Traced
-        as the span sa_lookup, counting the ranks and the walk's steps
-        (none on the sidecar)."""
+        incl. the rank-0 -1 poison) by one of three routes: the dense
+        sidecar when present; else `card`, a walker on a device (ops/fm.py
+        DeviceSA: K9 on a CUDA engine's index), when given; else the
+        native inverse-Psi walker (bsw2.cpp fm_sa_batch).  Traced as the
+        span sa_lookup, counting the ranks, the walk's steps (none on the
+        sidecar) and the ranks walked on the device (device_ranks)."""
         with tracing.span("sa_lookup") as sp:
             ranks = np.ascontiguousarray(ranks, dtype=np.int64)
-            sp.count("ranks", ranks.shape[0])
+            n = ranks.shape[0]
+            sp.count("ranks", n)
             sad = self.sad
             if sad is not None:
                 sp.count("walk_steps", 0)
+                sp.count("device_ranks", 0)
                 return np.asarray(sad[ranks], dtype=np.int64)
+            if card is not None:
+                out, steps = card(ranks) if n else (
+                    np.zeros(0, dtype=np.int64), 0)
+                sp.count("walk_steps", steps)
+                sp.count("device_ranks", n)
+                return out
             import ctypes
 
             from bwa_tpu_torch.native.build import get_lib
@@ -172,15 +182,16 @@ class FMIndex:
                                  np.ascontiguousarray(self.L2, np.int64),
                                  np.ascontiguousarray(self.ssa, np.int64))
             inter, L2, ssa = self._sa_args
-            out = np.empty(ranks.shape[0], dtype=np.int64)
+            out = np.empty(n, dtype=np.int64)
             steps = 0
-            if ranks.shape[0]:
+            if n:
                 steps = lib.fm_sa_batch(
                     inter.ctypes.data_as(u8p), self.seq_len, self.primary,
                     L2.ctypes.data_as(i64p), ssa.ctypes.data_as(i64p),
                     self.sa_intv, ranks.ctypes.data_as(i64p),
-                    ranks.shape[0], out.ctypes.data_as(i64p))
+                    n, out.ctypes.data_as(i64p))
             sp.count("walk_steps", steps)
+            sp.count("device_ranks", 0)
             return out
 
     @cached_property
@@ -275,9 +286,10 @@ def build_occtab(fm: FMIndex, R: int) -> np.ndarray | None:
 class DeviceFMIndex:
     """torch view of an FMIndex on one device.
 
-    light=True uploads only what the seeding machine reads (the fused
-    occtab + scalars + a 1-row ckpt/words stub): SA walks and extension
-    run host-native on that path."""
+    light=True uploads what the seeding machine and K9's occtab form read
+    (the fused occtab, the sampled SA, the scalars and a 1-row ckpt/words
+    stub) and no packed reference: the SA walk runs on the card there
+    (ops/fm.py::DeviceSA), the extension on the host."""
 
     def __init__(self, fm: FMIndex | None, light: bool = False,
                  device: str | torch.device = "cuda",
@@ -296,8 +308,7 @@ class DeviceFMIndex:
                                "occtab (counts exceed uint32)")
         self._set(int(fm.primary), int(fm.seq_len), int(fm.l_pac),
                   int(fm.sa_intv), fm.L2.astype(cdt), fm.ckpt[:n_ck],
-                  fm.words[:n_w], None if light else fm.ssa,
-                  None if light else fm.pac, occ)
+                  fm.words[:n_w], fm.ssa, None if light else fm.pac, occ)
 
     def _set(self, primary, seq_len, l_pac, sa_intv, L2, ckpt, words, ssa,
              pac, occtab):
@@ -308,7 +319,6 @@ class DeviceFMIndex:
         self.sa_intv = int(sa_intv)
         self.coord_dtype = np.int32 if self.seq_len + 2 < 2**31 else np.int64
         cdt = self.coord_dtype
-        self.light = ssa is None
         self.L2 = torch.from_numpy(np.asarray(L2).astype(cdt)).to(dev)
         self.ckpt = torch.from_numpy(np.asarray(ckpt).astype(cdt)).to(dev)
         self.words = torch.from_numpy(_i32_bits(words)).to(dev)
@@ -343,8 +353,9 @@ class DeviceFMIndex:
         t = dict(primary=self.primary, seq_len=self.seq_len,
                  l_pac=self.l_pac, sa_intv=self.sa_intv, cdt=self.cdt,
                  L2=self.L2, ckpt=self.ckpt, words=self.words)
-        if not self.light:
+        if self.ssa is not None:
             t["ssa"] = self.ssa
+        if self.pac is not None:
             t["pac"] = self.pac
         if self.occtab is not None:
             t["occtab"] = self.occtab

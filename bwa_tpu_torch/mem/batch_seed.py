@@ -14,6 +14,7 @@ lane, for the Python mem path (-5, BWA_TPU_FINALIZE=python).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -185,11 +186,12 @@ def _pack_bucket(opt, chunk, cap_s: int):
     return q, lens, L, B2, pack_k, cap_s * pack_k, None, 1
 
 
-def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
+def _demux_bucket(opt, sa_lookup, seeds_out, nb, L, B2, cs, n_shard=1):
     """Demux packed lanes back to per-read flat arrays (bucket-local
     offsets).  Rows are sorted by start within a lane, so a stable sort
-    by read id keeps order.  SA lookups go through fm.sa_lookup (dense
-    sidecar on small genomes, native batch walker at scale).
+    by read id keeps order.  SA lookups go through sa_lookup
+    (_sa_route: the dense sidecar on small genomes, at scale K9 on a CUDA
+    engine, else the native batch walker).
 
     Sharded long-read lanes (n_shard > 1) instead re-sort per read by
     (start, end, tag) and drop the cross-lane duplicates: rows equal in
@@ -239,14 +241,14 @@ def _demux_bucket(opt, fm, seeds_out, nb, L, B2, cs, n_shard=1):
         off_p = (rslot * (L + 1))[order].astype(np.int64)
         start = (start_p[order] - off_p).astype(np.int32)
         end = (se[lmask].astype(np.int64)[order] - off_p).astype(np.int32)
-    return _flat_seeds(opt, fm, rid_sorted, k0, x2, start, end, nb)
+    return _flat_seeds(opt, sa_lookup, rid_sorted, k0, x2, start, end, nb)
 
 
-def _flat_seeds(opt, fm, rid, k0, x2, start, end, nb):
+def _flat_seeds(opt, sa_lookup, rid, k0, x2, start, end, nb):
     """Per-read flat arrays from seed rows already in the reads' order
     (rid: each row's read): the occurrence SA rows of each seed
     (mem_chain's bwt_sa calls, bwamem.c:304-309) looked up in one batch
-    through fm.sa_lookup.  Returns (iv_off, x2, start, end, rbegs,
+    through sa_lookup.  Returns (iv_off, x2, start, end, rbegs,
     rb_off), offsets local to the nb reads."""
     max_occ = opt.max_occ
     counts = np.where(x2 > max_occ, max_occ, x2)
@@ -255,7 +257,7 @@ def _flat_seeds(opt, fm, rid, k0, x2, start, end, nb):
     csum = np.cumsum(counts)
     grp = np.repeat(np.arange(len(counts)), counts)
     within = np.arange(tot, dtype=np.int64) - np.repeat(csum - counts, counts)
-    rbegs = fm.sa_lookup(k0[grp] + step[grp] * within)
+    rbegs = sa_lookup(k0[grp] + step[grp] * within)
     iv_off = np.zeros(nb + 1, np.int32)       # per READ
     iv_off[1:] = np.cumsum(np.bincount(rid, minlength=nb)[:nb])
     rb_off = np.zeros(len(counts) + 1, np.int32)  # per SEED
@@ -263,7 +265,7 @@ def _flat_seeds(opt, fm, rid, k0, x2, start, end, nb):
     return (iv_off, x2, start, end, rbegs, rb_off)
 
 
-def _demux_refill(opt, fm, seeds_out, nb):
+def _demux_refill(opt, sa_lookup, seeds_out, nb):
     """Demux retire-and-refill lanes: the provenance column carries the
     read id, so one stable lexsort by (read, start, end) restores the
     static route's order of each read's seeds (a read lives in one lane,
@@ -275,11 +277,17 @@ def _demux_refill(opt, fm, seeds_out, nb):
     start_a = ss[lmask].astype(np.int64)
     end_a = se[lmask].astype(np.int64)
     order = np.lexsort((end_a, start_a, rid_all))
-    return _flat_seeds(opt, fm, rid_all[order],
+    return _flat_seeds(opt, sa_lookup, rid_all[order],
                        s0[lmask][order].astype(np.int64),
                        s2[lmask][order].astype(np.int64),
                        start_a[order].astype(np.int32),
                        end_a[order].astype(np.int32), nb)
+
+
+def _sa_route(engine, fm):
+    """The demux's SA lookup: fm.sa_lookup with the engine's walker on the
+    card (K9 on a CUDA engine without the dense sidecar; None elsewhere)."""
+    return functools.partial(fm.sa_lookup, card=engine.sa_card)
 
 
 def _se_flat_refill(opt, engine, fm, codes_list, cap_s):
@@ -294,6 +302,7 @@ def _se_flat_refill(opt, engine, fm, codes_list, cap_s):
     RB = int(os.environ.get("BWA_TPU_REFILL_BUCKET", str(4 * BATCH_BUCKET)))
     los = list(range(0, B, RB))
     pend = {}
+    sa_lookup = _sa_route(engine, fm)
 
     def _dispatch(i):
         chunk = codes_list[los[i]:los[i] + RB]
@@ -331,7 +340,7 @@ def _se_flat_refill(opt, engine, fm, codes_list, cap_s):
                 yield lo, n, None  # exactness fallback (tuple path)
                 continue
         with tracing.span("seed.demux"):
-            flat = _demux_refill(opt, fm, out, n)
+            flat = _demux_refill(opt, sa_lookup, out, n)
         yield lo, n, flat
 
 
@@ -440,6 +449,7 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
     # and pack every bucket on the host, as bwa_tpu's se_flat_buckets
     route = seed_route()
     can_async = route == "unified"
+    sa_lookup = _sa_route(engine, fm)
     bucket0 = _lane_bucket(Lg)
     los = list(range(0, B, bucket0))
     packed = {}
@@ -505,7 +515,7 @@ def se_flat_buckets(opt, engine, fm, codes_list, cap_s: int = 24,
                 yield lo, nb, None  # exactness fallback (tuple path)
                 continue
         with tracing.span("seed.demux"):
-            flat = _demux_bucket(opt, fm, out, nb, L, B2, cs, ns)
+            flat = _demux_bucket(opt, sa_lookup, out, nb, L, B2, cs, ns)
         yield lo, nb, flat
 
 

@@ -32,6 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# entry points called with the interpreter lock held (ctypes.PyDLL)
+_held: dict[str, ctypes.PyDLL] = {}
 build_log: dict[str, str] = {}
 
 
@@ -78,6 +80,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
             os.replace(tmp, so)
         for src in SOURCES:
             _libs[src] = ctypes.CDLL(str(_so_path(src)))
+        _held["smem_batch.cu"] = ctypes.PyDLL(str(_so_path("smem_batch.cu")))
         _bind(_libs)
         return _libs
 
@@ -97,6 +100,13 @@ def _bind(libs) -> None:
     f = libs["smem_batch.cu"].bwa_sa_batch
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, i32, vp, vp]
+    f = libs["smem_batch.cu"].bwa_sa_occ
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, vp, i64, i64, vp, vp, i32, vp, vp]
+    f = _held["smem_batch.cu"].bwa_sa_round_trip
+    f.restype = ctypes.c_int
+    f.argtypes = [i32, vp, i32, vp, vp, vp, vp, i64, i64, vp, vp, vp, vp,
+                  i32, vp, vp, vp]
     f = libs["smem_batch.cu"].bwa_smem1a
     f.restype = ctypes.c_int
     f.argtypes = [i32, vp, i32, vp, i64, i64, vp, i32, i32, vp, vp, vp, i64,
@@ -229,6 +239,39 @@ def sa_batch(ckpt, words, ssa, L2, primary, seq_len, coord64, k, out,
     _call(lib.bwa_sa_batch, "sa_batch", k.device, int(coord64), _ptr(ckpt),
           _ptr(words), _ptr(ssa), _ptr(L2), int(primary), int(seq_len),
           _ptr(k), _ptr(out), k.shape[0], _opt(work), _stream(k))
+
+
+def sa_occ(occtab, ssa, L2, primary, seq_len, coord64, k, out,
+           work=None) -> None:
+    """Launch K9's occtab form (csrc/smem_batch.cu, bwa_sa_occ: bwt_sa a
+    thread a row of k, on the fused occtab) on the current stream; work
+    as sa_batch's."""
+    lib = build_all()["smem_batch.cu"]
+    _call(lib.bwa_sa_occ, "sa_occ", k.device, int(coord64), _ptr(occtab),
+          occtab.shape[1] - 4, _ptr(ssa), _ptr(L2), int(primary),
+          int(seq_len), _ptr(k), _ptr(out), k.shape[0], _opt(work),
+          _stream(k))
+
+
+def sa_round_trip(occtab, ckpt, words, ssa, L2, primary, seq_len, coord64,
+                  k_host, k, out, out_host, n, work, work_host,
+                  stream) -> None:
+    """K9 on the first n rows of k_host (pinned) into out_host and
+    work_host (pinned: positions, and the walk steps and longest walk) on
+    `stream`, in the occtab form where occtab is given, else on ckpt and
+    words (csrc/smem_batch.cu, bwa_sa_round_trip): the copies, the launch
+    and the stream's synchronisation in one C call made with the
+    interpreter lock held.  The call lasts about a millisecond; each
+    release of the lock would cost the caller a wait of up to the
+    interpreter's switch interval while another thread (main_mem's FASTQ
+    reader) runs Python."""
+    build_all()
+    _call(_held["smem_batch.cu"].bwa_sa_round_trip, "sa_round_trip",
+          k.device, int(coord64), _opt(occtab),
+          0 if occtab is None else occtab.shape[1] - 4, _opt(ckpt),
+          _opt(words), _ptr(ssa), _ptr(L2), int(primary), int(seq_len),
+          _ptr(k_host), _ptr(k), _ptr(out), _ptr(out_host), int(n),
+          _ptr(work), _ptr(work_host), stream.cuda_stream)
 
 
 def _plan_args(plan) -> tuple:

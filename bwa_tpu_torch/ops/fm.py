@@ -19,7 +19,9 @@ tail compaction, K13, on K1's state mode) and the fused cross-check
 program (collect_intv_device, K11); smem_pass and seed3_pass run
 bwt_smem1a and bwt_seed_strategy1 one read a lane (K10a, K10b), and
 sa_batch bwt_sa (K9), all of them in csrc/smem_batch.cu beside their
-plain versions here.
+plain versions here.  A CUDA engine without the dense SA sidecar takes
+the SA lookup onto the card too (DeviceSA, K9, as FMIndex.sa_lookup's
+card).
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ def _masks(kw, kb, nw: int):
                        torch.zeros_like(shift))
 
 
+def _occ_block(idx, kk):
+    """The counts [N, 4] and text words [N, nw] (int64) of the block that
+    holds each $-removed position kk, and nw: the fused occtab's row where
+    the index has one (nw = 8R), else ckpt's and words' block (nw = 8)."""
+    if "occtab" in idx:
+        nw = idx["occtab"].shape[1] - 4          # 8R words per row
+        rbits = (nw // 8).bit_length() - 1       # log2(R)
+        row = idx["occtab"][kk >> (7 + rbits)]
+        return _u32(row[:, :4]), _u32(row[:, 4:]), nw
+    j = kk >> 7
+    return idx["ckpt"][j].to(torch.int64), _u32(idx["words"][j]), 8
+
+
 def _occ4(idx, k):
     """Counts of each base in B[0..k] inclusive; k: [N] coord ints.
     Handles k == -1 (zeros) and k == seq_len (L2 diffs) like bwt_occ4."""
@@ -64,17 +79,7 @@ def _occ4(idx, k):
     k = k.to(torch.int64)
     kk = k - (k >= idx["primary"]).to(torch.int64)
     kk_safe = kk.clamp(0, idx["seq_len"] - 1)
-    if "occtab" in idx:
-        nw = idx["occtab"].shape[1] - 4          # 8R words per row
-        rbits = (nw // 8).bit_length() - 1       # log2(R)
-        row = idx["occtab"][kk_safe >> (7 + rbits)]
-        base = _u32(row[:, :4])
-        blk = _u32(row[:, 4:])
-    else:
-        nw = 8
-        j = kk_safe >> 7
-        base = idx["ckpt"][j].to(torch.int64)
-        blk = _u32(idx["words"][j])
+    base, blk, nw = _occ_block(idx, kk_safe)
     mask = _masks((kk_safe >> 4) & (nw - 1), kk_safe & 15, nw)
     w = blk & mask
     vm = mask & _M55
@@ -118,7 +123,8 @@ def _extend(idx, x0, x1, x2, is_back: bool):
 def _B0(idx, x):
     """BWT char at $-removed position x."""
     x = x.to(torch.int64)
-    word = _u32(idx["words"][x >> 7, (x >> 4) & 7])
+    _, blk, nw = _occ_block(idx, x)
+    word = blk.gather(1, ((x >> 4) & (nw - 1))[:, None])[:, 0]
     return ((word >> ((15 - (x & 15)) << 1)) & 3).to(torch.int32)
 
 
@@ -130,10 +136,10 @@ def _occ1(idx, k, c):
     c = c.to(torch.int64)
     kk = k - (k >= idx["primary"]).to(torch.int64)
     kk_safe = kk.clamp(0, idx["seq_len"] - 1)
-    j = kk_safe >> 7
-    base = idx["ckpt"][j, c].to(torch.int64)
-    mask = _masks((kk_safe >> 4) & 7, kk_safe & 15, 8)
-    w = _u32(idx["words"][j]) & mask
+    cnts, blk, nw = _occ_block(idx, kk_safe)
+    base = cnts.gather(1, c[:, None])[:, 0]
+    mask = _masks((kk_safe >> 4) & (nw - 1), kk_safe & 15, nw)
+    w = blk & mask
     hi = (w >> 1) & _M55
     lo = w & _M55
     m55 = mask & _M55
@@ -493,15 +499,13 @@ def _probe_breaks_cuda(idx, q):
 
 def sa_batch_plain(idx, k, work=None):
     """bwt_sa (bwt.c:86-96) over a vector of SA rows k: the inverse-Psi walk
-    (the BWT base at the row, _B0, and its count, _occ1) until the row is a
-    multiple of sa_intv, then the sampled position plus the steps taken.
-    Returns positions in the coordinate dtype.  work: an int64 [2] tensor
-    to whose [0] the walk steps are added and whose [1] is raised to the
-    longest walk, as K9 does."""
-    if "ssa" not in idx:
-        raise ValueError("sa_batch needs the sampled suffix array, which a "
-                         "light index (more than 2^20 text blocks) does not "
-                         "upload")
+    (the BWT base at the row, _B0, and its count, _occ1, both from the
+    fused occtab where the index has one) until the row is a multiple of
+    sa_intv, then the sampled position plus the steps taken.  Returns
+    positions in the coordinate dtype.  work: an int64 [2] tensor to whose
+    [0] the walk steps are added and whose [1] is raised to the longest
+    walk, as K9 does."""
+    _check_ssa(idx)
     i64 = torch.int64
     cdt = idx["cdt"]
     primary = idx["primary"]
@@ -788,11 +792,27 @@ strategy1_launches = 0
 collect_launches = 0
 
 
+def _check_ssa(idx):
+    if "ssa" not in idx:
+        raise ValueError("sa_batch needs the sampled suffix array (ssa), "
+                         "which this index tree does not hold")
+
+
+def sa_form(idx) -> str:
+    """K9's form for an index tree: "ckpt" where ckpt and words cover the
+    text (a full index), else "occtab", the fused table K1 reads (a light
+    index uploads only a one-row stub of ckpt and words)."""
+    if idx["words"].shape[0] > (idx["seq_len"] - 1) >> 7:
+        return "ckpt"
+    _check_occtab(idx, "K9's occtab form")
+    return "occtab"
+
+
 def sa_batch(idx, k, work=None):
     """bwt_sa over the SA rows k [N]: kernel K9 (csrc/smem_batch.cu, a
-    thread a row) for a CUDA k, sa_batch_plain for a CPU one.  work: an
-    int64 [2] tensor on k's device: [0] gains the walk steps taken, [1]
-    is raised to the longest walk."""
+    thread a row) for a CUDA k, in the form sa_form picks from idx;
+    sa_batch_plain for a CPU k.  work: an int64 [2] tensor on k's device:
+    [0] gains the walk steps taken, [1] is raised to the longest walk."""
     global sa_launches
     if work is not None and work.shape != (2,):
         raise ValueError("sa_batch's work is an int64 [2] tensor")
@@ -800,26 +820,92 @@ def sa_batch(idx, k, work=None):
         return sa_batch_plain(idx, k, work)
     from bwa_tpu_torch.ops import cuda_kernels
 
-    if "ssa" not in idx:
-        raise ValueError("sa_batch needs the sampled suffix array, which a "
-                         "light index (more than 2^20 text blocks) does not "
-                         "upload")
-    if idx["sa_intv"] != 32:
-        raise ValueError("K9 walks to multiples of 32 (sa_intv 32)")
+    occtab, ckpt, words = _k9_tables(idx)
     cdt = idx["cdt"]
     kk = k.to(cdt).contiguous()
     out = torch.empty_like(kk)
+    ssa, L2 = idx["ssa"].contiguous(), idx["L2"].to(torch.int64).contiguous()
+    coord64 = cdt == torch.int64
+    if occtab is not None:
+        cuda_kernels.sa_occ(occtab, ssa, L2, idx["primary"], idx["seq_len"],
+                            coord64, kk, out, work)
+    else:
+        cuda_kernels.sa_batch(ckpt, words, ssa, L2, idx["primary"],
+                              idx["seq_len"], coord64, kk, out, work)
+    sa_launches += 1
+    return out
+
+
+def _k9_tables(idx):
+    """What K9 reads of idx besides ssa, in the form sa_form picks:
+    (occtab, None, None), or (None, ckpt, words); ValueError where K9
+    cannot walk idx."""
+    _check_ssa(idx)
+    if idx["sa_intv"] != 32:
+        raise ValueError("K9 walks to multiples of 32 (sa_intv 32)")
+    if sa_form(idx) == "occtab":
+        return idx["occtab"], None, None
     ckpt, words = idx["ckpt"].contiguous(), idx["words"].contiguous()
-    if ckpt.dtype != cdt or ckpt.data_ptr() % 16 or words.data_ptr() % 16:
+    if ckpt.dtype != idx["cdt"] or ckpt.data_ptr() % 16 \
+            or words.data_ptr() % 16:
         raise ValueError("K9 reads a block's counts and text words as "
                          "16-byte vectors: ckpt in the coordinate dtype, "
                          "both aligned to 16 bytes")
-    cuda_kernels.sa_batch(ckpt, words, idx["ssa"].contiguous(),
-                          idx["L2"].to(torch.int64).contiguous(),
-                          idx["primary"], idx["seq_len"], cdt == torch.int64,
-                          kk, out, work)
-    sa_launches += 1
-    return out
+    return None, ckpt, words
+
+
+class DeviceSA:
+    """The SA lookup on the card, FMIndex.sa_lookup's `card` on a CUDA
+    engine: takes int64 ranks, returns their positions (int64) and the
+    walk's steps.  K9, in the form sa_form picks for the tree, runs on a
+    high-priority stream of its own, so that it does not queue behind the
+    next bucket's K1 (se_flat_buckets dispatches it on the current stream
+    before it demuxes this bucket); the ranks go up from a pinned buffer,
+    and the positions and the steps come down into pinned buffers, all in
+    one C call (cuda_kernels.sa_round_trip); the buffers are kept and
+    grown."""
+
+    def __init__(self, idx: dict, device):
+        self.idx = idx
+        self.device = torch.device(device)
+        self.tables = _k9_tables(idx)
+        self.ssa = idx["ssa"].contiguous()
+        self.L2 = idx["L2"].to(torch.int64).contiguous()
+        self.bufs = None
+        self.stream = torch.cuda.Stream(self.device, priority=-1)
+        # the index's uploads, on the current stream, come first
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _grow(self, n: int) -> dict:
+        cdt, dev = self.idx["cdt"], self.device
+        cap = max(n, 1 << 17)
+        with torch.cuda.stream(self.stream):
+            b = dict(cap=cap, k=torch.empty(cap, dtype=cdt, device=dev),
+                     out=torch.empty(cap, dtype=cdt, device=dev),
+                     work=torch.empty(2, dtype=torch.int64, device=dev))
+        for key, dt, m in (("k_h", cdt, cap), ("out_h", cdt, cap),
+                           ("work_h", torch.int64, 2)):
+            b[key] = torch.empty(m, dtype=dt, pin_memory=True)
+            b[key + "_np"] = b[key].numpy()
+        self.bufs = b
+        return b
+
+    def __call__(self, ranks: np.ndarray) -> tuple[np.ndarray, int]:
+        global sa_launches
+        from bwa_tpu_torch.ops import cuda_kernels
+
+        n = len(ranks)
+        b = self.bufs
+        if b is None or b["cap"] < n:
+            b = self._grow(n)
+        b["k_h_np"][:n] = ranks
+        idx = self.idx
+        cuda_kernels.sa_round_trip(
+            *self.tables, self.ssa, self.L2, idx["primary"],
+            idx["seq_len"], idx["cdt"] == torch.int64, b["k_h"], b["k"],
+            b["out"], b["out_h"], n, b["work"], b["work_h"], self.stream)
+        sa_launches += 1
+        return b["out_h_np"][:n].astype(np.int64), int(b["work_h_np"][0])
 
 
 def _occ_tensors(idx, name):
@@ -1057,6 +1143,12 @@ class BatchedFMEngine:
                 self.dev = dv
             self.trees[d] = dv.tree()
         self.idx = self.trees[self.device]
+        # the SA lookup's route (FMIndex.sa_lookup): the dense sidecar
+        # where the index has one, else K9 on a CUDA engine, else the
+        # host's walk
+        self.sa_card = (DeviceSA(self.idx, self.device)
+                        if self.device.type == "cuda" and fm.sad is None
+                        and fm.sa_intv == 32 else None)
         self._host = None
 
     @property
@@ -1083,7 +1175,7 @@ class BatchedFMEngine:
     def sa_many(self, ks: np.ndarray) -> np.ndarray:
         if len(ks) == 0:
             return np.zeros(0, dtype=np.int64)
-        return self.fm.sa_lookup(ks)
+        return self.fm.sa_lookup(ks, card=self.sa_card)
 
     # ---- seeding ----
 

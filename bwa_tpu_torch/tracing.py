@@ -25,9 +25,10 @@ The span names of `mem`:
     finalize > finalize.pack, finalize.native > fin.regions, fin.pestat,
         fin.pairs (the native library's), finalize.unpack
 Counters: seed: buckets, ladder_climbs, host_fallbacks; sa_lookup: ranks,
-walk_steps; finalize.native: reruns, the native phases' nanoseconds
-(chain_ns, extend_ns, rescue_ns, pair_ns, sam_ns) and counts (extensions,
-rescue_tries, rescue_hits, cigars).
+walk_steps, device_ranks (the ranks walked on the card); finalize.native:
+reruns, the native phases' nanoseconds (chain_ns, extend_ns, rescue_ns,
+pair_ns, sam_ns) and counts (extensions, rescue_tries, rescue_hits,
+cigars).
 """
 
 from __future__ import annotations

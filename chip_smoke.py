@@ -5,6 +5,7 @@
     python3 chip_smoke.py --aln-chunk
     python3 chip_smoke.py --k7-bench
     python3 chip_smoke.py --big-genome
+    python3 chip_smoke.py --sa-bench
 
 Run from the repository root on a machine with one CUDA card.  With
 --aln-chunk it only runs one whole `aln` chunk on the card (aln_chunk_main);
@@ -13,7 +14,9 @@ on fewer lanes and on both occtab layouts (k7_bench_main); with
 --big-genome only a 210 Mbp genome from the seed, indexed by the port's
 index_build into build/big_genome, and 24,576 x 150 bp SE reads through
 `mem` with BWA_TPU_TRIP_SORT unset, whose auto gate must launch K8 once
-(big_genome_main; prints the index build's seconds and the phase wall).
+(big_genome_main; prints the index build's seconds and the phase wall);
+with --sa-bench only K9's occtab form on that genome's light index, at one
+bucket's ranks, against the host's walk and timed (sa_bench_main).
 Without, in order:
   1. builds the hand-written kernels (csrc/*.cu, nvcc sm_90a, in parallel)
      and the native library;
@@ -3421,28 +3424,14 @@ def mesh_phases(d: Path, prefix: str, bg: list):
 BIG_GENOME_LEN = 210_000_000
 
 
-def big_genome_main() -> int:
-    """A 210 Mbp genome from the seed, indexed by the port's index_build
-    (build/big_genome, kept between runs of one checkout), then the
-    24,576 x 150 bp SE reads through `mem` with BWA_TPU_TRIP_SORT unset
-    (auto sorts at l_pac >= 200 Mbp, so K8 launches once) and with off, in
-    turns auto, off, auto, off, every SAM equal.  Prints the index build's
-    seconds, each phase's wall and K1 launches (longest lane's steps,
-    event ms), K8 against its plain version, and a fresh process's first
-    K8 launch at this genome, whole and split (first_launch_main)."""
+def big_index():
+    """The 210 Mbp genome from the seed and its index, built by the port's
+    index_build into build/big_genome unless a run of this checkout did:
+    (directory, FASTA path, codes, seconds spent)."""
     import numpy as np
-    import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check needs a card")
     from bwa_tpu_torch.index.build import index_build
-    from bwa_tpu_torch.index.fmindex import FMIndex
-    from bwa_tpu_torch.native.build import get_lib
-    from bwa_tpu_torch.ops import cuda_kernels
 
-    card_line = (smi("--query-gpu=name,power.limit") or ["(no nvidia-smi)"])[0]
-    get_lib()
-    cuda_kernels.build_all()
     d = REPO / "build" / "big_genome"
     d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(SEED + 20)
@@ -3459,7 +3448,30 @@ def big_genome_main() -> int:
                     + seq[len(seq) // 70 * 70:].tobytes() + b"\n")
         del seq, lines
         index_build(str(fa))
-    index_s = time.perf_counter() - t0
+    return d, fa, codes, time.perf_counter() - t0
+
+
+def big_genome_main() -> int:
+    """A 210 Mbp genome from the seed, indexed by the port's index_build
+    (build/big_genome, kept between runs of one checkout), then the
+    24,576 x 150 bp SE reads through `mem` with BWA_TPU_TRIP_SORT unset
+    (auto sorts at l_pac >= 200 Mbp, so K8 launches once) and with off, in
+    turns auto, off, auto, off, every SAM equal.  Prints the index build's
+    seconds, each phase's wall and K1 launches (longest lane's steps,
+    event ms), K8 against its plain version, and a fresh process's first
+    K8 launch at this genome, whole and split (first_launch_main)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.native.build import get_lib
+    from bwa_tpu_torch.ops import cuda_kernels
+
+    card_line = (smi("--query-gpu=name,power.limit") or ["(no nvidia-smi)"])[0]
+    get_lib()
+    cuda_kernels.build_all()
+    d, fa, codes, index_s = big_index()
     fm = FMIndex.load(str(fa))
     log(f"210 Mbp index built in {index_s:.1f} s (l_pac={fm.l_pac})")
     if fm.l_pac < 200_000_000:
@@ -3501,6 +3513,128 @@ def big_genome_main() -> int:
     for f in first:
         print(json.dumps(f), flush=True)
     print(card_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# --sa-bench: K9's occtab form at one bucket's ranks on the 210 Mbp genome
+# --------------------------------------------------------------------------
+
+SA_BENCH_RANKS = 88_000  # one chr1_pe150 bucket's SA ranks, about
+# bytes of one walk step of K9's occtab form at R = 4: the row's counts
+# and its text up to the row's word, 16 + 16 (kw / 4 + 1) bytes, kw
+# uniform over a row's 32 words
+SA_STEP_BYTES = 16 + 16 * 4.5
+SA_STEP_OPS = 32 * 7 + 20  # an xor, two shifts, ors, ands and a popcount a word
+
+
+def sa_bench_main() -> int:
+    """K9's occtab form on the light index of the 210 Mbp genome (built as
+    --big-genome builds it, where this checkout has not), the table of
+    K8's rows: SA_BENCH_RANKS random ranks and the edge ranks, positions
+    and walk steps against the host's native walk (FMIndex.sa_lookup,
+    fm_sa_batch) bit for bit; then times, on the same ranks, the kernel
+    alone (CUDA events), the engine's walker DeviceSA host to host (the
+    ranks up, K9 on its stream, positions and steps down), the host walk
+    and the plain version on the card, the kernel beside its bound and
+    beside its longest walk's rank alone.  One JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    from bwa_tpu_torch import tracing
+    from bwa_tpu_torch.index.fmindex import FMIndex
+    from bwa_tpu_torch.native.build import get_lib
+    from bwa_tpu_torch.ops import cuda_kernels
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    card_line = (smi("--query-gpu=name,power.limit") or ["(no nvidia-smi)"])[0]
+    get_lib()
+    cuda_kernels.build_all()
+    _, fa, _, index_s = big_index()
+    fm = FMIndex.load(str(fa))
+    if fm.sad is not None:
+        fail("the 210 Mbp index has a dense SA sidecar: no walk to time")
+    t0 = time.perf_counter()
+    eng = fm_ops.BatchedFMEngine(fm, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    idx, card = eng.idx, eng.sa_card
+    if fm_ops.sa_form(idx) != "occtab" or card is None:
+        fail(f"the engine takes K9's {fm_ops.sa_form(idx)} form, walker "
+             f"{card}: the occtab form on a light index was expected")
+    rng = np.random.default_rng(SEED + 21)
+    ks = np.concatenate([rng.integers(0, fm.seq_len + 1, SA_BENCH_RANKS),
+                         [0, fm.primary, fm.primary - 1, fm.primary + 1,
+                          fm.seq_len, fm.seq_len - 1, 31, 32, 33]])
+    tracing.enable()
+    t = time.perf_counter()
+    want = fm.sa_lookup(ks)
+    host_first_s = time.perf_counter() - t  # builds the host's int64 copy
+    (sp,) = [s for s in tracing.drain() if s.name == "sa_lookup"]
+    tracing.enable(False)
+    host_steps = sp.counters["walk_steps"]
+    kd = torch.from_numpy(ks).to(idx["cdt"]).cuda()
+    work = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got, first_ms = timed_once(lambda: fm_ops.sa_batch(idx, kd, work=work))
+    walk, longest = (int(w) for w in work.cpu())
+    equal = bool(np.array_equal(got.cpu().numpy().astype(np.int64), want))
+    out = torch.empty_like(kd)
+    L2 = idx["L2"].to(torch.int64).contiguous()
+    kernel_ms = cuda_time(lambda: cuda_kernels.sa_occ(
+        idx["occtab"], idx["ssa"], L2, idx["primary"], idx["seq_len"],
+        idx["cdt"] == torch.int64, kd, out), 20)
+    wrapper_ms = cuda_time(lambda: fm_ops.sa_batch(idx, kd), 20)
+    # the longest walk's rank, by halving on K9's count of the longest
+    # walk; alone on the card its launch is the chain of steps unloaded
+    lo, hi = 0, kd.numel()
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        w = torch.zeros(2, dtype=torch.int64, device="cuda")
+        fm_ops.sa_batch(idx, kd[lo:mid], work=w)
+        lo, hi = (lo, mid) if int(w[1]) == longest else (mid, hi)
+    alone_ms = cuda_time(lambda: cuda_kernels.sa_occ(
+        idx["occtab"], idx["ssa"], L2, idx["primary"], idx["seq_len"],
+        idx["cdt"] == torch.int64, kd[lo:hi], out[lo:hi]), 20)
+    walls = []
+    for _ in range(10):
+        t = time.perf_counter()
+        via, steps = card(ks)
+        walls.append((time.perf_counter() - t) * 1e3)
+    via_equal = bool(np.array_equal(via, want)) and steps == host_steps
+    host = []
+    for _ in range(3):
+        t = time.perf_counter()
+        fm.sa_lookup(ks)
+        host.append((time.perf_counter() - t) * 1e3)
+    want_work = torch.zeros(2, dtype=torch.int64, device="cuda")
+    plain, plain_ms = timed_once(lambda: fm_ops.sa_batch_plain(
+        idx, kd, work=want_work))
+    plain_equal = bool(torch.equal(plain, got)) and \
+        torch.equal(want_work, work)
+    nbytes = walk * SA_STEP_BYTES + ks.size * 2 * kd.element_size()
+    res = dict(phase="sa_occ_210m", card=card_line, genome=fa.name,
+               index_build_s=index_s, upload_s=upload_s,
+               ssa_bytes=int(idx["ssa"].numel() * idx["ssa"].element_size()),
+               occtab_bytes=int(idx["occtab"].numel() * 4), rows=int(ks.size),
+               equal=equal, via_equal=via_equal, plain_equal=plain_equal,
+               walk_steps=walk, host_walk_steps=int(host_steps),
+               longest_walk=longest, first_ms=first_ms, kernel_ms=kernel_ms,
+               wrapper_ms=wrapper_ms, device_sa_ms=sorted(walls),
+               host_walk_ms=sorted(host), host_first_ms=host_first_s * 1e3,
+               plain_ms=plain_ms, ns_per_longest_step=per_unit(
+                   kernel_ms, longest), longest_alone_ms=alone_ms,
+               ns_per_step_alone=per_unit(alone_ms, longest),
+               bytes=int(nbytes),
+               ops=float(walk * SA_STEP_OPS))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"])
+    print(json.dumps(dict(sa_bench=res)), flush=True)
+    if not (equal and via_equal and plain_equal and walk == host_steps):
+        fail("K9's occtab form disagrees with the host walk or the plain "
+             "version")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4081,6 +4215,8 @@ def main(argv) -> int:
         return big_genome_main()
     if argv[:1] == ["--seed-bench"]:
         return seed_bench_main(argv)
+    if argv[:1] == ["--sa-bench"]:
+        return sa_bench_main()
     if argv[:1] == ["--first-launch"]:
         return first_launch_main(argv)
     log_dir = None

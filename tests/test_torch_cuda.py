@@ -1321,6 +1321,51 @@ def test_k9_matches_plain(world, coords):
     assert np.array_equal(want.numpy()[ok], fm.sa_lookup(ks[ok]))
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("coords", ["int32", "int64"])
+def test_k9_occtab_form_matches_native(world, coords):
+    """K9's occtab form (a light index, R = 4) against the host's native
+    walk (fm_sa_batch) on 65,536 random rows and the edge rows, positions
+    and walk steps; then FMIndex.sa_lookup through DeviceSA, the engine's
+    walker, on its own stream, on the light index and on a full one (K9's
+    ckpt form): the same positions, every rank counted in device_ranks."""
+    from bwa_tpu_torch import tracing
+    from bwa_tpu_torch.index.fmindex import DeviceFMIndex, FMIndex
+    from bwa_tpu_torch.ops import fm as fm_ops
+
+    fm = FMIndex.load(world["fm"].prefix)
+    fm.__dict__["sad"] = None  # the native walk
+    tt = DeviceFMIndex(fm, light=True, occ_r=4, device="cuda").tree()
+    full = DeviceFMIndex(fm, device="cuda").tree()
+    if coords == "int64":
+        tt, full = _tree64(tt), _tree64(full)
+    assert fm_ops.sa_form(tt) == "occtab" and fm_ops.sa_form(full) == "ckpt"
+    rng = np.random.default_rng(2)
+    ks = np.concatenate([rng.integers(0, fm.seq_len + 1, 65536),
+                         [0, fm.primary, fm.primary - 1, fm.primary + 1,
+                          fm.seq_len, fm.seq_len - 1, 31, 32, 33]])
+    tracing.drain()
+    tracing.enable()
+    try:
+        want = fm.sa_lookup(ks)
+        n0 = fm_ops.sa_launches
+        work = torch.zeros(2, dtype=torch.int64, device="cuda")
+        got = fm_ops.sa_batch(tt, torch.from_numpy(ks).cuda(), work=work)
+        torch.cuda.synchronize()
+        assert fm_ops.sa_launches == n0 + 1 and got.dtype == tt["cdt"]
+        via = [fm.sa_lookup(ks, card=fm_ops.DeviceSA(t, "cuda"))
+               for t in (tt, full)]
+    finally:
+        tracing.enable(False)
+    host, *cards = [s for s in tracing.drain() if s.name == "sa_lookup"]
+    assert len(cards) == 2
+    assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+    assert int(work[0]) == host.counters["walk_steps"]
+    for v, card in zip(via, cards):
+        assert np.array_equal(v, want)
+        assert card.counters == dict(host.counters, device_ranks=len(ks))
+
+
 def _read_rows(world, long=False):
     """The short reads plus random reads with Ns (one read a row), or the
     600 bp reads repeated to 8,000 bases a row (lists past a block's

@@ -179,7 +179,8 @@ def test_sa_lookup_counts_walk_steps(world):
             k = host.inv_psi(k)
             steps += 1
     assert sp.name == "sa_lookup"
-    assert sp.counters == {"ranks": 300, "walk_steps": steps} and steps > 0
+    assert sp.counters == {"ranks": 300, "walk_steps": steps,
+                           "device_ranks": 0} and steps > 0
     assert pos.tolist() == [host.sa_walk(int(k)) for k in ranks]
 
 
